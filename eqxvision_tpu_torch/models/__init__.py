@@ -1,0 +1,2 @@
+from .classification import *  # noqa: F401,F403
+from .registry import create_model, list_models

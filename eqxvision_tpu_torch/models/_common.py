@@ -1,0 +1,39 @@
+"""Shared model plumbing (eqxvision_tpu/models/_common.py).
+
+Input contract, as in the JAX package: batched NHWC ``(N, H, W, C)``, or one
+``(C, H, W)`` sample, which is transposed, batched, and unbatched again on
+the way out.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+
+def ensure_nhwc(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """Accept (N,H,W,C) or a single (C,H,W) sample; return NHWC + flag."""
+    if x.ndim == 3:
+        return x.permute(1, 2, 0)[None], True
+    if x.ndim != 4:
+        raise ValueError(f"expected (N,H,W,C) or (C,H,W) input, got shape {tuple(x.shape)}")
+    return x, False
+
+
+def debatch(out: torch.Tensor, was_single: bool) -> torch.Tensor:
+    return out[0] if was_single else out
+
+
+def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    """An omitted generator means a CPU generator seeded with 0, as an
+    omitted key means PRNGKey(0) in the JAX package."""
+    return torch.Generator().manual_seed(0) if generator is None else generator
+
+
+def maybe_load_state_dict(model: nn.Module, torch_weights: Optional[str]) -> nn.Module:
+    """Factory tail: load a local torch ``state_dict`` file, strictly."""
+    if torch_weights is not None:
+        state = torch.load(torch_weights, map_location="cpu", weights_only=True)
+        model.load_state_dict(state)
+    return model

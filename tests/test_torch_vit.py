@@ -1,0 +1,129 @@
+"""The ViT slice of the PyTorch port against the JAX package, end to end.
+
+Both packages build the model through ``create_model``; the JAX parameters
+are carried into the port with ``weights.from_jax`` and the logits compared
+in f32 at atol 1e-4, rtol 1e-4 (the repo's logit-parity bound), with the
+JAX model on its plain attention and on its Pallas kernel (interpret
+mode). Also: the port's full-width ``vit_base`` parameter names and shapes
+against the vendored manifest, the port never importing JAX, and
+``chip_smoke.py`` refusing to run without a card.
+"""
+import contextlib
+import importlib
+import json
+import os
+import subprocess
+import sys
+from unittest import mock
+
+import jax
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eqxvision_tpu.core import tree_inference
+from eqxvision_tpu.models import create_model as jax_create_model
+from eqxvision_tpu.weights.serialize import _flatten_with_paths
+from eqxvision_tpu_torch.models import create_model, list_models
+from eqxvision_tpu_torch.weights import load_jax_params
+
+jax_attention = importlib.import_module("eqxvision_tpu.ops.attention")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CONFIGS = {
+    "vit_tiny-depth2": ("vit_tiny", dict(img_size=32, depth=2, num_classes=10)),
+    "width128-2heads": ("vit_tiny", dict(img_size=32, depth=2, num_classes=10, embed_dim=128, num_heads=2)),
+}
+
+
+def _build_pair(name, kwargs):
+    model, _ = jax_create_model(name, **kwargs)
+    model = tree_inference(model, True)
+    params = {k: np.asarray(v) for k, v in _flatten_with_paths(model)}
+    port = load_jax_params(create_model(name, **kwargs), params).eval()
+    return model, port
+
+
+def _interpret(orig, calls):
+    def wrapper(*args, **kwargs):
+        calls.append(1)
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    return wrapper
+
+
+@pytest.mark.parametrize("jax_path", ["reference", "pallas-interpret"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_logits_match_jax(config, jax_path):
+    """The JAX model runs either its plain attention (its CPU dispatch) or,
+    as on the TPU, its Pallas kernel, here in interpret mode."""
+    name, kwargs = CONFIGS[config]
+    model, port = _build_pair(name, kwargs)
+    x = np.random.RandomState(0).randn(3, 32, 32, 3).astype(np.float32) * 0.5
+    calls = []
+    with contextlib.ExitStack() as stack:
+        if jax_path == "pallas-interpret":
+            stack.enter_context(mock.patch.object(pl, "pallas_call", _interpret(pl.pallas_call, calls)))
+            stack.enter_context(mock.patch.object(jax_attention, "_use_pallas", lambda *a: True))
+        ref, _ = jax.jit(model.__call__)(jnp.asarray(x))
+    assert len(calls) == (2 if jax_path == "pallas-interpret" else 0)  # one kernel per block
+    with torch.no_grad():
+        out = port(torch.from_numpy(x)).numpy()
+    assert out.shape == (3, 10)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+def test_single_chw_sample_matches_jax():
+    model, port = _build_pair(*CONFIGS["vit_tiny-depth2"])
+    x = np.random.RandomState(1).randn(3, 32, 32).astype(np.float32) * 0.5
+    ref, _ = model(jnp.asarray(x))
+    with torch.no_grad():
+        out = port(torch.from_numpy(x)).numpy()
+    assert out.shape == (10,)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+def test_vit_base_state_dict_matches_manifest():
+    with open(os.path.join(REPO, "tests", "manifests", "vit_base.json")) as f:
+        doc = json.load(f)
+    model = create_model(doc["model"], device=torch.device("meta"), **doc["kwargs"])
+    got = [[k, list(v.shape)] for k, v in model.state_dict().items()]
+    assert got == doc["entries"]
+
+
+def test_same_seed_same_weights_and_registry():
+    a = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3))
+    b = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3))
+    assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+    assert list_models() == ["vit_base", "vit_small", "vit_tiny"]
+    with pytest.raises(NotImplementedError):
+        create_model("vit_base", pretrained=True)
+    with pytest.raises(ValueError):
+        create_model("resnet50")
+
+
+def test_torch_weights_file_round_trip(tmp_path):
+    a = create_model("vit_tiny", img_size=32, depth=1, num_classes=4, generator=torch.Generator().manual_seed(1))
+    path = tmp_path / "vit.pt"
+    torch.save(a.state_dict(), path)
+    b = create_model("vit_tiny", img_size=32, depth=1, num_classes=4, torch_weights=str(path))
+    assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+
+
+def test_import_leaves_jax_out():
+    code = "import sys, eqxvision_tpu_torch; sys.exit(1 if 'jax' in sys.modules else 0)"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    assert subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, timeout=120).returncode == 0
+
+
+def test_chip_smoke_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; chip_smoke.py would run")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
