@@ -1,18 +1,25 @@
-"""Drive the PyTorch port's ViT-B/16 inference path once on one NVIDIA card.
+"""Drive the PyTorch port's inference paths once on one NVIDIA card.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs a
 CUDA card and exits non-zero without one; it imports nothing of JAX.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the CUDA kernels from ``eqxvision_tpu_torch/csrc`` with nvcc and
-   prints the build time and the compiler's report.
+2. Builds the CUDA kernels from ``eqxvision_tpu_torch/csrc`` with nvcc (one
+   process per source, in parallel) and prints the build time and the
+   compiler's report.
 3. Holds each kernel against its plain torch version on the card at the
-   slice's shapes, and times both with CUDA events in turns
-   (plain, kernel, kernel, plain).
-4. Serves ``vit_base`` (random weights from a seed): f32 logits of a batch
-   of 2 against the same weights on the CPU's plain path, then requests of
-   1, 8 and 256 NHWC 224-px images in bf16 with the kernel launch counts
-   read around them, then b256 bf16 images/s.
+   shapes its paths give it, and times both with CUDA events in turns
+   (plain, kernel, kernel, plain): the fused-qkv attention at ViT-B/16's
+   shapes; the window attention at every stage shape of ``swin_t``
+   (224 px) and ``swin_v2_t`` (256 px) at b128 and the whole Swin block at
+   their C <= 192 stages, each also with a head biased 300 log-units below
+   the others; and a ragged input (odd window count from padding, a
+   window wider than the padded side) through the NHWC entry points.
+4. Serves ``vit_base``, ``swin_t`` (224 px) and ``swin_v2_t`` (256 px),
+   random weights from a seed: f32 logits of a batch of 2 against the same
+   weights on the CPU's plain path, then bf16 requests of several batch
+   sizes with every kernel's launch count set to 0 before each path and
+   read after it, then images/s at the largest batch.
 
 Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
@@ -23,20 +30,34 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
-# bf16 kernel vs the f32 plain version on the same bf16-rounded inputs
-# (tests/test_hw_parity.py uses this bound for the TPU kernel).
-BF16_BOUND = 0.02
+# H100 SXM data sheet: device memory rate, dense peak per input type
+# (bf16 on the tensor cores, f32 on the CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# bf16 kernel vs the f32 plain version on the same bf16-rounded inputs:
+# the bounds of tests/test_hw_parity.py for the TPU kernels.
+QKV_BF16_BOUND = 0.02
+WINDOW_BF16_BOUND = {False: 0.02, True: 0.12}  # v1, v2 (logit scale up to 100 amplifies q/k rounding)
+BLOCK_BF16_BOUND = {False: 0.05, True: 0.12}
 # f32 kernel vs f32 plain version: both in full f32 (no TF32); they differ
-# only in summation order over <= 197 keys and 64 head dims and in expf,
-# about 1e-6 on outputs of size ~1.
+# in summation order and expf, about 1e-6 on outputs of size ~1. The whole
+# block sums four products of up to 768 terms and two LayerNorms.
 F32_BOUND = 1e-4
 # f32 logits on the card vs the CPU's plain path, same weights and input:
 # f32 sums in another order on two devices, through 12 blocks whose dot
-# products run over 768 and 3072 terms.
+# products run over up to 3072 terms.
 LOGIT_BOUND = 1e-3
-KERNEL_CASES = [(1, 197, 12, 64), (8, 197, 12, 64), (256, 197, 12, 64), (4, 50, 3, 64)]
-REQUESTS = (1, 8, 256)
+QKV_CASES = [(1, 197, 12, 64), (8, 197, 12, 64), (256, 197, 12, 64), (4, 50, 3, 64)]
+SWIN = {  # name: (image size, window, embed dim, heads per stage)
+    "swin_t": (224, 7, 96, (3, 6, 12, 24)),
+    "swin_v2_t": (256, 8, 96, (3, 6, 12, 24)),
+}
+SWIN_BATCH = 128
+VIT_REQUESTS = (1, 8, 256)
+SWIN_REQUESTS = (1, 8, 128)
 
 
 def _check(ok, what):
@@ -55,80 +76,286 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def check_kernels(attention):
+def _turns(plain, kernel, iters):
+    """Mean kernel and plain times over turns plain, kernel, kernel, plain."""
+    with torch.inference_mode():
+        t = [_time_ms(fn, iters) for fn in (plain, kernel, kernel, plain)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def _bound_ms(n_bytes, flops, dtype):
+    """Least time the card could take: bytes over the memory rate or
+    operations over the peak for the type, whichever is larger."""
+    mem, ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(mem, ops), "bytes" if mem >= ops else "operations")
+
+
+def _compare(out, ref, bound, what):
+    torch.cuda.synchronize()
+    _check(out.shape == ref.shape, f"{what}: shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+    _check(bool(torch.isfinite(out).all()), f"{what}: output not finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    _check(err < bound, f"{what}: max|kernel - plain_f32| {err} >= {bound}")
+    return err
+
+
+def _report(name, shape, dtype, err, bound, ms, plain_ms, turns, extra=""):
+    print(
+        f"{name} {shape} {str(dtype)[6:]}: max|kernel-plain_f32| {err:.3e} (bound {bound}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (turns plain/kernel/kernel/plain {', '.join(f'{t:.4f}' for t in turns)}){extra}"
+    )
+
+
+def check_fused_qkv(attention):
     """fused_qkv_attention kernel vs its plain version; returns the b256
-    bf16 numbers (the shape of the served model's calls)."""
+    bf16 numbers (the shape of vit_base's calls)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     main = None
-    for b, l, h, dh in KERNEL_CASES:
+    for b, l, h, dh in QKV_CASES:
         scale = dh**-0.5
         qkv32 = torch.randn(b, l, 3 * h * dh, device="cuda", generator=gen)
-        for dtype, bound in ((torch.bfloat16, BF16_BOUND), (torch.float32, F32_BOUND)):
+        for dtype, bound in ((torch.bfloat16, QKV_BF16_BOUND), (torch.float32, F32_BOUND)):
             qkv = qkv32.to(dtype)
             with torch.no_grad():
                 out = attention.fused_qkv_attention(qkv, h, scale)
                 ref = attention.fused_qkv_attention_reference(qkv.float(), h, scale)
-            torch.cuda.synchronize()
-            _check(out.shape == (b, l, h * dh) and out.dtype == dtype, f"kernel output {out.shape} {out.dtype}")
-            _check(bool(torch.isfinite(out).all()), "kernel output not finite")
-            err = (out.float() - ref).abs().max().item()
-            _check(err < bound, f"kernel vs plain max|diff| {err} >= {bound} at {(b, l, h, dh)} {dtype}")
-
-            def kernel():
-                attention.fused_qkv_attention(qkv, h, scale)
-
-            def plain():
-                attention.fused_qkv_attention_reference(qkv, h, scale)
-
-            with torch.no_grad():
-                turns = [_time_ms(fn, 20) for fn in (plain, kernel, kernel, plain)]
-            ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-            print(
-                f"fused_qkv_attention B={b} L={l} H={h} Dh={dh} {str(dtype)[6:]}: max|kernel-plain_f32| {err:.3e} "
-                f"(bound {bound}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(turns plain/kernel/kernel/plain {', '.join(f'{t:.4f}' for t in turns)})"
+            err = _compare(out, ref, bound, f"fused_qkv_attention {(b, l, h, dh)} {dtype}")
+            ms, plain_ms, turns = _turns(
+                lambda: attention.fused_qkv_attention_reference(qkv, h, scale),
+                lambda: attention.fused_qkv_attention(qkv, h, scale), 20,
             )
+            extra = ""
             if (b, dtype) == (256, torch.bfloat16):
-                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                q, k, v = qkv.view(b, l, 3, h, dh).permute(2, 0, 3, 1, 4).unbind(0)
+                with torch.inference_mode():
+                    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+                e = qkv.element_size()
+                bound_ms, bound_by = _bound_ms(4 * b * l * h * dh * e, 4 * b * h * l * l * dh, dtype)
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+                extra = f"; library (SDPA) {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})"
+            _report("fused_qkv_attention", (b, l, h, dh), dtype, err, bound, ms, plain_ms, turns, extra)
     return main
 
 
-def serve(create_model, attention):
-    """vit_base as a server; returns the main path's launch count."""
-    model = create_model("vit_base", generator=torch.Generator().manual_seed(0), device="cuda").eval()
-    x2 = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+def _stage_shapes(name):
+    """(stage, nW, L, C, H, shifted) of each stage of a Swin model at b128."""
+    size, win, dim, heads = SWIN[name]
+    side = size // 4
+    for s, h in enumerate(heads):
+        nw = (-(-side // win)) ** 2
+        yield s + 1, nw, win * win, dim * 2**s, h, side > win
+        side = -(-side // 2)
+
+
+def _window_inputs(nw, L, c, h, shifted, v2, dtype, gen):
+    """qkv, bias and v2 logit scales as tests/test_hw_parity.py draws them:
+    q/k/v of std 0.5 (its x @ W), logit scales 100, 0.02 and 10 by head."""
+    qkv = (0.5 * torch.randn(SWIN_BATCH, nw, L, 3 * c, device="cuda", generator=gen)).to(dtype)
+    bias = torch.randn(nw if shifted else 1, h, L, L, device="cuda", generator=gen)
+    if shifted:
+        bias[:, :, : L // 2, L // 2 :] -= 100.0  # a shift mask's -100 between regions
+    gs = torch.tensor([100.0, 0.02, 10.0], device="cuda").repeat(h // 3 + 1)[:h] if v2 else None
+    return qkv, bias, (1.0 if v2 else (c // h) ** -0.5), gs
+
+
+def check_window_attention(attention):
+    """window_qkv_attention kernel vs its plain version at every stage shape
+    of swin_t and swin_v2_t at b128; returns swin_t stage 3 bf16's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    main = None
+    for name in SWIN:
+        v2 = name.startswith("swin_v2")
+        for stage, nw, L, c, h, shifted in _stage_shapes(name):
+            for dtype in (torch.bfloat16, torch.float32):
+                qkv, bias, scale, gs = _window_inputs(nw, L, c, h, shifted, v2, dtype, gen)
+                bound = WINDOW_BF16_BOUND[v2] if dtype == torch.bfloat16 else F32_BOUND
+                with torch.no_grad():
+                    out = attention.window_qkv_attention(qkv, bias, h, scale, gs)
+                    ref = attention.window_qkv_attention_reference(qkv.float(), bias, h, scale, gs)
+                what = f"window_qkv_attention {name} stage {stage}"
+                err = _compare(out, ref, bound, f"{what} {dtype}")
+                ms, plain_ms, turns = _turns(
+                    lambda: attention.window_qkv_attention_reference(qkv, bias, h, scale, gs),
+                    lambda: attention.window_qkv_attention(qkv, bias, h, scale, gs), 10,
+                )
+                extra = ""
+                if (name, stage, dtype) == ("swin_t", 3, torch.bfloat16):
+                    n = SWIN_BATCH * nw
+                    q, k, v = (t.contiguous() for t in qkv.view(n, L, 3, h, c // h).permute(2, 0, 3, 1, 4).unbind(0))
+                    mask = bias.to(dtype).expand(SWIN_BATCH, nw, h, L, L).reshape(n, h, L, L)
+                    with torch.inference_mode():
+                        library_ms = _time_ms(
+                            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 10
+                        )
+                    e = qkv.element_size()
+                    n_bytes = qkv.numel() * e + out.numel() * e + bias.numel() * 4
+                    bound_ms, bound_by = _bound_ms(n_bytes, 4 * n * h * L * L * (c // h), dtype)
+                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=library_ms)
+                    extra = (f"; library (SDPA, float mask, q/k/v and mask laid out before the call) "
+                             f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+                _report(what, (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms, plain_ms, turns, extra)
+
+    # a head biased 300 log-units below the others: finite, and equal to the plain version
+    for dtype, bound in ((torch.bfloat16, WINDOW_BF16_BOUND[False]), (torch.float32, F32_BOUND)):
+        qkv, bias, scale, gs = _window_inputs(4, 49, 384, 12, True, False, dtype, gen)
+        bias[:, 5] -= 300.0
+        with torch.no_grad():
+            out = attention.window_qkv_attention(qkv, bias, 12, scale)
+            err = _compare(out, attention.window_qkv_attention_reference(qkv.float(), bias, 12, scale), bound,
+                           f"window_qkv_attention, head 300 below, {dtype}")
+        print(f"window_qkv_attention {str(dtype)[6:]} with one head 300 log-units below the others: finite, "
+              f"max|diff| {err:.3e} (bound {bound})")
+    return main
+
+
+def _block_inputs(c, h, nw, L, shifted, v2, dtype, gen, W):
+    def r(*shape, s=0.1, base=0.0):
+        return base + s * torch.randn(*shape, device="cuda", generator=gen)
+
+    hidden = 4 * c
+    # weights at the models' init scale, 1/sqrt(fan_in) up to a constant
+    p = W.SwinBlockParams(
+        r(c, base=1.0), r(c), r(3 * c, c, s=c**-0.5).to(dtype), r(3 * c), r(c, c, s=c**-0.5).to(dtype), r(c),
+        r(c, base=1.0), r(c), r(hidden, c, s=c**-0.5).to(dtype), r(hidden), r(c, hidden, s=hidden**-0.5).to(dtype), r(c),
+    )
+    x = r(SWIN_BATCH, nw, L, c, s=0.5).to(dtype)
+    bias = torch.randn(nw if shifted else 1, h, L, L, device="cuda", generator=gen)
+    if shifted:
+        bias[:, :, : L // 2, L // 2 :] -= 100.0
+    # v2: the init logit scale 10, the case tests/test_hw_parity.py bounds for the whole block
+    gs = torch.full((h,), 10.0, device="cuda") if v2 else None
+    return x, p, bias, gs
+
+
+def check_block(W):
+    """fused_swin_block kernel vs its plain version at the whole-block
+    stages (C <= 192) of swin_t and swin_v2_t at b128; returns swin_t
+    stage 1 bf16's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main = None
+    for name in SWIN:
+        v2 = name.startswith("swin_v2")
+        for stage, nw, L, c, h, shifted in _stage_shapes(name):
+            if c > W.BLOCK_MAX_CHANNELS:
+                continue
+            for dtype in (torch.bfloat16, torch.float32):
+                x, p, bias, gs = _block_inputs(c, h, nw, L, shifted, v2, dtype, gen, W)
+                scale = 1.0 if v2 else (c // h) ** -0.5
+                p32 = W.SwinBlockParams(*(t.float() for t in p))
+                bound = BLOCK_BF16_BOUND[v2] if dtype == torch.bfloat16 else F32_BOUND
+                with torch.no_grad():
+                    out = W.fused_swin_block(x, p, bias, h, scale, 1e-5, v2, gs)
+                    ref = W.fused_swin_block_reference(x.float(), p32, bias, h, scale, 1e-5, v2, gs)
+                what = f"fused_swin_block {name} stage {stage}"
+                err = _compare(out, ref, bound, f"{what} {dtype}")
+                ms, plain_ms, turns = _turns(
+                    lambda: W.fused_swin_block_reference(x, p, bias, h, scale, 1e-5, v2, gs),
+                    lambda: W.fused_swin_block(x, p, bias, h, scale, 1e-5, v2, gs), 10,
+                )
+                extra = ""
+                if (name, stage, dtype) == ("swin_t", 1, torch.bfloat16):
+                    e, tokens, hidden = x.element_size(), x.numel() // c, 4 * c
+                    n_bytes = (2 * x.numel() + (4 * c * c + 2 * c * hidden)) * e + bias.numel() * 4 + (8 * c + hidden) * 4
+                    flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * tokens * L * c
+                    bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
+                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None)
+                    extra = f"; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)"
+                _report(what, (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms, plain_ms, turns, extra)
+    print("fused_swin_block library_ms: null; no single PyTorch call computes a whole Swin block")
+
+    for dtype, bound in ((torch.bfloat16, BLOCK_BF16_BOUND[False]), (torch.float32, F32_BOUND)):
+        x, p, bias, gs = _block_inputs(96, 3, 64, 49, True, False, dtype, gen, W)
+        bias[:, 1] -= 300.0
+        p32 = W.SwinBlockParams(*(t.float() for t in p))
+        with torch.no_grad():
+            out = W.fused_swin_block(x, p, bias, 3, 32**-0.5)
+            err = _compare(out, W.fused_swin_block_reference(x.float(), p32, bias, 3, 32**-0.5, 1e-5, False), bound,
+                           f"fused_swin_block, head 300 below, {dtype}")
+        print(f"fused_swin_block {str(dtype)[6:]} with one head 300 log-units below the others: finite, "
+              f"max|diff| {err:.3e} (bound {bound})")
+    return main
+
+
+def check_ragged(W):
+    """The NHWC entry points on an input whose padding gives an odd window
+    count (3) and whose padded width one window covers (no shift there),
+    card (kernels) against CPU (plain versions), f32."""
+    gen = torch.Generator().manual_seed(3)
+    c, h, win = 96, 3, (7, 7)
+    x = torch.randn(2, 20, 6, c, generator=gen) * 0.5
+
+    def r(*shape, base=0.0):
+        return base + 0.1 * torch.randn(*shape, generator=gen)
+
+    kw = dict(
+        norm1_w=r(c, base=1.0), norm1_b=r(c), qkv_weight=r(3 * c, c), qkv_bias=r(3 * c), proj_weight=r(c, c),
+        proj_bias=r(c), relative_position_bias=torch.randn(1, h, 49, 49, generator=gen), norm2_w=r(c, base=1.0),
+        norm2_b=r(c), fc1_weight=r(4 * c, c), fc1_bias=r(4 * c), fc2_weight=r(c, 4 * c), fc2_bias=r(c),
+        window_size=win, shift_size=(3, 3), num_heads=h,
+    )
+    card_kw = {k: v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()}
+    with torch.no_grad():
+        block = W.fused_swin_block_v1(x.cuda(), **card_kw).cpu()
+        block_ref = W.fused_swin_block_v1(x, **kw)
+        attn_args = ("qkv_weight", "proj_weight", "relative_position_bias")
+        attn = W.shifted_window_attention(
+            x.cuda(), *(card_kw[a] for a in attn_args), win, h, (3, 3), qkv_bias=card_kw["qkv_bias"],
+            proj_bias=card_kw["proj_bias"],
+        ).cpu()
+        attn_ref = W.shifted_window_attention(
+            x, *(kw[a] for a in attn_args), win, h, (3, 3), qkv_bias=kw["qkv_bias"], proj_bias=kw["proj_bias"],
+        )
+    for what, got, ref in (("fused_swin_block_v1", block, block_ref), ("shifted_window_attention", attn, attn_ref)):
+        _check(got.shape == x.shape and bool(torch.isfinite(got).all()), f"ragged {what}: malformed output")
+        err = (got - ref).abs().max().item()
+        _check(err < F32_BOUND, f"ragged {what}: card vs CPU {err}")
+        print(f"ragged input {tuple(x.shape)}, window 7 (3 windows, width covered): {what} card vs CPU "
+              f"max|diff| {err:.3e} (bound {F32_BOUND})")
+
+
+def serve(create_model, name, size, requests, counters, expected):
+    """``name`` as a server. ``counters`` are the kernel wrappers whose
+    ``launches`` the path must raise by ``expected`` per forward; returns
+    the counts of the request run."""
+    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda").eval()
+    x2 = torch.randn(2, size, size, 3, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         card = model(x2.cuda()).cpu()
-        cpu_model = create_model("vit_base", generator=torch.Generator().manual_seed(0)).eval()
+        cpu_model = create_model(name, generator=torch.Generator().manual_seed(0), device="cpu").eval()
         cpu_model.load_state_dict(model.state_dict())
         cpu = cpu_model(x2)
     err = (card - cpu).abs().max().item()
-    print(f"vit_base f32 b2 logits, card vs CPU plain path: max|diff| {err:.3e} (bound {LOGIT_BOUND}), "
+    print(f"{name} f32 b2 logits, card vs CPU plain path: max|diff| {err:.3e} (bound {LOGIT_BOUND}), "
           f"max|logit| {cpu.abs().max().item():.3f}")
-    _check(card.shape == (2, 1000) and bool(torch.isfinite(card).all()), "f32 logits malformed")
-    _check(err < LOGIT_BOUND, f"card vs CPU logits differ by {err}")
+    _check(card.shape == (2, 1000) and bool(torch.isfinite(card).all()), f"{name} f32 logits malformed")
+    _check(err < LOGIT_BOUND, f"{name}: card vs CPU logits differ by {err}")
 
     model = model.to(torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    batches = {b: torch.randn(b, 224, 224, 3, device="cuda", generator=gen).to(torch.bfloat16) for b in REQUESTS}
-    attention.fused_qkv_attention.launches = 0
-    for b in REQUESTS:
-        before = attention.fused_qkv_attention.launches
+    batches = {b: torch.randn(b, size, size, 3, device="cuda", generator=gen).to(torch.bfloat16) for b in requests}
+    for fn in counters:
+        fn.launches = 0
+    for b in requests:
+        before = [fn.launches for fn in counters]
         with torch.inference_mode():
             logits = model(batches[b])
         torch.cuda.synchronize()
-        launched = attention.fused_qkv_attention.launches - before
-        print(f"request b={b} bf16: logits {tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())} "
-              f"kernel launches {launched}")
-        _check(logits.shape == (b, 1000) and bool(torch.isfinite(logits).all()), f"b={b} logits malformed")
-        _check(launched == 12, f"b={b}: {launched} fused_qkv_attention launches, expected 12")
-    launches = attention.fused_qkv_attention.launches
+        launched = [fn.launches - n for fn, n in zip(counters, before)]
+        print(f"{name} request b={b} bf16: logits {tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())} "
+              f"launches {dict(zip((fn.__name__ for fn in counters), launched))}")
+        _check(logits.shape == (b, 1000) and bool(torch.isfinite(logits).all()), f"{name} b={b} logits malformed")
+        _check(launched == list(expected), f"{name} b={b}: launches {launched}, expected {list(expected)} per forward")
+    counts = {fn.__name__: fn.launches for fn in counters}
+    _check(all(counts.values()), f"{name}: a kernel of the path was never launched: {counts}")
 
-    x = batches[256]
+    b = requests[-1]
     with torch.inference_mode():
-        ms = _time_ms(lambda: model(x), 10)
-    print(f"vit_base b256 bf16: {ms:.3f} ms per forward, {256 / ms * 1000:.1f} images/s")
-    return launches
+        ms = _time_ms(lambda: model(batches[b]), 10)
+    print(f"{name} b{b} bf16: {ms:.3f} ms per forward, {b / ms * 1000:.1f} images/s")
+    return counts
 
 
 def main():
@@ -138,6 +365,7 @@ def main():
     from eqxvision_tpu_torch import _native
     from eqxvision_tpu_torch.models import create_model
     from eqxvision_tpu_torch.ops import attention
+    from eqxvision_tpu_torch.ops import window_attention as W
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -145,7 +373,6 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
@@ -153,17 +380,29 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({_native.library_path().name})")
     print(_native.build_log().strip())
 
-    main_numbers = check_kernels(attention)
-    launches = serve(create_model, attention)
+    qkv_main = check_fused_qkv(attention)
+    window_main = check_window_attention(attention)
+    block_main = check_block(W)
+    check_ragged(W)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_qkv_attention",
-        "route": "cuda",
-        "source": "eqxvision_tpu_torch/csrc/fused_qkv_attention.cu",
-        "replaces": "eqxvision_tpu/ops/attention.py:276",
-        "launches": launches,
-        **main_numbers,
-    }]}))
+    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, [attention.fused_qkv_attention], (12,))
+    swin_counters = [W.fused_swin_block, attention.window_qkv_attention]
+    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, swin_counters, (4, 8))
+    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, swin_counters, (4, 8))
+
+    src = "eqxvision_tpu_torch/csrc/"
+    print(smi)
+    print(json.dumps({"kernels": [
+        {"name": "fused_qkv_attention", "route": "cuda", "source": src + "fused_qkv_attention.cu",
+         "replaces": ["eqxvision_tpu/ops/attention.py:245", "eqxvision_tpu/ops/attention.py:276"],
+         "launches": vit_counts["fused_qkv_attention"], **qkv_main},
+        {"name": "window_qkv_attention", "route": "cuda", "source": src + "window_attention.cu",
+         "replaces": ["eqxvision_tpu/ops/attention.py:445", "eqxvision_tpu/ops/attention.py:682"],
+         "launches": swin_counts["window_qkv_attention"], **window_main},
+        {"name": "fused_swin_block", "route": "cuda", "source": src + "swin_block.cu",
+         "replaces": ["eqxvision_tpu/ops/window_attention.py:79"],
+         "launches": swin_counts["fused_swin_block"], **block_main},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

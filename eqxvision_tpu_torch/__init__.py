@@ -2,8 +2,9 @@
 
 The JAX package is the reference; each ported module sits at the same path
 here. Public layouts stay the JAX package's (batched NHWC images); modules
-are ``nn.Module``s with torch's parameter names and layouts, take an explicit
-``device``, and initialise from an explicit ``torch.Generator``. Kernels the
+are ``nn.Module``s with torch's parameter names and layouts, build on the
+card unless the caller names another ``device``, and initialise from an
+explicit ``torch.Generator``. Kernels the
 JAX package wrote in Pallas for the TPU are hand-written CUDA for Hopper
 (``csrc/``), built at first use; importing the package builds nothing and
 never imports JAX.

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The CUDA C++ sources under ``csrc/`` have a plain C interface. At first use
-they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library under ``_build/`` beside this file, named by a hash of the sources
-and the flags, and loaded with ``ctypes``. A later process with the same
+The CUDA C++ sources under ``csrc/`` (with the headers they share) have a
+plain C interface. At first use
+each is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once in
+parallel, and the objects are linked into one shared library under
+``_build/`` beside this file, named by a hash of the sources and the flags,
+and loaded with ``ctypes``. A later process with the same
 sources loads the library that is there. Nothing is built when the package
 is imported, and there is no fallback: a missing ``nvcc`` or a failed build
 raises with the compiler's output.
@@ -21,10 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_SOURCES = ("fused_qkv_attention.cu",)
+_SOURCES = ("fused_qkv_attention.cu", "window_attention.cu", "swin_block.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the build log
 )
 
@@ -43,10 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     digest = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        digest.update((_CSRC / name).read_bytes())
+    for path in sorted(_CSRC.iterdir()):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return _BUILD / f"libeqxvision_kernels_{digest.hexdigest()[:16]}.so"
 
 
@@ -57,13 +59,30 @@ def build_log() -> str:
 
 def _compile(lib_path: Path) -> None:
     _BUILD.mkdir(exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib_path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    stem = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}")
+    objs = [Path(f"{stem}.{name}.o") for name in _SOURCES]
+    steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / name)] for name, o in zip(_SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in steps]
+    log, failed = [], []
+    for cmd, proc in zip(steps, procs):
+        output = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit code {proc.returncode}):\n{output}")
+    tmp = Path(f"{stem}.so.tmp")
+    if not failed:
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"link (exit code {proc.returncode}):\n{proc.stdout}")
+    lib_path.with_suffix(".log").write_text("\n".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: concurrent builders each publish a whole file
 
 
@@ -81,6 +100,18 @@ def library() -> ctypes.CDLL:
     lib.eqx_fused_qkv_attention.restype = c_int
     lib.eqx_fused_qkv_attention_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_fused_qkv_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_window_attention.argtypes = [
+        c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int, c_int, ctypes.c_float, c_int, c_ptr,
+    ]
+    lib.eqx_window_attention.restype = c_int
+    lib.eqx_window_attention_smem_bytes.argtypes = [c_int, c_int, c_int]
+    lib.eqx_window_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_swin_block.argtypes = [
+        *([c_ptr] * 16), *([c_int] * 7), ctypes.c_float, ctypes.c_float, c_int, c_int, c_ptr,
+    ]
+    lib.eqx_swin_block.restype = c_int
+    lib.eqx_swin_block_smem_bytes.argtypes = [c_int, c_int, c_int]
+    lib.eqx_swin_block_smem_bytes.restype = ctypes.c_longlong
     lib.eqx_cuda_error_string.argtypes = [c_int]
     lib.eqx_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -31,6 +31,19 @@ def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
     return torch.Generator().manual_seed(0) if generator is None else generator
 
 
+def resolve_device(device) -> torch.device:
+    """A model's device: the card unless the caller names another. Asking
+    for the card where there is none raises; nothing moves to the CPU
+    quietly."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available; models build on device='cuda' unless the caller "
+            "passes another device, e.g. device='cpu'"
+        )
+    return device
+
+
 def maybe_load_state_dict(model: nn.Module, torch_weights: Optional[str]) -> nn.Module:
     """Factory tail: load a local torch ``state_dict`` file, strictly."""
     if torch_weights is not None:

@@ -7,7 +7,7 @@ probabilities are materialised in plain torch, as in the JAX model.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
 from torch import nn
@@ -16,7 +16,7 @@ from ...core import init
 from ...layers import DropPath, MlpProjection, PatchEmbed
 from ...nn import Dropout, Identity, LayerNorm, Linear, gelu
 from ...ops.attention import fused_qkv_attention
-from .._common import debatch, default_generator, ensure_nhwc, maybe_load_state_dict
+from .._common import debatch, default_generator, ensure_nhwc, maybe_load_state_dict, resolve_device
 
 
 class _VitAttention(nn.Module):
@@ -86,10 +86,11 @@ class VisionTransformer(nn.Module):
         drop_path_rate: float = 0.0,
         *,
         generator: Optional[torch.Generator] = None,
-        device: Optional[torch.device] = None,
+        device: Union[str, torch.device] = "cuda",
     ):
         super().__init__()
         generator = default_generator(generator)
+        device = resolve_device(device)
         kw = dict(generator=generator, device=device)
         self.embed_dim = embed_dim
         self.patch_embed = PatchEmbed(img_size, patch_size, in_chans, embed_dim, **kw)

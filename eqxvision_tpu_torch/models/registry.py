@@ -1,14 +1,21 @@
 """Model registry: ``create_model("vit_base")`` over the ported factories
-(eqxvision_tpu/models/registry.py). Returns the ``nn.Module``."""
+(eqxvision_tpu/models/registry.py). Returns the ``nn.Module``, built on the
+card unless ``device=`` names another device."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List
 
 from torch import nn
 
-from .classification import vit_base, vit_small, vit_tiny
+from .classification import swin_b, swin_s, swin_t, swin_v2_b, swin_v2_s, swin_v2_t, vit_base, vit_small, vit_tiny
 
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "swin_b": swin_b,
+    "swin_s": swin_s,
+    "swin_t": swin_t,
+    "swin_v2_b": swin_v2_b,
+    "swin_v2_s": swin_v2_s,
+    "swin_v2_t": swin_v2_t,
     "vit_base": vit_base,
     "vit_small": vit_small,
     "vit_tiny": vit_tiny,

@@ -1,4 +1,4 @@
-"""Layers the ViT slice needs, with torch's parameter names and layouts."""
+"""Layers the ported models need, with torch's parameter names and layouts."""
 from .activations import Identity, Lambda, gelu
 from .conv import Conv2d
 from .dropout import Dropout

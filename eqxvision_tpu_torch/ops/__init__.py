@@ -1,4 +1,28 @@
 """Ops with a hand-written CUDA kernel and their plain torch versions."""
-from .attention import fused_qkv_attention, fused_qkv_attention_reference
+from .attention import (
+    fused_qkv_attention,
+    fused_qkv_attention_reference,
+    window_qkv_attention,
+    window_qkv_attention_reference,
+)
+from .window_attention import (
+    fused_swin_block,
+    fused_swin_block_reference,
+    fused_swin_block_supported,
+    fused_swin_block_v1,
+    fused_swin_block_v2,
+    shifted_window_attention,
+)
 
-__all__ = ["fused_qkv_attention", "fused_qkv_attention_reference"]
+__all__ = [
+    "fused_qkv_attention",
+    "fused_qkv_attention_reference",
+    "fused_swin_block",
+    "fused_swin_block_reference",
+    "fused_swin_block_supported",
+    "fused_swin_block_v1",
+    "fused_swin_block_v2",
+    "shifted_window_attention",
+    "window_qkv_attention",
+    "window_qkv_attention_reference",
+]

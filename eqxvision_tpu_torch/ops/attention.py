@@ -1,12 +1,13 @@
-"""Multi-head attention on a fused qkv projection (ViT's hot path).
+"""Multi-head attention read straight out of a fused qkv projection.
 
-Counterpart of ``fused_qkv_attention`` in eqxvision_tpu/ops/attention.py.
-A CUDA tensor goes through the hand-written Hopper kernel
-(``csrc/fused_qkv_attention.cu``); a CPU tensor goes through
-``fused_qkv_attention_reference``, a few lines of torch that mirror the JAX
-package's ``_fused_qkv_reference``. No other device is accepted, and on CUDA
-nothing falls back to the plain version. The gradient recomputes through the
-plain version, as the JAX package's ``_fused_qkv_bwd`` does.
+Counterparts of eqxvision_tpu/ops/attention.py's ``fused_qkv_attention``
+(ViT's hot path) and ``window_qkv_attention``/``packed_window_attention``
+(Swin's windows). A CUDA tensor goes through a hand-written Hopper kernel
+(``csrc/fused_qkv_attention.cu``, ``csrc/window_attention.cu``); a CPU
+tensor goes through the op's plain version, a few lines of torch that
+mirror the JAX package's references. No other device is accepted, and on
+CUDA nothing falls back to the plain version. Gradients recompute through
+the plain versions, as the JAX package's custom VJPs do.
 """
 from __future__ import annotations
 
@@ -73,21 +74,33 @@ def _forward(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     raise ValueError(f"fused_qkv_attention runs on cuda (kernel) or cpu (plain torch), not {qkv.device}")
 
 
+def recompute_grads(ctx, reference, grad_out, n_static):
+    """Backward of a kernel whose gradient is recomputed through its plain
+    version: the saved tensors are the kernel's tensor inputs, in order,
+    and ``reference(*tensors, *static)`` is the plain version. Returns one
+    gradient for each input of ``forward`` (None for the statics)."""
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        inputs = [
+            None if t is None else t.detach().requires_grad_(need)
+            for t, need in zip(saved, ctx.needs_input_grad)
+        ]
+        out = reference(*inputs, *ctx.static)
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
+    return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs), *([None] * n_static))
+
+
 class _FusedQkvAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, num_heads, scale):
         ctx.save_for_backward(qkv)
-        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.static = (num_heads, scale)
         return _forward(qkv, num_heads, scale)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (qkv,) = ctx.saved_tensors
-        with torch.enable_grad():
-            t = qkv.detach().requires_grad_(True)
-            out = fused_qkv_attention_reference(t, ctx.num_heads, ctx.scale)
-            (grad_qkv,) = torch.autograd.grad(out, t, grad_out)
-        return grad_qkv, None, None
+        return recompute_grads(ctx, fused_qkv_attention_reference, grad_out, n_static=2)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
@@ -109,3 +122,134 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, scale: Optional[float
 
 
 fused_qkv_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Swin window attention on a fused qkv projection
+# --------------------------------------------------------------------------
+
+WINDOW_MAX_HEAD_DIM = 64
+
+
+def window_qkv_attention_reference(
+    qkv: torch.Tensor, bias: torch.Tensor, num_heads: int, scale: float, cosine_gs: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Per window and head, softmax(q k^T * scale + bias) v, scores and
+    softmax in f32.
+
+    qkv: (B, nW, L, 3C) as [q heads | k heads | v heads]; bias (nW | 1, H, L,
+    L); returns (B, nW, L, C). ``cosine_gs`` (H,) selects Swin v2: q and k
+    are L2-normalised per head (norm floored at 1e-12) and q is multiplied
+    by its head's ``cosine_gs``, as the JAX package's
+    ``_packed_window_reference`` does, but kept in f32 where that rounds
+    them to the input type: with a logit scale of up to 100, rounding q
+    to bf16 moves scores by ~0.1. The probabilities are rounded to the
+    input type before p.V; both products accumulate in f32 and the output
+    is rounded once."""
+    b, nw, l, three_c = qkv.shape
+    c = three_c // 3
+    hd = c // num_heads
+    q, k, v = (t.reshape(b, nw, l, num_heads, hd).transpose(2, 3) for t in qkv.split(c, dim=-1))
+    if cosine_gs is not None:
+        q = torch.nn.functional.normalize(q.float(), dim=-1, eps=1e-12) * cosine_gs.float().reshape(num_heads, 1, 1)
+        k = torch.nn.functional.normalize(k.float(), dim=-1, eps=1e-12)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias.float()
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    o = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    return o.transpose(2, 3).reshape(b, nw, l, c)
+
+
+def _launch_window_kernel(qkv, bias, num_heads, scale, cosine_gs):
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"window_qkv_attention kernel takes float32 or bfloat16, got {qkv.dtype}")
+    b, nw, l, three_c = qkv.shape
+    head_dim = three_c // 3 // num_heads
+    if head_dim > WINDOW_MAX_HEAD_DIM:
+        raise ValueError(f"window_qkv_attention kernel takes head_dim <= {WINDOW_MAX_HEAD_DIM}, got {head_dim}")
+    qkv = qkv.contiguous()
+    if qkv.data_ptr() % 4:
+        raise ValueError("window_qkv_attention kernel reads qkv 4 bytes at a time; pass an aligned tensor")
+    bias = bias.to(device=qkv.device, dtype=torch.float32).contiguous()
+    gs = None if cosine_gs is None else cosine_gs.to(device=qkv.device, dtype=torch.float32).contiguous()
+    out = torch.empty((b, nw, l, three_c // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = _native.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.eqx_window_attention(
+            qkv.data_ptr(), bias.data_ptr(), None if gs is None else gs.data_ptr(), out.data_ptr(),
+            b * nw, nw, bias.shape[0], l, num_heads, head_dim, scale,
+            _DTYPE_CODES[qkv.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        smem = lib.eqx_window_attention_smem_bytes(l, head_dim, qkv.element_size())
+        _native.check(
+            err,
+            f"window_qkv_attention kernel on qkv {tuple(qkv.shape)} {qkv.dtype} with {num_heads} heads "
+            f"(one block needs {smem} bytes of shared memory)",
+        )
+    window_qkv_attention.launches += 1
+    return out
+
+
+def _window_forward(qkv, bias, num_heads, scale, cosine_gs):
+    if qkv.device.type == "cuda":
+        return _launch_window_kernel(qkv, bias, num_heads, scale, cosine_gs)
+    if qkv.device.type == "cpu":
+        return window_qkv_attention_reference(qkv, bias, num_heads, scale, cosine_gs)
+    raise ValueError(f"window_qkv_attention runs on cuda (kernel) or cpu (plain torch), not {qkv.device}")
+
+
+def _window_reference_positional(qkv, bias, cosine_gs, num_heads, scale):
+    return window_qkv_attention_reference(qkv, bias, num_heads, scale, cosine_gs)
+
+
+class _WindowQkvAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, cosine_gs, num_heads, scale):
+        ctx.save_for_backward(qkv, bias, cosine_gs)
+        ctx.static = (num_heads, scale)
+        return _window_forward(qkv, bias, num_heads, scale, cosine_gs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute_grads(ctx, _window_reference_positional, grad_out, n_static=2)
+
+
+def window_qkv_attention(
+    qkv: torch.Tensor, bias: torch.Tensor, num_heads: int, scale: float, cosine_gs: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Swin's windowed multi-head attention on a fused qkv projection.
+
+    qkv: (B, nW, L, 3C) laid out [q heads | k heads | v heads]; bias:
+    (nW | 1, H, L, L) additive (relative-position bias plus shift mask),
+    taken in f32; returns (B, nW, L, C) ready for the output projection.
+    ``cosine_gs`` (H,), the clamped exp(logit_scale), selects Swin v2's
+    cosine attention; pass ``scale=1`` with it.
+
+    Counterpart of both ``window_qkv_attention`` and
+    ``packed_window_attention`` in eqxvision_tpu/ops/attention.py, which
+    compute the same function on two layouts. The 128-lane padding of C
+    to Cp, the head-masked K/V stacks and the segment-sum softmax there are
+    the TPU's layout devices and are dropped here: the softmax is per head,
+    so a head whose scores sit far below another head's still gives finite,
+    exact output, and the bias-max prefold and per-head row-max devices
+    have no counterpart. A CUDA tensor goes through the hand-written
+    kernel (``csrc/window_attention.cu``), a CPU tensor through
+    ``window_qkv_attention_reference``. The gradient recomputes through the
+    plain version. ``window_qkv_attention.launches`` counts kernel launches.
+    """
+    if qkv.ndim != 4 or qkv.shape[-1] % 3:
+        raise ValueError(f"expected qkv of shape (B, nW, L, 3*C), got {tuple(qkv.shape)}")
+    b, nw, l, three_c = qkv.shape
+    c = three_c // 3
+    if c % num_heads:
+        raise ValueError(f"C={c} is not divisible by num_heads={num_heads}")
+    if bias.ndim != 4 or bias.shape[0] not in (1, nw) or tuple(bias.shape[1:]) != (num_heads, l, l):
+        raise ValueError(f"expected bias of shape ({nw} or 1, {num_heads}, {l}, {l}), got {tuple(bias.shape)}")
+    if cosine_gs is not None and cosine_gs.numel() != num_heads:
+        raise ValueError(f"cosine_gs needs one value per head ({num_heads}), got {tuple(cosine_gs.shape)}")
+    if cosine_gs is not None:
+        cosine_gs = cosine_gs.reshape(num_heads)
+    return _WindowQkvAttention.apply(qkv, bias, cosine_gs, num_heads, float(scale))
+
+
+window_qkv_attention.launches = 0

@@ -42,7 +42,7 @@ def _build_pair(name, kwargs):
     model, _ = jax_create_model(name, **kwargs)
     model = tree_inference(model, True)
     params = {k: np.asarray(v) for k, v in _flatten_with_paths(model)}
-    port = load_jax_params(create_model(name, **kwargs), params).eval()
+    port = load_jax_params(create_model(name, device="cpu", **kwargs), params).eval()
     return model, port
 
 
@@ -95,10 +95,12 @@ def test_vit_base_state_dict_matches_manifest():
 
 
 def test_same_seed_same_weights_and_registry():
-    a = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3))
-    b = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3))
+    a = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3), device="cpu")
+    b = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
-    assert list_models() == ["vit_base", "vit_small", "vit_tiny"]
+    assert list_models() == [
+        "swin_b", "swin_s", "swin_t", "swin_v2_b", "swin_v2_s", "swin_v2_t", "vit_base", "vit_small", "vit_tiny",
+    ]
     with pytest.raises(NotImplementedError):
         create_model("vit_base", pretrained=True)
     with pytest.raises(ValueError):
@@ -106,15 +108,38 @@ def test_same_seed_same_weights_and_registry():
 
 
 def test_torch_weights_file_round_trip(tmp_path):
-    a = create_model("vit_tiny", img_size=32, depth=1, num_classes=4, generator=torch.Generator().manual_seed(1))
+    a = create_model(
+        "vit_tiny", img_size=32, depth=1, num_classes=4, generator=torch.Generator().manual_seed(1), device="cpu"
+    )
     path = tmp_path / "vit.pt"
     torch.save(a.state_dict(), path)
-    b = create_model("vit_tiny", img_size=32, depth=1, num_classes=4, torch_weights=str(path))
+    b = create_model("vit_tiny", img_size=32, depth=1, num_classes=4, torch_weights=str(path), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
 
 
+def test_default_device_is_the_card():
+    """Without ``device=`` a model builds on the card; where there is none,
+    building raises rather than quietly using the CPU."""
+    if torch.cuda.is_available():
+        model = create_model("vit_tiny", img_size=32, depth=1)
+        assert next(model.parameters()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        create_model("vit_tiny", img_size=32, depth=1)
+
+
 def test_import_leaves_jax_out():
-    code = "import sys, eqxvision_tpu_torch; sys.exit(1 if 'jax' in sys.modules else 0)"
+    """Importing every module of the port, and chip_smoke.py, loads no JAX
+    and nothing of the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys, eqxvision_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'eqxvision_tpu.'))"
+        " or n == 'eqxvision_tpu']\n"
+        "sys.exit(1 if bad else 0)"
+    )
     env = dict(os.environ, PYTHONPATH=REPO)
     assert subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, timeout=120).returncode == 0
 
