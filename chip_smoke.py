@@ -13,17 +13,22 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    shapes; the window attention at every stage shape of ``swin_t``
    (224 px) and ``swin_v2_t`` (256 px) at b128 and the whole Swin block at
    their C <= 192 stages, each also with a head biased 300 log-units below
-   the others; and a ragged input (odd window count from padding, a
-   window wider than the padded side) through the NHWC entry points.
-4. Serves ``vit_base``, ``swin_t`` (224 px) and ``swin_v2_t`` (256 px),
-   random weights from a seed: f32 logits of a batch of 2 against the same
-   weights on the CPU's plain path, then bf16 requests of several batch
-   sizes with every kernel's launch count set to 0 before each path and
-   read after it, then images/s at the largest batch.
+   the others; a ragged input (odd window count from padding, a window
+   wider than the padded side) through the NHWC entry points; the
+   LayerNorm at vit_base b256's and convnext_tiny b128's shapes, rows
+   shifted by 1e3 and no affine; the public attention at swin_t stage 1's
+   and vit_base b256's shapes, a ragged one and a head 300 log-units down.
+4. Serves ``vit_base``, ``swin_t`` (224 px), ``swin_v2_t`` (256 px) and
+   ``convnext_tiny``, random weights from a seed: f32 logits of a batch of
+   2 against the same weights on the CPU's plain path, then bf16 requests
+   of several batch sizes with every kernel's launch count set to 0 before
+   each path and read after it, then images/s at the largest batch. Then
+   calls the public attention as a user would, counts reset the same way.
 
 Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
 """
+import importlib
 import json
 import subprocess
 import sys
@@ -58,6 +63,12 @@ SWIN = {  # name: (image size, window, embed dim, heads per stage)
 SWIN_BATCH = 128
 VIT_REQUESTS = (1, 8, 256)
 SWIN_REQUESTS = (1, 8, 128)
+CONVNEXT_REQUESTS = (1, 8, 128)
+# LayerNorm (rows, D): vit_base b256 (197 tokens), convnext_tiny b128 stage 1
+# (56 x 56) and stage 3 (14 x 14), and the 128-row classifier norm.
+LN_CASES = {"vit_base b256": (50432, 768), "convnext_tiny b128 stage 1": (401408, 96),
+            "convnext_tiny b128 stage 3": (25088, 384), "classifier b128": (128, 768)}
+LN_BF16_BOUND = 0.02  # one bf16 rounding of outputs below 8, against the f32 plain version
 
 
 def _check(ok, what):
@@ -279,6 +290,109 @@ def check_block(W):
     return main
 
 
+def _ln_inputs(rows, d, dtype, gen, shift=0.0, affine=True):
+    """x of std 2 (plus ``shift``); weights in [0.5, 1] and biases of std
+    0.2 in the input's type, as a bf16 model holds its LayerNorm parameters.
+    The outputs stay below 8, where one bf16 step is at most 2**-5, within
+    LN_BF16_BOUND of the f32 plain version after one rounding."""
+    x = (shift + 2.0 * torch.randn(rows, d, device="cuda", generator=gen)).to(dtype)
+    if not affine:
+        return x, None, None
+    w = (0.5 + 0.5 * torch.rand(d, device="cuda", generator=gen)).to(dtype)
+    return x, w, (0.2 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
+
+
+def check_layer_norm(LN):
+    """layer_norm kernel vs its plain version at the shapes of the ViT and
+    ConvNeXt paths, bf16 and f32, with and without affine, and rows shifted
+    by 1e3; returns convnext_tiny stage 1 bf16's numbers. The f32 kernel is
+    held against the plain version in f64, so that its own f32 sums are the
+    only error; the bf16 one against the plain version in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    main = None
+    cases = [(name, shape, 0.0, True) for name, shape in LN_CASES.items()]
+    cases += [("convnext_tiny b128 stage 3, rows shifted by 1e3", LN_CASES["convnext_tiny b128 stage 3"], 1e3, True),
+              ("vit_base b256, no affine", LN_CASES["vit_base b256"], 0.0, False)]
+    for name, (rows, d), shift, affine in cases:
+        for dtype, bound in ((torch.bfloat16, LN_BF16_BOUND), (torch.float32, F32_BOUND)):
+            x, w, b = _ln_inputs(rows, d, dtype, gen, shift, affine)
+            wide = torch.float64 if dtype == torch.float32 else torch.float32
+            with torch.no_grad():
+                out = LN.layer_norm(x, w, b, 1e-6)
+                ref = LN.layer_norm_reference(x.to(wide), *(None if t is None else t.to(wide) for t in (w, b)), 1e-6)
+            err = _compare(out, ref, bound, f"layer_norm {name} {dtype}")
+            ms, plain_ms, turns = _turns(
+                lambda: LN.layer_norm_reference(x, w, b, 1e-6), lambda: LN.layer_norm(x, w, b, 1e-6), 20,
+            )
+            with torch.inference_mode():
+                library_ms = _time_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6), 20)
+            e = x.element_size()
+            n_bytes = 2 * x.numel() * e + (0 if w is None else 2 * d * e)
+            # f32 arithmetic on the CUDA cores whatever the input type
+            bound_ms, bound_by = _bound_ms(n_bytes, 8 * x.numel(), torch.float32)
+            if (name, dtype) == ("convnext_tiny b128 stage 1", torch.bfloat16):
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+            _report(f"layer_norm {name}", (rows, d), dtype, err, bound, ms, plain_ms, turns,
+                    f"; library (F.layer_norm) {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return main
+
+
+def _attn_inputs(lead, n, dh, bias_lead, dtype, gen):
+    q, k, v = (torch.randn(*lead, n, dh, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    bias = None if bias_lead is None else torch.randn(*bias_lead, n, n, device="cuda", generator=gen)
+    return q, k, v, bias
+
+
+# Public attention: (q lead dims, N, Dh, bias lead dims or None). swin_t
+# stage 1 through the op, B = 128 * 64 * 3 with the (192, 49, 49) window and
+# head bias shared over the batch; vit_base b256 with no bias; a ragged one.
+ATTN_CASES = {"swin_t stage 1": ((128, 192), 49, 32, (1, 192)), "vit_base b256": ((256, 12), 197, 64, None),
+              "ragged": ((2, 2), 17, 8, (2,))}
+
+
+def check_attention(A):
+    """The public attention kernel vs its plain version; returns swin_t
+    stage 1 bf16's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    main = None
+    for name, (lead, n, dh, bias_lead) in ATTN_CASES.items():
+        for dtype, bound in ((torch.bfloat16, QKV_BF16_BOUND), (torch.float32, F32_BOUND)):
+            q, k, v, bias = _attn_inputs(lead, n, dh, bias_lead, dtype, gen)
+            scale = dh**-0.5
+            with torch.no_grad():
+                out = A.attention(q, k, v, bias, scale)
+                ref = A.attention_reference(q.float(), k.float(), v.float(), bias, scale)
+            err = _compare(out, ref, bound, f"attention {name} {dtype}")
+            ms, plain_ms, turns = _turns(
+                lambda: A.attention_reference(q, k, v, bias, scale), lambda: A.attention(q, k, v, bias, scale), 10,
+            )
+            mask = None if bias is None else bias.to(dtype).expand(*lead, n, n).contiguous()
+            with torch.inference_mode():
+                library_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 10)
+            e, batch = q.element_size(), q.numel() // (n * dh)
+            n_bytes = 4 * q.numel() * e + (0 if bias is None else bias.numel() * 4)
+            bound_ms, bound_by = _bound_ms(n_bytes, 4 * batch * n * n * dh, dtype)
+            if (name, dtype) == ("swin_t stage 1", torch.bfloat16):
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+            _report(f"attention {name}", tuple(q.shape), dtype, err, bound, ms, plain_ms, turns,
+                    f"; library (SDPA, expanded float mask laid out before the call) {library_ms:.4f} ms; "
+                    f"bound {bound_ms:.4f} ms ({bound_by})")
+
+    # one head biased 300 log-units below the others: finite, and equal to the plain version
+    for dtype, bound in ((torch.bfloat16, QKV_BF16_BOUND), (torch.float32, F32_BOUND)):
+        q, k, v, bias = _attn_inputs((4, 3), 49, 32, (3,), dtype, gen)
+        bias[1] -= 300.0
+        with torch.no_grad():
+            out = A.attention(q, k, v, bias)
+            err = _compare(out, A.attention_reference(q.float(), k.float(), v.float(), bias), bound,
+                           f"attention, head 300 below, {dtype}")
+        print(f"attention {str(dtype)[6:]} with one head 300 log-units below the others: finite, "
+              f"max|diff| {err:.3e} (bound {bound})")
+    return main
+
+
 def check_ragged(W):
     """The NHWC entry points on an input whose padding gives an odd window
     count (3) and whose padded width one window covers (no shift there),
@@ -316,15 +430,20 @@ def check_ragged(W):
               f"max|diff| {err:.3e} (bound {F32_BOUND})")
 
 
-def serve(create_model, name, size, requests, counters, expected):
-    """``name`` as a server. ``counters`` are the kernel wrappers whose
-    ``launches`` the path must raise by ``expected`` per forward; returns
-    the counts of the request run."""
-    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda").eval()
+def _reset(counters):
+    for fn in counters:
+        fn.launches = 0
+
+
+def serve(create_model, name, size, requests, counters, expected, **model_kwargs):
+    """``name`` as a server. ``counters`` are every kernel wrapper; the path
+    must raise their ``launches`` by ``expected`` per forward (0 for the
+    kernels it does not run); returns the counts of the request run."""
+    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda", **model_kwargs).eval()
     x2 = torch.randn(2, size, size, 3, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         card = model(x2.cuda()).cpu()
-        cpu_model = create_model(name, generator=torch.Generator().manual_seed(0), device="cpu").eval()
+        cpu_model = create_model(name, generator=torch.Generator().manual_seed(0), device="cpu", **model_kwargs).eval()
         cpu_model.load_state_dict(model.state_dict())
         cpu = cpu_model(x2)
     err = (card - cpu).abs().max().item()
@@ -336,8 +455,7 @@ def serve(create_model, name, size, requests, counters, expected):
     model = model.to(torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(2)
     batches = {b: torch.randn(b, size, size, 3, device="cuda", generator=gen).to(torch.bfloat16) for b in requests}
-    for fn in counters:
-        fn.launches = 0
+    _reset(counters)
     for b in requests:
         before = [fn.launches for fn in counters]
         with torch.inference_mode():
@@ -349,12 +467,32 @@ def serve(create_model, name, size, requests, counters, expected):
         _check(logits.shape == (b, 1000) and bool(torch.isfinite(logits).all()), f"{name} b={b} logits malformed")
         _check(launched == list(expected), f"{name} b={b}: launches {launched}, expected {list(expected)} per forward")
     counts = {fn.__name__: fn.launches for fn in counters}
-    _check(all(counts.values()), f"{name}: a kernel of the path was never launched: {counts}")
+    _check(all(counts[fn.__name__] for fn, n in zip(counters, expected) if n),
+           f"{name}: a kernel of the path was never launched: {counts}")
 
     b = requests[-1]
     with torch.inference_mode():
         ms = _time_ms(lambda: model(batches[b]), 10)
     print(f"{name} b{b} bf16: {ms:.3f} ms per forward, {b / ms * 1000:.1f} images/s")
+    return counts
+
+
+def serve_attention(A, counters):
+    """The public attention as a user calls it, on the swin_t stage 1 and
+    vit_base b256 bf16 shapes; one launch each, and no other kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    calls = [_attn_inputs(ATTN_CASES[name][0], *ATTN_CASES[name][1:], torch.bfloat16, gen)
+             for name in ("swin_t stage 1", "vit_base b256")]
+    _reset(counters)
+    for q, k, v, bias in calls:
+        with torch.inference_mode():
+            out = A.attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        _check(out.shape == q.shape and bool(torch.isfinite(out).all()), f"attention {tuple(q.shape)} malformed")
+    counts = {fn.__name__: fn.launches for fn in counters}
+    print(f"attention requests {[tuple(c[0].shape) for c in calls]} bf16: launches {counts}")
+    _check(counts == {fn.__name__: (len(calls) if fn is A.attention else 0) for fn in counters},
+           f"attention requests: launches {counts}")
     return counts
 
 
@@ -364,8 +502,10 @@ def main():
         return 1
     from eqxvision_tpu_torch import _native
     from eqxvision_tpu_torch.models import create_model
-    from eqxvision_tpu_torch.ops import attention
+    from eqxvision_tpu_torch.ops import layernorm as LN
     from eqxvision_tpu_torch.ops import window_attention as W
+
+    attention = importlib.import_module("eqxvision_tpu_torch.ops.attention")  # ops.attention is the public op
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -384,11 +524,20 @@ def main():
     window_main = check_window_attention(attention)
     block_main = check_block(W)
     check_ragged(W)
+    ln_main = check_layer_norm(LN)
+    attn_main = check_attention(attention)
 
-    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, [attention.fused_qkv_attention], (12,))
-    swin_counters = [W.fused_swin_block, attention.window_qkv_attention]
-    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, swin_counters, (4, 8))
-    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, swin_counters, (4, 8))
+    # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention
+    counters = [attention.fused_qkv_attention, attention.window_qkv_attention, W.fused_swin_block, LN.layer_norm,
+                attention.attention]
+    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, counters, (12, 0, 0, 25, 0))
+    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0))
+    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0))
+    # layer_scale 0.5: at the default 1e-6 every block is nearly an identity,
+    # and the card-vs-CPU comparison would not see the blocks
+    convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters, (0, 0, 0, 23, 0),
+                            layer_scale=0.5)
+    attn_counts = serve_attention(attention, counters)
 
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)
@@ -402,6 +551,12 @@ def main():
         {"name": "fused_swin_block", "route": "cuda", "source": src + "swin_block.cu",
          "replaces": ["eqxvision_tpu/ops/window_attention.py:79"],
          "launches": swin_counts["fused_swin_block"], **block_main},
+        {"name": "layer_norm", "route": "cuda", "source": src + "layer_norm.cu",
+         "replaces": ["eqxvision_tpu/ops/layernorm.py:44"],
+         "launches": convnext_counts["layer_norm"], **ln_main},
+        {"name": "attention", "route": "cuda", "source": src + "attention.cu",
+         "replaces": ["eqxvision_tpu/ops/attention.py:121", "eqxvision_tpu/ops/attention.py:193"],
+         "launches": attn_counts["attention"], **attn_main},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,4 +1,5 @@
-// Tensor-core pieces shared by swin_block.cu and window_attention.cu:
+// Tensor-core pieces shared by swin_block.cu, window_attention.cu and
+// attention.cu:
 // mma.sync and ldmatrix wrappers and one head's window attention in bf16
 // (S = Q K^T, softmax, O = P V) for windows of at most 64 tokens, run by a
 // block of 8 warps.
@@ -59,8 +60,8 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 // `o`. Keys and rows past L take no part: their p is 0 and their outputs
 // are not stored. All kThreads threads call it; it ends without a barrier.
 // qkvh: kRows rows of [q | k | v], Dh each, at an even stride sq, rows past
-// L zero; s_buf: kRows x kSs floats; bias_h: the head's (L, L) f32 bias.
-// Needs Dh % 16 == 0 and Dh <= 64.
+// L zero; s_buf: kRows x kSs floats; bias_h: the head's (L, L) f32 bias,
+// or null for none. Needs Dh % 16 == 0 and Dh <= 64.
 __device__ inline void attention_head_mma(const __nv_bfloat16* qkvh, int sq, int Dh, int L, const float* q_scale,
                                           const float* k_inv, float scale, const float* bias_h, float* s_buf,
                                           __nv_bfloat16* o, int ldo) {
@@ -84,7 +85,8 @@ __device__ inline void attention_head_mma(const __nv_bfloat16* qkvh, int sq, int
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = r0 + g + 8 * (e / 2), c = cw + 8 * j + 2 * t + (e % 2);
-        if (r < L && c < L) s_buf[r * kSs + c] = acc[j][e] * q_scale[r] * k_inv[c] * scale + bias_h[r * L + c];
+        if (r < L && c < L)
+          s_buf[r * kSs + c] = acc[j][e] * q_scale[r] * k_inv[c] * scale + (bias_h ? bias_h[r * L + c] : 0.f);
       }
   }
   __syncthreads();

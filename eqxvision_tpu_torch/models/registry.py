@@ -7,9 +7,27 @@ from typing import Any, Callable, Dict, List
 
 from torch import nn
 
-from .classification import swin_b, swin_s, swin_t, swin_v2_b, swin_v2_s, swin_v2_t, vit_base, vit_small, vit_tiny
+from .classification import (
+    convnext_base,
+    convnext_large,
+    convnext_small,
+    convnext_tiny,
+    swin_b,
+    swin_s,
+    swin_t,
+    swin_v2_b,
+    swin_v2_s,
+    swin_v2_t,
+    vit_base,
+    vit_small,
+    vit_tiny,
+)
 
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "convnext_base": convnext_base,
+    "convnext_large": convnext_large,
+    "convnext_small": convnext_small,
+    "convnext_tiny": convnext_tiny,
     "swin_b": swin_b,
     "swin_s": swin_s,
     "swin_t": swin_t,

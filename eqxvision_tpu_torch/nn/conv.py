@@ -1,11 +1,13 @@
-"""2-D convolution on NHWC tensors (eqxvision_tpu/nn/conv.py), as far as
-``PatchEmbed`` needs it: kernel size and stride, no padding, dilation or
-groups yet.
+"""2-D convolution on NHWC tensors (eqxvision_tpu/nn/conv.py).
 
 The public layout stays the JAX package's, (N, H, W, C) in and out; the
-weight is torch's OIHW, (out, in, kh, kw). A contiguous NHWC tensor seen
-through ``permute(0, 3, 1, 2)`` is torch's channels-last layout, so the
-convolution needs no copy.
+weight is torch's OIHW, (out, in // groups, kh, kw). A contiguous NHWC
+tensor seen through ``permute(0, 3, 1, 2)`` is torch's channels-last
+layout, so the convolution needs no copy. Padding takes the JAX layer's
+forms: an int, a pair (one per spatial dim, both sides), or a pair of
+(before, after) pairs; uneven sides are padded with ``F.pad`` first. The
+JAX layer's opt-in space-to-depth stem (``EQXVISION_TPU_S2D_STEM``) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +27,15 @@ def _pair(v: Union[int, Sequence[int]]) -> Tuple[int, int]:
     return (int(a), int(b))
 
 
+def _pad_pairs(padding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    if len(padding) == 2 and all(isinstance(p, int) for p in padding):
+        return ((padding[0], padding[0]), (padding[1], padding[1]))
+    (a, b), (c, d) = padding
+    return ((int(a), int(b)), (int(c), int(d)))
+
+
 class Conv2d(nn.Module):
     def __init__(
         self,
@@ -32,22 +43,40 @@ class Conv2d(nn.Module):
         out_channels: int,
         kernel_size: Union[int, Sequence[int]],
         stride: Union[int, Sequence[int]] = 1,
+        padding=0,
+        dilation: Union[int, Sequence[int]] = 1,
+        groups: int = 1,
         use_bias: bool = True,
         *,
         generator: torch.Generator,
         device: Optional[torch.device] = None,
     ):
         super().__init__()
+        if in_channels % groups or out_channels % groups:
+            raise ValueError("channels must be divisible by groups")
         self.in_channels = int(in_channels)
         self.out_channels = int(out_channels)
         self.kernel_size = _pair(kernel_size)
         self.stride = _pair(stride)
-        fan_in = in_channels * self.kernel_size[0] * self.kernel_size[1]
+        self.padding = _pad_pairs(padding)
+        self.dilation = _pair(dilation)
+        self.groups = int(groups)
+        fan_in = in_channels // groups * self.kernel_size[0] * self.kernel_size[1]
         kw = dict(generator=generator, device=device)
-        self.weight = nn.Parameter(init.kaiming_uniform((out_channels, in_channels, *self.kernel_size), fan_in, **kw))
+        self.weight = nn.Parameter(
+            init.kaiming_uniform((out_channels, in_channels // groups, *self.kernel_size), fan_in, **kw)
+        )
         self.bias = nn.Parameter(init.uniform_fan_in((out_channels,), fan_in, **kw)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), bias, self.stride)
+        (top, bottom), (left, right) = self.padding
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:  # uneven sides: pad H and W of the NHWC tensor, then convolve unpadded
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+            padding = (0, 0)
+        y = F.conv2d(
+            x.permute(0, 3, 1, 2), self.weight.to(x.dtype), bias, self.stride, padding, self.dilation, self.groups
+        )
         return y.permute(0, 2, 3, 1)

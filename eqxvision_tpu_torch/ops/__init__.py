@@ -1,10 +1,13 @@
 """Ops with a hand-written CUDA kernel and their plain torch versions."""
 from .attention import (
+    attention,
+    attention_reference,
     fused_qkv_attention,
     fused_qkv_attention_reference,
     window_qkv_attention,
     window_qkv_attention_reference,
 )
+from .layernorm import layer_norm, layer_norm_reference
 from .window_attention import (
     fused_swin_block,
     fused_swin_block_reference,
@@ -15,6 +18,8 @@ from .window_attention import (
 )
 
 __all__ = [
+    "attention",
+    "attention_reference",
     "fused_qkv_attention",
     "fused_qkv_attention_reference",
     "fused_swin_block",
@@ -22,6 +27,8 @@ __all__ = [
     "fused_swin_block_supported",
     "fused_swin_block_v1",
     "fused_swin_block_v2",
+    "layer_norm",
+    "layer_norm_reference",
     "shifted_window_attention",
     "window_qkv_attention",
     "window_qkv_attention_reference",

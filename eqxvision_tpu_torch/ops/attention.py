@@ -1,13 +1,15 @@
-"""Multi-head attention read straight out of a fused qkv projection.
+"""Attention ops of eqxvision_tpu/ops/attention.py.
 
-Counterparts of eqxvision_tpu/ops/attention.py's ``fused_qkv_attention``
-(ViT's hot path) and ``window_qkv_attention``/``packed_window_attention``
-(Swin's windows). A CUDA tensor goes through a hand-written Hopper kernel
-(``csrc/fused_qkv_attention.cu``, ``csrc/window_attention.cu``); a CPU
-tensor goes through the op's plain version, a few lines of torch that
-mirror the JAX package's references. No other device is accepted, and on
-CUDA nothing falls back to the plain version. Gradients recompute through
-the plain versions, as the JAX package's custom VJPs do.
+Counterparts of the JAX package's ``fused_qkv_attention`` (ViT's hot path,
+on a fused qkv projection), ``window_qkv_attention``/
+``packed_window_attention`` (Swin's windows) and the public ``attention``
+(any lead dims, a compact additive bias). A CUDA tensor goes through a
+hand-written Hopper kernel (``csrc/fused_qkv_attention.cu``,
+``csrc/window_attention.cu``, ``csrc/attention.cu``); a CPU tensor goes
+through the op's plain version, a few lines of torch that mirror the JAX
+package's references. No other device is accepted, and on CUDA nothing
+falls back to the plain version. Gradients recompute through the plain
+versions, as the JAX package's custom VJPs do.
 """
 from __future__ import annotations
 
@@ -253,3 +255,125 @@ def window_qkv_attention(
 
 
 window_qkv_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Scaled dot-product attention with a compact bias (the public op)
+# --------------------------------------------------------------------------
+
+
+def attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain scaled dot-product attention: q, k, v (..., N, Dh), bias
+    broadcastable to (..., N, N). Scores, bias and softmax in f32; the
+    probabilities rounded to q's type before p.V; f32 accumulation; output
+    in q's type, as the JAX package's ``attention_reference``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def _attention_flat_reference(q, k, v, bias, scale):
+    """(B, N, Dh) with a compact bias (Bb, N, N): row b reads bias[b % Bb]."""
+    if bias is None:
+        return attention_reference(q, k, v, None, scale)
+    b, n, dh = q.shape
+    r = b // bias.shape[0]
+    shape = (r, bias.shape[0], n, dh)
+    out = attention_reference(q.reshape(shape), k.reshape(shape), v.reshape(shape), bias[None], scale)
+    return out.reshape(b, n, dh)
+
+
+def _launch_attention_kernel(q, k, v, bias, scale):
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"attention kernel takes q, k, v all float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, n, dh = q.shape
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {dh}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if bias is not None:
+        bias = bias.to(device=q.device, dtype=torch.float32).contiguous()  # compact: (Bb, N, N)
+    out = torch.empty_like(q)
+    lib = _native.library()
+    with torch.cuda.device(q.device):
+        err = lib.eqx_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            b, 1 if bias is None else bias.shape[0], n, dh, scale, _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        smem = lib.eqx_attention_smem_bytes(n, dh, q.element_size())
+        _native.check(
+            err,
+            f"attention kernel on q {tuple(q.shape)} {q.dtype} (one block of the CUDA-core path needs {smem} "
+            f"bytes of shared memory)",
+        )
+    attention.launches += 1
+    return out
+
+
+def _attention_forward(q, k, v, bias, scale):
+    if q.device.type == "cuda":
+        return _launch_attention_kernel(q, k, v, bias, scale)
+    if q.device.type == "cpu":
+        return _attention_flat_reference(q, k, v, bias, scale)
+    raise ValueError(f"attention runs on cuda (kernel) or cpu (plain torch), not {q.device}")
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.static = (scale,)
+        return _attention_forward(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute_grads(ctx, _attention_flat_reference, grad_out, n_static=1)
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused scaled dot-product attention (differentiable).
+
+    q, k, v: (..., N, Dh) with any number of leading batch dims, flattened to
+    B. bias: optional, broadcastable to (..., N, N). A bias whose lead dims,
+    after leading 1s are stripped, are a suffix of q's stays compact as
+    (Bb, N, N), and row b reads ``bias[b % Bb]``: the kernel never copies it
+    over the batch. Any other bias is expanded to (B, N, N), as in the JAX
+    package. Counterpart of its ``attention`` and of the Pallas kernels
+    ``_attn_kernel``/``kernel4`` behind it (``csrc/attention.cu``); the
+    padding of N there is the TPU's and has no counterpart: the kernel masks
+    the ragged tail. ``attention.launches`` counts kernel launches.
+    """
+    if q.ndim < 2 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"expected q, k, v of one shape (..., N, Dh), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    lead, (n, dh) = tuple(q.shape[:-2]), q.shape[-2:]
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    b = math.prod(lead)
+    flat = None
+    if bias is not None:
+        bias = bias.expand(*bias.shape[:-2], n, n)
+        while bias.ndim > 2 and bias.shape[0] == 1:
+            bias = bias[0]
+        blead = tuple(bias.shape[:-2])
+        if blead == lead[len(lead) - len(blead):]:
+            flat = bias.reshape(-1, n, n)
+        else:
+            flat = bias.expand(*lead, n, n).reshape(b, n, n)
+    out = _Attention.apply(q.reshape(b, n, dh), k.reshape(b, n, dh), v.reshape(b, n, dh), flat, float(scale))
+    return out.reshape(q.shape)
+
+
+attention.launches = 0

@@ -6,13 +6,18 @@ The input is ``{path: np.ndarray}`` keyed as
 (``blocks.0.attn.qkv.weight``); ``Linear`` weights go from (in, out) to
 (out, in), and ``Conv2d`` weights from HWIO to OIHW. Nothing here imports JAX.
 
-Where the JAX model's tree differs from torchvision's (Swin):
+Where the JAX model's tree differs from torchvision's:
 
 - a JAX ``nn.Sequential`` keeps its children in ``.layers[i]``; torch's
   ``nn.Sequential`` indexes them directly (``features.1.0``);
-- the JAX stem is ``[Conv2d, LayerNorm]``, torchvision's ``[Conv2d,
-  Permute, LayerNorm]``, so the stem norm moves from index 1 to 2;
-- the JAX MLP names ``fc1``/``fc2`` are torchvision's ``mlp.0``/``mlp.3``.
+- Swin: the JAX stem is ``[Conv2d, LayerNorm]``, torchvision's ``[Conv2d,
+  Permute, LayerNorm]``, so the stem norm moves from index 1 to 2; the JAX
+  MLP names ``fc1``/``fc2`` are torchvision's ``mlp.0``/``mlp.3``;
+- ConvNeXt: a JAX ``CNBlock`` names its layers ``dwconv``, ``norm``,
+  ``pwconv1``, ``pwconv2``, torchvision's ``block.0``, ``block.2``,
+  ``block.3``, ``block.5``; ``classifier_norm``/``classifier_fc`` are
+  ``classifier.0``/``classifier.2``; ``layer_scale`` goes from (C,) to
+  (C, 1, 1).
 
 A rename applies only where the plain name is not the model's and the
 renamed one is. Buffers that the JAX model does not hold
@@ -35,6 +40,12 @@ _RENAMES = (
     (re.compile(r"^features\.0\.1\."), "features.0.2."),
     (re.compile(r"\.mlp\.fc1\."), ".mlp.0."),
     (re.compile(r"\.mlp\.fc2\."), ".mlp.3."),
+    (re.compile(r"\.dwconv\."), ".block.0."),
+    (re.compile(r"\.norm\."), ".block.2."),
+    (re.compile(r"\.pwconv1\."), ".block.3."),
+    (re.compile(r"\.pwconv2\."), ".block.5."),
+    (re.compile(r"^classifier_norm\."), "classifier.0."),
+    (re.compile(r"^classifier_fc\."), "classifier.2."),
 )
 
 
@@ -64,6 +75,8 @@ def state_dict_from_jax(model: nn.Module, params: Mapping[str, np.ndarray]) -> D
             a = a.T
         elif leaf == "weight" and isinstance(module, Conv2d):
             a = a.transpose(3, 2, 0, 1)
+        elif leaf == "layer_scale":
+            a = a.reshape(-1, 1, 1)
         out[name] = torch.tensor(np.ascontiguousarray(a))
     return out
 

@@ -19,9 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from eqxvision_tpu_torch.ops import attention as T
-
 A = importlib.import_module("eqxvision_tpu.ops.attention")
+T = importlib.import_module("eqxvision_tpu_torch.ops.attention")
 
 CASES = [(b, l, heads) for b in (4, 3) for l in (197, 49) for heads in (3, 4)]
 

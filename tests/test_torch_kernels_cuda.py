@@ -5,11 +5,15 @@ Every test here needs a CUDA card and skips without one. On the card, run
 (``--noconftest``: the suite's conftest imports JAX, which the port's
 machine need not have). This file imports only torch and the port.
 """
+import importlib
+
 import pytest
 import torch
 
-from eqxvision_tpu_torch.ops import attention as A
+from eqxvision_tpu_torch.ops import layernorm as LN
 from eqxvision_tpu_torch.ops import window_attention as W
+
+A = importlib.import_module("eqxvision_tpu_torch.ops.attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -178,3 +182,152 @@ def test_block_kernel_refuses_wide_blocks(cuda):
     x, p, bias, gs = _block_inputs(cuda, 256, 8, 1, 1, 49, torch.float32, False)
     with pytest.raises(ValueError):
         W.fused_swin_block(x, p, bias, 8, 0.1768)
+
+
+# LayerNorm: (rows, D). The zoo's widths (96 at 4 lanes a row, 384, 768,
+# 2048 = swin_b's widest merge), a 128-row classifier norm, and widths that
+# take the one-warp-per-row kernel (100: rows not 16-byte multiples in
+# bf16; 3072: wider than a lane's registers hold).
+LN_SHAPES = [(4099, 96), (300, 384), (1000, 768), (128, 768), (33, 2048), (7, 100), (5, 3072)]
+
+
+def _ln_inputs(cuda, shape, dtype, param_dtype=torch.float32, shift=0.0):
+    """Weights in [0.5, 1] and biases of std 0.2 keep the outputs below 8,
+    where one bf16 step is at most 2**-5."""
+    gen = torch.Generator(cuda).manual_seed(shape[0] + shape[1])
+    x = (shift + 2.0 * torch.randn(*shape, device=cuda, generator=gen)).to(dtype)
+    w = (0.5 + 0.5 * torch.rand(shape[1], device=cuda, generator=gen)).to(param_dtype)
+    b = (0.2 * torch.randn(shape[1], device=cuda, generator=gen)).to(param_dtype)
+    return x, w, b
+
+
+def _ln_plain(x, w, b, eps=1e-6):
+    """The plain version on widened inputs: f64 for an f32 kernel (its own
+    f32 sums are then the only error), f32 for a bf16 one."""
+    wide = torch.float64 if x.dtype == torch.float32 else torch.float32
+    return LN.layer_norm_reference(x.to(wide), None if w is None else w.to(wide), None if b is None else b.to(wide), eps)
+
+
+# bf16: one rounding of outputs below 8 (at most 2**-6 off) against the f32
+# plain version; the bound of the bf16 attention kernels, 0.02. f32: 1e-4,
+# the f32 bound of the other kernels.
+@pytest.mark.parametrize("affine", [True, False], ids=["affine", "no-affine"])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_layer_norm_kernel_matches_plain(cuda, shape, dtype, bound, affine):
+    x, w, b = _ln_inputs(cuda, shape, dtype)
+    if not affine:
+        w = b = None
+    before = LN.layer_norm.launches
+    out = LN.layer_norm(x, w, b, 1e-6)
+    ref = _ln_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert LN.layer_norm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert float((out.double() - ref.double()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_layer_norm_kernel_centred_variance(cuda, dtype, bound):
+    """Rows of 1e3 + N(0, 2): the mean is taken about the row's first value
+    and the variance over centred values, so nothing cancels."""
+    x, w, b = _ln_inputs(cuda, (2048, 768), dtype, shift=1e3)
+    out = LN.layer_norm(x, w, b, 1e-6)
+    assert float((out.double() - _ln_plain(x, w, b).double()).abs().max()) < bound
+
+
+def test_layer_norm_kernel_bf16_parameters_and_unaligned_rows(cuda):
+    x, w, b = _ln_inputs(cuda, (64, 96), torch.bfloat16, param_dtype=torch.bfloat16)
+    out = LN.layer_norm(x, w, b, 1e-6)
+    assert float((out.float() - _ln_plain(x, w, b).float()).abs().max()) < 0.02
+    flat = torch.randn(65 * 96, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    xu = flat[1:1 + 64 * 97].view(64, 97)[:, :96]  # strided: the wrapper copies it
+    xo = flat[1:64 * 96 + 1].view(64, 96)  # 4 bytes past a 16-byte boundary: the one-warp-per-row kernel
+    for t in (xu, xo):
+        got = LN.layer_norm(t, w.float(), b.float(), 1e-6)
+        assert float((got.double() - _ln_plain(t, w.float(), b.float()).double()).abs().max()) < 1e-4
+
+
+def test_layer_norm_kernel_gradient_recomputes_plain(cuda):
+    x, w, b = _ln_inputs(cuda, (50, 96), torch.float32)
+    g = torch.randn(50, 96, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    LN.layer_norm(*leaves, 1e-6).backward(g)
+    refs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    LN.layer_norm_reference(*refs, 1e-6).backward(g)
+    for t, r in zip(leaves, refs):
+        torch.testing.assert_close(t.grad, r.grad)
+
+
+@pytest.mark.parametrize(
+    "dtype,param_dtype", [(torch.float16, torch.float32), (torch.float32, torch.float16)], ids=["x-f16", "weight-f16"]
+)
+def test_layer_norm_kernel_refuses(cuda, dtype, param_dtype):
+    x, w, b = _ln_inputs(cuda, (4, 96), dtype, param_dtype=param_dtype)
+    with pytest.raises(TypeError):
+        LN.layer_norm(x, w, b)
+
+
+# Generic attention: (B, N, Dh, Bb or None). swin_t stage 1's shape through
+# the public op (tensor cores), ViT-B/16's (CUDA cores, no bias), a ragged
+# one with head dim 8, the tensor-core limits N = 64 and just past them,
+# and head dim 128.
+ATTN_SHAPES = [(24, 49, 32, 6), (6, 197, 64, None), (4, 17, 8, 2), (3, 64, 64, 1), (2, 65, 32, 2), (2, 33, 128, None)]
+
+
+def _attn_inputs(cuda, shape, dtype):
+    """q, k, v with lead dims (B // Bb, Bb), so that the (Bb, N, N) bias is
+    their suffix and reaches the kernel compact."""
+    b, n, dh, bb = shape
+    gen = torch.Generator(cuda).manual_seed(n + dh)
+    lead = (b,) if bb is None else (b // bb, bb)
+    q, k, v = (torch.randn(*lead, n, dh, device=cuda, generator=gen).to(dtype) for _ in range(3))
+    bias = None if bb is None else torch.randn(bb, n, n, device=cuda, generator=gen)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_kernel_matches_plain(cuda, shape, dtype, bound):
+    q, k, v, bias = _attn_inputs(cuda, shape, dtype)
+    scale = shape[2] ** -0.5
+    before = A.attention.launches
+    out = A.attention(q, k, v, bias, scale)
+    ref = A.attention_reference(q.float(), k.float(), v.float(), bias, scale)
+    torch.cuda.synchronize()
+    assert A.attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert float((out.float() - ref).abs().max()) < bound
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_attention_kernel_row_far_below(cuda, dtype, bound):
+    q, k, v, bias = _attn_inputs(cuda, ATTN_SHAPES[0], dtype)
+    bias[1] -= 300.0
+    out = A.attention(q, k, v, bias, 32**-0.5)
+    ref = A.attention_reference(q.float(), k.float(), v.float(), bias, 32**-0.5)
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref).abs().max()) < bound
+
+
+def test_attention_kernel_gradient_recomputes_plain(cuda):
+    q, k, v, bias = _attn_inputs(cuda, ATTN_SHAPES[2], torch.float32)
+    g = torch.randn_like(q)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    A.attention(*leaves, 0.3).backward(g)
+    refs = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    A.attention_reference(*refs, 0.3).backward(g)
+    for t, r in zip(leaves, refs):
+        torch.testing.assert_close(t.grad, r.grad)
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,error",
+    [((1, 8, 160), torch.float32, ValueError), ((1, 8, 64), torch.float16, TypeError),
+     ((1, 4096, 64), torch.bfloat16, RuntimeError)],
+    ids=["head_dim-160", "float16", "too-long-for-shared-memory"],
+)
+def test_attention_kernel_refuses(cuda, shape, dtype, error):
+    q = torch.zeros(shape, device=cuda, dtype=dtype)
+    with pytest.raises(error):
+        A.attention(q, q, q)

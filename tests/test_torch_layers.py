@@ -59,6 +59,23 @@ def _case_conv2d():
     ), (2, 9, 9, 5)
 
 
+def _conv_case(cin, cout, k, **kw):
+    def case():
+        return _pair(
+            JN.Conv2d(cin, cout, k, key=jax.random.PRNGKey(0), **kw), TN.Conv2d(cin, cout, k, generator=_gen(), **kw)
+        ), (2, 9, 10, cin)
+
+    return case
+
+
+def _case_layernorm2d():
+    return _pair(JL.LayerNorm2d(24, eps=1e-6), TL.LayerNorm2d(24, eps=1e-6)), (2, 5, 5, 24)
+
+
+def _case_linear2d():
+    return _pair(JL.Linear2d(24, 16, key=jax.random.PRNGKey(0)), TL.Linear2d(24, 16, generator=_gen())), (2, 5, 5, 24)
+
+
 def _case_patch_embed():
     return _pair(
         JL.PatchEmbed(32, 8, 3, 48, key=jax.random.PRNGKey(0)), TL.PatchEmbed(32, 8, 3, 48, generator=_gen())
@@ -78,6 +95,14 @@ CASES = {
     "layernorm": _case_layernorm,
     "gelu": _case_gelu,
     "conv2d": _case_conv2d,
+    "conv2d-padding-int": _conv_case(5, 8, 3, padding=1),
+    "conv2d-padding-pair": _conv_case(5, 8, (3, 5), stride=2, padding=(1, 2)),
+    "conv2d-padding-per-side": _conv_case(5, 8, 3, padding=((0, 2), (1, 0))),
+    "conv2d-depthwise": _conv_case(6, 6, 7, padding=3, groups=6),
+    "conv2d-groups-2": _conv_case(6, 4, 3, groups=2, use_bias=False),
+    "conv2d-dilation-2": _conv_case(5, 8, 3, padding=2, dilation=2),
+    "layernorm2d": _case_layernorm2d,
+    "linear2d": _case_linear2d,
     "patch_embed": _case_patch_embed,
     "mlp": _case_mlp,
 }

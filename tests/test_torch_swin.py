@@ -27,11 +27,11 @@ from eqxvision_tpu.core import tree_inference
 from eqxvision_tpu.models import create_model as jax_create_model
 from eqxvision_tpu.weights.serialize import _flatten_with_paths
 from eqxvision_tpu_torch.models import create_model
-from eqxvision_tpu_torch.ops import attention as T
 from eqxvision_tpu_torch.ops import window_attention as TW
 from eqxvision_tpu_torch.weights import load_jax_params
 
 jax_attention = importlib.import_module("eqxvision_tpu.ops.attention")
+T = importlib.import_module("eqxvision_tpu_torch.ops.attention")
 jax_window = importlib.import_module("eqxvision_tpu.ops.window_attention")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

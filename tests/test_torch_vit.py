@@ -99,6 +99,7 @@ def test_same_seed_same_weights_and_registry():
     b = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
     assert list_models() == [
+        "convnext_base", "convnext_large", "convnext_small", "convnext_tiny",
         "swin_b", "swin_s", "swin_t", "swin_v2_b", "swin_v2_s", "swin_v2_t", "vit_base", "vit_small", "vit_tiny",
     ]
     with pytest.raises(NotImplementedError):

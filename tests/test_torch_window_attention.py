@@ -19,10 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from eqxvision_tpu_torch.ops import attention as T
 from eqxvision_tpu_torch.ops import window_attention as TW
 
 A = importlib.import_module("eqxvision_tpu.ops.attention")
+T = importlib.import_module("eqxvision_tpu_torch.ops.attention")
 WA = importlib.import_module("eqxvision_tpu.ops.window_attention")
 
 
