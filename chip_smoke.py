@@ -17,7 +17,10 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    wider than the padded side) through the NHWC entry points; the
    LayerNorm at vit_base b256's and convnext_tiny b128's shapes, rows
    shifted by 1e3 and no affine; the public attention at swin_t stage 1's
-   and vit_base b256's shapes, a ragged one and a head 300 log-units down.
+   and vit_base b256's shapes, a ragged one and a head 300 log-units down;
+   the fused MLP half at every convnext_tiny b128 stage and vit_base b256,
+   convnext_large's C = 1536, rows shifted by 1e3 and a ragged row count,
+   beside the unfused torch composition it replaces.
 4. Serves ``vit_base``, ``swin_t`` (224 px), ``swin_v2_t`` (256 px) and
    ``convnext_tiny``, random weights from a seed: f32 logits of a batch of
    2 against the same weights on the CPU's plain path, then bf16 requests
@@ -69,6 +72,19 @@ CONVNEXT_REQUESTS = (1, 8, 128)
 LN_CASES = {"vit_base b256": (50432, 768), "convnext_tiny b128 stage 1": (401408, 96),
             "convnext_tiny b128 stage 3": (25088, 384), "classifier b128": (128, 768)}
 LN_BF16_BOUND = 0.02  # one bf16 rounding of outputs below 8, against the f32 plain version
+# Fused MLP half (rows, C, the residual is x): every convnext_tiny b128
+# stage, vit_base b256, convnext_large stage 4 (C = 1536) at b8, a ragged
+# row count. Hidden is 4C.
+MLP_CASES = {
+    "convnext_tiny b128 stage 1": (401408, 96, False), "convnext_tiny b128 stage 2": (100352, 192, False),
+    "convnext_tiny b128 stage 3": (25088, 384, False), "convnext_tiny b128 stage 4": (6272, 768, False),
+    "vit_base b256": (50432, 768, True), "convnext_large b8 stage 4": (392, 1536, False),
+    "ragged": (1000, 192, False),
+}
+# bf16 kernel vs the f32 plain version on the same bf16-rounded inputs: the
+# whole-block v1 bound of tests/test_hw_parity.py, which covers the same
+# LayerNorm + MLP + residual chain.
+MLP_BF16_BOUND = 0.05
 
 
 def _check(ok, what):
@@ -338,6 +354,70 @@ def check_layer_norm(LN):
     return main
 
 
+def _mlp_inputs(rows, c, residual_is_x, dtype, gen, shift=0.0):
+    """x of std 1 (plus ``shift``), a residual of std 1, LayerNorm affine
+    near (1, 0), weights at the models' init scale (1/sqrt(fan_in)) and a
+    layer scale of 0.5 where the residual is not x (ConvNeXt), all in the
+    input's type, as a bf16 model holds them."""
+    hidden = 4 * c
+
+    def r(*shape, s=1.0, base=0.0):
+        return (base + s * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+    x = r(rows, c, base=shift)
+    residual = x if residual_is_x else r(rows, c)
+    params = (r(c, s=0.1, base=1.0), r(c, s=0.1), r(hidden, c, s=c**-0.5), r(hidden, s=0.1),
+              r(c, hidden, s=hidden**-0.5), r(c, s=0.1), None if residual_is_x else r(c, s=0.1, base=0.5))
+    return x, residual, params
+
+
+def _mlp_composition(x, residual, lnw, lnb, w1, b1, w2, b2, ls, eps=1e-6):
+    """The unfused torch composition the op replaces, in x's type."""
+    y = F.linear(F.gelu(F.linear(F.layer_norm(x, (x.shape[-1],), lnw, lnb, eps), w1, b1)), w2, b2)
+    return residual + (y if ls is None else y * ls)
+
+
+def check_mlp_half(M):
+    """fused_mlp_half kernel vs its plain version at the shapes of the
+    ConvNeXt and ViT paths, bf16 and f32, with rows shifted by 1e3 and a
+    ragged row count; beside it the unfused torch composition (a reference:
+    no single PyTorch call computes this function). The f32 kernel is held
+    against the plain version in f64, so that its own f32 sums are the only
+    error; the bf16 one against the plain version in f32. Returns vit_base
+    b256 bf16's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    main = None
+    cases = [(name, case, 0.0) for name, case in MLP_CASES.items()]
+    cases.append(("convnext_tiny b128 stage 3, x shifted by 1e3", MLP_CASES["convnext_tiny b128 stage 3"], 1e3))
+    for name, (rows, c, residual_is_x), shift in cases:
+        for dtype, bound in ((torch.bfloat16, MLP_BF16_BOUND), (torch.float32, F32_BOUND)):
+            x, residual, params = _mlp_inputs(rows, c, residual_is_x, dtype, gen, shift)
+            wide = torch.float64 if dtype == torch.float32 else torch.float32
+            with torch.no_grad():
+                out = M.fused_mlp_half(x, residual, *params)
+                ref = M.mlp_half_reference(x.to(wide), residual.to(wide),
+                                           *(None if t is None else t.to(wide) for t in params))
+            err = _compare(out, ref, bound, f"fused_mlp_half {name} {dtype}")
+            iters = 10 if dtype == torch.bfloat16 else 2
+            ms, plain_ms, turns = _turns(
+                lambda: M.mlp_half_reference(x, residual, *params), lambda: M.fused_mlp_half(x, residual, *params),
+                iters,
+            )
+            with torch.inference_mode():
+                composition_ms = _time_ms(lambda: _mlp_composition(x, residual, *params), iters)
+            e = x.element_size()
+            n_bytes = (2 if residual_is_x else 3) * x.numel() * e + sum(t.numel() * e for t in params if t is not None)
+            bound_ms, bound_by = _bound_ms(n_bytes, 4 * rows * c * 4 * c, dtype)
+            if (name, dtype) == ("vit_base b256", torch.bfloat16):
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+            _report(f"fused_mlp_half {name}", (rows, c, 4 * c), dtype, err, bound, ms, plain_ms, turns,
+                    f"; reference: unfused torch composition {composition_ms:.4f} ms; "
+                    f"bound {bound_ms:.4f} ms ({bound_by})")
+    print("fused_mlp_half library_ms: null; no single PyTorch call computes the MLP half")
+    return main
+
+
 def _attn_inputs(lead, n, dh, bias_lead, dtype, gen):
     q, k, v = (torch.randn(*lead, n, dh, device="cuda", generator=gen).to(dtype) for _ in range(3))
     bias = None if bias_lead is None else torch.randn(*bias_lead, n, n, device="cuda", generator=gen)
@@ -503,6 +583,7 @@ def main():
     from eqxvision_tpu_torch import _native
     from eqxvision_tpu_torch.models import create_model
     from eqxvision_tpu_torch.ops import layernorm as LN
+    from eqxvision_tpu_torch.ops import mlp_half as M
     from eqxvision_tpu_torch.ops import window_attention as W
 
     attention = importlib.import_module("eqxvision_tpu_torch.ops.attention")  # ops.attention is the public op
@@ -526,16 +607,17 @@ def main():
     check_ragged(W)
     ln_main = check_layer_norm(LN)
     attn_main = check_attention(attention)
+    mlp_main = check_mlp_half(M)
 
-    # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention
+    # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention, MLP half
     counters = [attention.fused_qkv_attention, attention.window_qkv_attention, W.fused_swin_block, LN.layer_norm,
-                attention.attention]
-    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, counters, (12, 0, 0, 25, 0))
-    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0))
-    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0))
+                attention.attention, M.fused_mlp_half]
+    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, counters, (12, 0, 0, 13, 0, 12))
+    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0))
+    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0))
     # layer_scale 0.5: at the default 1e-6 every block is nearly an identity,
     # and the card-vs-CPU comparison would not see the blocks
-    convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters, (0, 0, 0, 23, 0),
+    convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters, (0, 0, 0, 5, 0, 18),
                             layer_scale=0.5)
     attn_counts = serve_attention(attention, counters)
 
@@ -557,6 +639,10 @@ def main():
         {"name": "attention", "route": "cuda", "source": src + "attention.cu",
          "replaces": ["eqxvision_tpu/ops/attention.py:121", "eqxvision_tpu/ops/attention.py:193"],
          "launches": attn_counts["attention"], **attn_main},
+        {"name": "fused_mlp_half", "route": "cuda", "source": src + "mlp_half.cu",
+         "replaces": ["scripts/ablate_convnext2.py:73", "scripts/ablate_vit2.py:114", "scripts/ablate_vit3.py:121",
+                      "scripts/ablate_vit4.py:196"],
+         "launches": vit_counts["fused_mlp_half"], **mlp_main},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

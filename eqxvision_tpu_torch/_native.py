@@ -23,7 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_SOURCES = ("fused_qkv_attention.cu", "window_attention.cu", "swin_block.cu", "layer_norm.cu", "attention.cu")
+_SOURCES = (
+    "fused_qkv_attention.cu", "window_attention.cu", "swin_block.cu", "layer_norm.cu", "attention.cu", "mlp_half.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -120,6 +122,10 @@ def library() -> ctypes.CDLL:
     lib.eqx_attention.restype = c_int
     lib.eqx_attention_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_mlp_half.argtypes = [
+        *([c_ptr] * 12), ctypes.c_longlong, c_int, c_int, ctypes.c_float, c_int, c_int, c_ptr,
+    ]
+    lib.eqx_mlp_half.restype = c_int
     lib.eqx_cuda_error_string.argtypes = [c_int]
     lib.eqx_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -36,6 +36,8 @@ class MlpProjection(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # The JAX layer applies the activation to fc1's f32 accumulator and
         # casts once (Linear.preactivation). torch's GEMM returns the input
-        # dtype; the default gelu then computes in f32 and casts once.
+        # dtype, so in bf16 this rounds fc1's output before gelu. ViT's
+        # blocks take this path only in training with dropout or drop path;
+        # otherwise they run ops.fused_mlp_half, which rounds once.
         x = self.drop1(self.act(self.fc1(x)))
         return self.drop2(self.fc2(x))

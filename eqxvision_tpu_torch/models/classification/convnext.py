@@ -8,9 +8,11 @@ stem conv and its LayerNorm2d, stages of ``CNBlock``s and LayerNorm2d +
 ``block.0`` the depthwise 7x7 conv, ``block.2`` the LayerNorm, ``block.3``
 and ``block.5`` the Linears, with ``layer_scale`` of shape (C, 1, 1). The
 activations stay NHWC end to end, so torchvision's ``Permute`` and
-``Flatten`` slots hold parameter-free placeholders. Every LayerNorm runs
-``ops.layer_norm`` (the LayerNorm kernel on the card); the convolutions and
-Linears are cuDNN and cuBLAS, as the JAX package leaves them to XLA.
+``Flatten`` slots hold parameter-free placeholders. A block's LayerNorm,
+Linears, GELU, layer scale and residual run as one ``ops.fused_mlp_half``
+(the MLP-half kernel on the card); the other LayerNorms run
+``ops.layer_norm``; the convolutions are cuDNN and the classifier Linear
+cuBLAS, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from torch import nn
 
 from ...layers import DropPath, LayerNorm2d
 from ...nn import Conv2d, LayerNorm, Linear
+from ...ops.mlp_half import fused_mlp_half
 from .._common import debatch, default_generator, ensure_nhwc, maybe_load_state_dict, resolve_device
 
 
@@ -34,7 +37,10 @@ class CNBlockConfig:
 
 class CNBlock(nn.Module):
     """dwconv 7x7 -> LN -> Linear(C, 4C) -> GELU -> Linear(4C, C), times the
-    layer scale, plus the residual."""
+    layer scale, plus the residual. Everything after the depthwise conv is
+    one ``ops.fused_mlp_half`` call (the MLP-half kernel on the card), save
+    in training with an active stochastic depth, which drops the branch
+    before the residual add and so runs the layers one by one."""
 
     def __init__(self, dim: int, layer_scale: float, stochastic_depth_prob: float, *, generator, device=None):
         super().__init__()
@@ -45,17 +51,22 @@ class CNBlock(nn.Module):
             nn.Identity(),  # torchvision's Permute: the map is NHWC already
             LayerNorm(dim, eps=1e-6, device=device),
             Linear(dim, 4 * dim, **kw),
-            # exact GELU in f32 on fc1's output, rounded once (layers/mlps.py)
-            nn.GELU(),
+            nn.GELU(),  # exact GELU; the fused op applies it to fc1's f32 accumulator
             Linear(4 * dim, dim, **kw),
             nn.Identity(),  # torchvision's Permute back
         )
         self.stochastic_depth = DropPath(stochastic_depth_prob)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.block(x)
-        out = out * self.layer_scale.reshape(-1).to(out.dtype)
-        return x + self.stochastic_depth(out)
+        if self.training and self.stochastic_depth.p > 0.0:
+            # stochastic depth drops the branch before the residual add
+            out = self.block(x) * self.layer_scale.reshape(-1).to(x.dtype)
+            return x + self.stochastic_depth(out)
+        norm, fc1, fc2 = self.block[2], self.block[3], self.block[5]
+        return fused_mlp_half(
+            self.block[0](x), x, norm.weight, norm.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
+            self.layer_scale.reshape(-1), norm.eps,
+        )
 
 
 class ConvNeXt(nn.Module):

@@ -3,7 +3,10 @@
 
 The attention runs the fused-qkv kernel on the qkv projection's natural
 (N, L, 3D) layout. With attention dropout active in training, the
-probabilities are materialised in plain torch, as in the JAX model.
+probabilities are materialised in plain torch, as in the JAX model. The
+MLP half (norm2, fc1, gelu, fc2, residual) is one ``ops.fused_mlp_half``
+call, the MLP-half kernel on the card, unless dropout or drop path is
+active in training.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from ...core import init
 from ...layers import DropPath, MlpProjection, PatchEmbed
 from ...nn import Dropout, Identity, LayerNorm, Linear, gelu
 from ...ops.attention import fused_qkv_attention
+from ...ops.mlp_half import fused_mlp_half
 from .._common import debatch, default_generator, ensure_nhwc, maybe_load_state_dict, resolve_device
 
 
@@ -65,7 +69,14 @@ class _VitBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        if self.training and (self.drop_path.p > 0.0 or self.mlp.drop1.p > 0.0):
+            # dropout and drop path act inside the branch
+            return x + self.drop_path(self.mlp(self.norm2(x)))
+        mlp = self.mlp
+        return fused_mlp_half(
+            x, x, self.norm2.weight, self.norm2.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias,
+            None, self.norm2.eps,
+        )
 
 
 class VisionTransformer(nn.Module):

@@ -8,6 +8,7 @@ from .attention import (
     window_qkv_attention_reference,
 )
 from .layernorm import layer_norm, layer_norm_reference
+from .mlp_half import fused_mlp_half, mlp_half_reference
 from .window_attention import (
     fused_swin_block,
     fused_swin_block_reference,
@@ -20,6 +21,7 @@ from .window_attention import (
 __all__ = [
     "attention",
     "attention_reference",
+    "fused_mlp_half",
     "fused_qkv_attention",
     "fused_qkv_attention_reference",
     "fused_swin_block",
@@ -29,6 +31,7 @@ __all__ = [
     "fused_swin_block_v2",
     "layer_norm",
     "layer_norm_reference",
+    "mlp_half_reference",
     "shifted_window_attention",
     "window_qkv_attention",
     "window_qkv_attention_reference",

@@ -10,7 +10,8 @@ reaches the kernel there). ``layer_scale`` and every LayerNorm affine are
 randomised first: at the default layer scale of 1e-6 every block is an
 identity and the comparison would be blind to the blocks. Also: the
 full-size models' parameter names, shapes and order against the vendored
-torchvision manifests, and their parameter counts.
+torchvision manifests, their parameter counts, and the training path with
+an active stochastic depth, which runs the block's layers one by one.
 """
 import functools
 import importlib
@@ -31,6 +32,7 @@ from eqxvision_tpu.models.classification import convnext as JC
 from eqxvision_tpu.nn.norm import LayerNorm as JaxLayerNorm
 from eqxvision_tpu.weights.serialize import _flatten_with_paths
 from eqxvision_tpu_torch.models import create_model
+from eqxvision_tpu_torch.models.classification import convnext as convnext_module
 from eqxvision_tpu_torch.models.classification.convnext import CNBlockConfig, ConvNeXt
 from eqxvision_tpu_torch.weights import load_jax_params
 
@@ -133,3 +135,34 @@ def test_state_dict_matches_manifest(name):
     got = [[k, list(v.shape)] for k, v in model.state_dict().items()]
     assert got == doc["entries"]
     assert sum(p.numel() for p in model.parameters()) == PARAM_COUNTS[name]
+
+
+def test_training_with_drop_path_runs_unfused_and_draws(monkeypatch):
+    """At inference every block is one fused MLP-half call. In training, a
+    block with an active stochastic depth runs its layers one by one, the
+    branch dropped before the residual add, and each forward draws anew;
+    the first block (drop probability 0) stays fused."""
+    fused = []
+    orig = convnext_module.fused_mlp_half
+
+    def counted(*args, **kwargs):
+        fused.append(1)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(convnext_module, "fused_mlp_half", counted)
+    model = ConvNeXt([CNBlockConfig(32, None, 2)], stochastic_depth_prob=0.5, layer_scale=0.5, num_classes=4,
+                     generator=torch.Generator().manual_seed(0), device="cpu")
+    assert [b.stochastic_depth.p for b in model.features[1]] == [0.0, 0.5]
+    x = torch.from_numpy(np.random.RandomState(3).randn(16, 8, 8, 3).astype(np.float32))
+    with torch.no_grad():
+        model.eval()
+        ref = model(x)
+        assert len(fused) == 2
+        model.train()
+        torch.manual_seed(0)
+        a = model(x)
+        torch.manual_seed(1)
+        b = model(x)
+    assert len(fused) == 4
+    assert not torch.allclose(a, b)
+    assert not torch.allclose(a, ref)

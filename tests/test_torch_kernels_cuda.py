@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from eqxvision_tpu_torch.ops import layernorm as LN
+from eqxvision_tpu_torch.ops import mlp_half as M
 from eqxvision_tpu_torch.ops import window_attention as W
 
 A = importlib.import_module("eqxvision_tpu_torch.ops.attention")
@@ -331,3 +332,92 @@ def test_attention_kernel_refuses(cuda, shape, dtype, error):
     q = torch.zeros(shape, device=cuda, dtype=dtype)
     with pytest.raises(error):
         A.attention(q, q, q)
+
+
+# Fused MLP half: (rows, C, residual is x). C = 96 (convnext_tiny stage 1),
+# 768 (vit_base, residual is x) and 1536 (convnext_large stage 4), each at a
+# row count that the 128-row (bf16) and 64-row (f32) tiles do not divide,
+# and one row.
+MLP_SHAPES = [(300, 96, False), (130, 768, True), (200, 1536, False), (1, 96, False)]
+
+
+def _mlp_inputs(cuda, rows, c, residual_is_x, dtype, shift=0.0):
+    """Weights at the models' init scale, LayerNorm affine near (1, 0), a
+    layer scale of 0.5 where the residual is not x (ConvNeXt)."""
+    gen = torch.Generator(cuda).manual_seed(rows + c)
+
+    def r(*shape, s=1.0, base=0.0):
+        return (base + s * torch.randn(*shape, device=cuda, generator=gen)).to(dtype)
+
+    x = r(rows, c, base=shift)
+    residual = x if residual_is_x else r(rows, c)
+    params = [r(c, s=0.1, base=1.0), r(c, s=0.1), r(4 * c, c, s=c**-0.5), r(4 * c, s=0.1),
+              r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.1), None if residual_is_x else r(c, s=0.1, base=0.5)]
+    return x, residual, params
+
+
+def _mlp_plain(x, residual, params):
+    """The plain version on widened inputs: f64 for an f32 kernel, f32 for a bf16 one."""
+    wide = torch.float64 if x.dtype == torch.float32 else torch.float32
+    return M.mlp_half_reference(x.to(wide), residual.to(wide), *(None if t is None else t.to(wide) for t in params))
+
+
+# bf16: tests/test_hw_parity.py's whole-block v1 bound (0.05), which covers
+# the same LayerNorm + MLP + residual chain. f32: 1e-4, the f32 bound of the
+# other kernels, against the plain version in f64.
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", MLP_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}" + ("-residual-x" if s[2] else ""))
+def test_mlp_half_kernel_matches_plain(cuda, shape, dtype, bound):
+    x, residual, params = _mlp_inputs(cuda, *shape, dtype)
+    before = M.fused_mlp_half.launches
+    out = M.fused_mlp_half(x, residual, *params)
+    ref = _mlp_plain(x, residual, params)
+    torch.cuda.synchronize()
+    assert M.fused_mlp_half.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert float((out.double() - ref.double()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_mlp_half_kernel_shifted_rows_and_lead_dims(cuda, dtype, bound):
+    """Rows of 1e3 + N(0, 1) keep their variance; lead dims (N, H, W)."""
+    x, residual, params = _mlp_inputs(cuda, 2 * 7 * 9, 192, False, dtype, shift=1e3)
+    x, residual = x.view(2, 7, 9, 192), residual.view(2, 7, 9, 192)
+    out = M.fused_mlp_half(x, residual, *params)
+    assert out.shape == x.shape
+    assert float((out.double() - _mlp_plain(x, residual, params).double()).abs().max()) < bound
+
+
+def test_mlp_half_kernel_bf16_vectors_with_f32_weights(cuda):
+    """bf16 activations with f32 weights (cast per call) and mixed-type
+    vectors (read in f32)."""
+    x, residual, params = _mlp_inputs(cuda, 70, 96, False, torch.float32)
+    params = [p.bfloat16() if i in (0, 1) else p for i, p in enumerate(params)]
+    xb, rb = x.bfloat16(), residual.bfloat16()
+    out = M.fused_mlp_half(xb, rb, *params)
+    ref = M.mlp_half_reference(xb.float(), rb.float(), *(t.float() for t in params))
+    assert float((out.float() - ref).abs().max()) < 0.05
+
+
+def test_mlp_half_kernel_gradient_recomputes_plain(cuda):
+    x, residual, params = _mlp_inputs(cuda, 40, 96, False, torch.float32)
+    g = torch.randn(40, 96, device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+    leaves = [t.clone().requires_grad_(True) for t in (x, residual, *params)]
+    M.fused_mlp_half(*leaves).backward(g)
+    refs = [t.clone().requires_grad_(True) for t in (x, residual, *params)]
+    M.mlp_half_reference(*refs).backward(g)
+    for t, r in zip(leaves, refs):
+        torch.testing.assert_close(t.grad, r.grad)
+
+
+@pytest.mark.parametrize(
+    "dtype,weight_dtype,c,error",
+    [(torch.float16, torch.float16, 96, TypeError), (torch.float32, torch.float64, 96, TypeError),
+     (torch.float32, torch.float32, 20, ValueError)],
+    ids=["float16", "weight-float64", "C-20"],
+)
+def test_mlp_half_kernel_refuses(cuda, dtype, weight_dtype, c, error):
+    x, residual, params = _mlp_inputs(cuda, 4, c, True, torch.float32)
+    params = [None if t is None else t.to(weight_dtype) for t in params]
+    with pytest.raises(error):
+        M.fused_mlp_half(x.to(dtype), residual.to(dtype), *params)

@@ -5,8 +5,9 @@ are carried into the port with ``weights.from_jax`` and the logits compared
 in f32 at atol 1e-4, rtol 1e-4 (the repo's logit-parity bound), with the
 JAX model on its plain attention and on its Pallas kernel (interpret
 mode). Also: the port's full-width ``vit_base`` parameter names and shapes
-against the vendored manifest, the port never importing JAX, and
-``chip_smoke.py`` refusing to run without a card.
+against the vendored manifest, the port never importing JAX,
+``chip_smoke.py`` refusing to run without a card, and the training path
+with an active drop path, which runs the MLP half's layers one by one.
 """
 import contextlib
 import importlib
@@ -27,6 +28,7 @@ from eqxvision_tpu.core import tree_inference
 from eqxvision_tpu.models import create_model as jax_create_model
 from eqxvision_tpu.weights.serialize import _flatten_with_paths
 from eqxvision_tpu_torch.models import create_model, list_models
+from eqxvision_tpu_torch.models.classification import vit as vit_module
 from eqxvision_tpu_torch.weights import load_jax_params
 
 jax_attention = importlib.import_module("eqxvision_tpu.ops.attention")
@@ -153,3 +155,33 @@ def test_chip_smoke_refuses_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_training_with_drop_path_runs_unfused_and_draws(monkeypatch):
+    """At inference every block's MLP half is one fused call. In training, a
+    block with an active drop path runs norm2 and the MLP one by one and
+    each forward draws anew; the first block (drop path 0) stays fused."""
+    fused = []
+    orig = vit_module.fused_mlp_half
+
+    def counted(*args, **kwargs):
+        fused.append(1)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(vit_module, "fused_mlp_half", counted)
+    model = create_model("vit_tiny", img_size=32, depth=2, num_classes=4, drop_path_rate=0.5,
+                         generator=torch.Generator().manual_seed(0), device="cpu")
+    assert [blk.drop_path.p for blk in model.blocks] == [0.0, 0.5]
+    x = torch.from_numpy(np.random.RandomState(3).randn(16, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        model.eval()
+        ref = model(x)
+        assert len(fused) == 2
+        model.train()
+        torch.manual_seed(0)
+        a = model(x)
+        torch.manual_seed(1)
+        b = model(x)
+    assert len(fused) == 4
+    assert not torch.allclose(a, b)
+    assert not torch.allclose(a, ref)
