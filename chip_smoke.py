@@ -20,13 +20,18 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    and vit_base b256's shapes, a ragged one and a head 300 log-units down;
    the fused MLP half at every convnext_tiny b128 stage and vit_base b256,
    convnext_large's C = 1536, rows shifted by 1e3 and a ragged row count,
-   beside the unfused torch composition it replaces.
+   beside the unfused torch composition it replaces; the fused ViT
+   attention half at vit_base b256, a ragged L above 256, vit_base at
+   384 px (577 tokens), without a qkv bias and with rows shifted by 1e3,
+   beside the unfused torch composition (with SDPA) it replaces.
 4. Serves ``vit_base``, ``swin_t`` (224 px), ``swin_v2_t`` (256 px) and
    ``convnext_tiny``, random weights from a seed: f32 logits of a batch of
    2 against the same weights on the CPU's plain path, then bf16 requests
    of several batch sizes with every kernel's launch count set to 0 before
    each path and read after it, then images/s at the largest batch. Then
-   calls the public attention as a user would, counts reset the same way.
+   runs a vit_base forward in training mode with drop path and dropout
+   active, which takes the fused-qkv attention in every block, and calls
+   the public attention as a user would, counts reset the same way.
 
 Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
@@ -85,6 +90,17 @@ MLP_CASES = {
 # whole-block v1 bound of tests/test_hw_parity.py, which covers the same
 # LayerNorm + MLP + residual chain.
 MLP_BF16_BOUND = 0.05
+# Fused ViT attention half (B, L, D, heads): vit_base b256; a ragged L above
+# 256 (five 64-key tiles); vit_base at 384 px (577 tokens: K and V staged in
+# two chunks).
+ATTN_HALF_CASES = {"vit_base b256": (256, 197, 768, 12), "ragged": (8, 257, 384, 6),
+                   "vit_base 384 px b4": (4, 577, 768, 12)}
+# bf16: the whole-block v1 bound, two products around an attention.
+ATTN_HALF_BF16_BOUND = 0.05
+# Rows shifted by 1e3: the outputs (x plus the branch) lie near 1e3, where
+# bf16 rounds to a step of 4 (bound: half of it plus the bf16 bound) and
+# f32 to a step of 6.1e-5, to which the row mean itself rounds.
+ATTN_HALF_SHIFTED_BOUND = {torch.bfloat16: 2.05, torch.float32: 2e-4}
 
 
 def _check(ok, what):
@@ -418,6 +434,85 @@ def check_mlp_half(M):
     return main
 
 
+def _attn_half_inputs(b, l, d, dtype, gen, shift=0.0, qkv_bias=True):
+    """x of std 1 (plus ``shift``), LayerNorm affine near (1, 0) and weights
+    at the models' init scale (1/sqrt(fan_in)), all in the input's type, as
+    a bf16 model holds them."""
+
+    def r(*shape, s=1.0, base=0.0):
+        return (base + s * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+    params = (r(d, s=0.1, base=1.0), r(d, s=0.1), r(3 * d, d, s=d**-0.5), r(3 * d, s=0.1) if qkv_bias else None,
+              r(d, d, s=d**-0.5), r(d, s=0.1))
+    return r(b, l, d, base=shift), params
+
+
+def _attn_half_qkv(x, lnw, lnb, wqkv, bqkv, heads):
+    """q, k and v (B, H, L, Dh) as views of the unfused composition's qkv."""
+    b, l, d = x.shape
+    qkv = F.linear(F.layer_norm(x, (d,), lnw, lnb, 1e-6), wqkv, bqkv)
+    return qkv.view(b, l, 3, heads, d // heads).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _attn_half_composition(x, lnw, lnb, wqkv, bqkv, wproj, bproj, heads):
+    """The unfused torch composition the op replaces, in x's type, with SDPA
+    as its attention."""
+    b, l, d = x.shape
+    o = F.scaled_dot_product_attention(*_attn_half_qkv(x, lnw, lnb, wqkv, bqkv, heads))
+    return x + F.linear(o.transpose(1, 2).reshape(b, l, d), wproj, bproj)
+
+
+def check_attention_half(AH):
+    """fused_attention_half kernel vs its plain version at vit_base's
+    shapes, a ragged L above 256 and 577 tokens, bf16 and f32, plus no qkv
+    bias and rows shifted by 1e3; beside it the unfused torch composition
+    (a reference: no single PyTorch call computes this function) and, at
+    vit_base b256, SDPA on the same qkv (the attention stage's yardstick).
+    The f32 kernel is held against the plain version in f64, the bf16 one
+    against the plain version in f32. Returns vit_base b256 bf16's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    main = None
+    cases = [(name, case, 0.0, True) for name, case in ATTN_HALF_CASES.items()]
+    cases += [("ragged, no qkv bias", ATTN_HALF_CASES["ragged"], 0.0, False),
+              ("ragged, x shifted by 1e3", ATTN_HALF_CASES["ragged"], 1e3, True)]
+    for name, (b, l, d, heads), shift, qkv_bias in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            bound = (ATTN_HALF_SHIFTED_BOUND[dtype] if shift else
+                     ATTN_HALF_BF16_BOUND if dtype == torch.bfloat16 else F32_BOUND)
+            x, params = _attn_half_inputs(b, l, d, dtype, gen, shift, qkv_bias)
+            wide = torch.float64 if dtype == torch.float32 else torch.float32
+            scale = (d // heads) ** -0.5
+            with torch.no_grad():
+                out = AH.fused_attention_half(x, *params, heads)
+                ref = AH.attention_half_reference(x.to(wide), *(None if t is None else t.to(wide) for t in params),
+                                                  heads, scale)
+            err = _compare(out, ref, bound, f"fused_attention_half {name} {dtype}")
+            iters = 10 if dtype == torch.bfloat16 else 2
+            ms, plain_ms, turns = _turns(
+                lambda: AH.attention_half_reference(x, *params, heads, scale),
+                lambda: AH.fused_attention_half(x, *params, heads), iters,
+            )
+            with torch.inference_mode():
+                composition_ms = _time_ms(lambda: _attn_half_composition(x, *params, heads), iters)
+            e = x.element_size()
+            n_bytes = 2 * x.numel() * e + sum(t.numel() * e for t in params if t is not None)
+            flops = 2 * b * l * d * 4 * d + 4 * b * l * l * d
+            bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
+            extra = ""
+            if (name, dtype) == ("vit_base b256", torch.bfloat16):
+                with torch.inference_mode():
+                    q, k, v = _attn_half_qkv(x, *params[:4], heads)
+                    sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+                extra = f"; SDPA alone on the same qkv {sdpa_ms:.4f} ms"
+            _report(f"fused_attention_half {name}", (b, l, d, heads), dtype, err, bound, ms, plain_ms, turns,
+                    f"; reference: unfused torch composition with SDPA {composition_ms:.4f} ms; "
+                    f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB){extra}")
+    print("fused_attention_half library_ms: null; no single PyTorch call computes the attention half")
+    return main
+
+
 def _attn_inputs(lead, n, dh, bias_lead, dtype, gen):
     q, k, v = (torch.randn(*lead, n, dh, device="cuda", generator=gen).to(dtype) for _ in range(3))
     bias = None if bias_lead is None else torch.randn(*bias_lead, n, n, device="cuda", generator=gen)
@@ -557,6 +652,26 @@ def serve(create_model, name, size, requests, counters, expected, **model_kwargs
     return counts
 
 
+def train_vit(create_model, counters, expected, batch=8):
+    """A vit_base bf16 forward in training mode with drop path and dropout
+    active, under no_grad: every block's dropout keeps it off the fused
+    halves, so its attention runs the fused-qkv kernel. Drop path alone
+    would leave the first block (drop path 0) on the fused attention half."""
+    model = create_model("vit_base", generator=torch.Generator().manual_seed(0), device="cuda", drop_path_rate=0.1,
+                         drop_rate=0.1).to(torch.bfloat16).train()
+    x = torch.randn(batch, 224, 224, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    _reset(counters)
+    with torch.no_grad():
+        logits = model(x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counters}
+    print(f"vit_base training forward b={batch} bf16, drop path 0.1, dropout 0.1: logits {tuple(logits.shape)} "
+          f"finite={bool(torch.isfinite(logits).all())} launches {counts}")
+    _check(logits.shape == (batch, 1000) and bool(torch.isfinite(logits).all()), "vit_base training logits malformed")
+    _check(list(counts.values()) == list(expected), f"vit_base training: launches {counts}, expected {list(expected)}")
+    return counts
+
+
 def serve_attention(A, counters):
     """The public attention as a user calls it, on the swin_t stage 1 and
     vit_base b256 bf16 shapes; one launch each, and no other kernel."""
@@ -582,6 +697,7 @@ def main():
         return 1
     from eqxvision_tpu_torch import _native
     from eqxvision_tpu_torch.models import create_model
+    from eqxvision_tpu_torch.ops import attention_half as AH
     from eqxvision_tpu_torch.ops import layernorm as LN
     from eqxvision_tpu_torch.ops import mlp_half as M
     from eqxvision_tpu_torch.ops import window_attention as W
@@ -608,17 +724,20 @@ def main():
     ln_main = check_layer_norm(LN)
     attn_main = check_attention(attention)
     mlp_main = check_mlp_half(M)
+    attn_half_main = check_attention_half(AH)
 
-    # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention, MLP half
+    # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention, MLP half, attention half
     counters = [attention.fused_qkv_attention, attention.window_qkv_attention, W.fused_swin_block, LN.layer_norm,
-                attention.attention, M.fused_mlp_half]
-    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, counters, (12, 0, 0, 13, 0, 12))
-    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0))
-    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0))
+                attention.attention, M.fused_mlp_half, AH.fused_attention_half]
+    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, counters, (0, 0, 0, 1, 0, 12, 12))
+    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0, 0))
+    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0, 0))
     # layer_scale 0.5: at the default 1e-6 every block is nearly an identity,
     # and the card-vs-CPU comparison would not see the blocks
-    convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters, (0, 0, 0, 5, 0, 18),
+    convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters, (0, 0, 0, 5, 0, 18, 0),
                             layer_scale=0.5)
+    # norm1 and norm2 of every block and the final norm on K6
+    train_counts = train_vit(create_model, counters, (12, 0, 0, 25, 0, 0, 0))
     attn_counts = serve_attention(attention, counters)
 
     src = "eqxvision_tpu_torch/csrc/"
@@ -626,7 +745,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "fused_qkv_attention", "route": "cuda", "source": src + "fused_qkv_attention.cu",
          "replaces": ["eqxvision_tpu/ops/attention.py:245", "eqxvision_tpu/ops/attention.py:276"],
-         "launches": vit_counts["fused_qkv_attention"], **qkv_main},
+         "launches": train_counts["fused_qkv_attention"], **qkv_main},
         {"name": "window_qkv_attention", "route": "cuda", "source": src + "window_attention.cu",
          "replaces": ["eqxvision_tpu/ops/attention.py:445", "eqxvision_tpu/ops/attention.py:682"],
          "launches": swin_counts["window_qkv_attention"], **window_main},
@@ -643,6 +762,9 @@ def main():
          "replaces": ["scripts/ablate_convnext2.py:73", "scripts/ablate_vit2.py:114", "scripts/ablate_vit3.py:121",
                       "scripts/ablate_vit4.py:196"],
          "launches": vit_counts["fused_mlp_half"], **mlp_main},
+        {"name": "fused_attention_half", "route": "cuda", "source": src + "attention_half.cu",
+         "replaces": ["scripts/ablate_vit2.py:172", "scripts/ablate_vit4.py:145"],
+         "launches": vit_counts["fused_attention_half"], **attn_half_main},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -25,6 +25,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SOURCES = (
     "fused_qkv_attention.cu", "window_attention.cu", "swin_block.cu", "layer_norm.cu", "attention.cu", "mlp_half.cu",
+    "attention_half.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -126,6 +127,12 @@ def library() -> ctypes.CDLL:
         *([c_ptr] * 12), ctypes.c_longlong, c_int, c_int, ctypes.c_float, c_int, c_int, c_ptr,
     ]
     lib.eqx_mlp_half.restype = c_int
+    lib.eqx_attention_half.argtypes = [
+        *([c_ptr] * 11), c_int, c_int, c_int, c_int, ctypes.c_float, ctypes.c_float, c_int, c_int, c_ptr,
+    ]
+    lib.eqx_attention_half.restype = c_int
+    lib.eqx_attention_half_smem_bytes.argtypes = [c_int, c_int, c_int]
+    lib.eqx_attention_half_smem_bytes.restype = ctypes.c_longlong
     lib.eqx_cuda_error_string.argtypes = [c_int]
     lib.eqx_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,5 +1,6 @@
-// Tensor-core pieces shared by swin_block.cu, window_attention.cu and
-// attention.cu:
+// Tensor-core pieces shared by swin_block.cu, window_attention.cu,
+// attention.cu, and through gemm_bf16.cuh by mlp_half.cu and
+// attention_half.cu:
 // mma.sync and ldmatrix wrappers and one head's window attention in bf16
 // (S = Q K^T, softmax, O = P V) for windows of at most 64 tokens, run by a
 // block of 8 warps.
@@ -35,6 +36,14 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reint
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same, each matrix transposed: lane l's row is read as a column.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }

@@ -1,12 +1,14 @@
 """Vision Transformer (DINO-style), NHWC batched
 (eqxvision_tpu/models/classification/vit.py).
 
-The attention runs the fused-qkv kernel on the qkv projection's natural
-(N, L, 3D) layout. With attention dropout active in training, the
-probabilities are materialised in plain torch, as in the JAX model. The
-MLP half (norm2, fc1, gelu, fc2, residual) is one ``ops.fused_mlp_half``
-call, the MLP-half kernel on the card, unless dropout or drop path is
-active in training.
+Each block is two fused ops. The attention half (norm1, qkv, attention,
+proj, residual) is one ``ops.fused_attention_half`` call and the MLP half
+(norm2, fc1, gelu, fc2, residual) one ``ops.fused_mlp_half`` call, each a
+hand-written kernel on the card, unless dropout or drop path is active in
+training. Then the layers run one by one: the attention runs the fused-qkv
+kernel on the qkv projection's natural (N, L, 3D) layout, or, with
+attention dropout active, materialises the probabilities in plain torch,
+as in the JAX model.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ...core import init
 from ...layers import DropPath, MlpProjection, PatchEmbed
 from ...nn import Dropout, Identity, LayerNorm, Linear, gelu
 from ...ops.attention import fused_qkv_attention
+from ...ops.attention_half import fused_attention_half
 from ...ops.mlp_half import fused_mlp_half
 from .._common import debatch, default_generator, ensure_nhwc, maybe_load_state_dict, resolve_device
 
@@ -68,7 +71,14 @@ class _VitBlock(nn.Module):
         self.mlp = MlpProjection(dim, int(dim * mlp_ratio), dim, gelu, drop, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
+        attn = self.attn
+        if self.training and (self.drop_path.p > 0.0 or attn.attn_drop.p > 0.0 or attn.proj_drop.p > 0.0):
+            x = x + self.drop_path(attn(self.norm1(x)))
+        else:
+            x = fused_attention_half(
+                x, self.norm1.weight, self.norm1.bias, attn.qkv.weight, attn.qkv.bias, attn.proj.weight,
+                attn.proj.bias, attn.num_heads, attn.scale, self.norm1.eps,
+            )
         if self.training and (self.drop_path.p > 0.0 or self.mlp.drop1.p > 0.0):
             # dropout and drop path act inside the branch
             return x + self.drop_path(self.mlp(self.norm2(x)))

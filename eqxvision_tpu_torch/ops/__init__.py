@@ -7,6 +7,7 @@ from .attention import (
     window_qkv_attention,
     window_qkv_attention_reference,
 )
+from .attention_half import attention_half_reference, fused_attention_half
 from .layernorm import layer_norm, layer_norm_reference
 from .mlp_half import fused_mlp_half, mlp_half_reference
 from .window_attention import (
@@ -20,7 +21,9 @@ from .window_attention import (
 
 __all__ = [
     "attention",
+    "attention_half_reference",
     "attention_reference",
+    "fused_attention_half",
     "fused_mlp_half",
     "fused_qkv_attention",
     "fused_qkv_attention_reference",

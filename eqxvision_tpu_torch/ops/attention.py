@@ -1,7 +1,8 @@
 """Attention ops of eqxvision_tpu/ops/attention.py.
 
-Counterparts of the JAX package's ``fused_qkv_attention`` (ViT's hot path,
-on a fused qkv projection), ``window_qkv_attention``/
+Counterparts of the JAX package's ``fused_qkv_attention`` (ViT's attention
+on a fused qkv projection, in training with dropout or drop path; inference
+takes ``ops.fused_attention_half``), ``window_qkv_attention``/
 ``packed_window_attention`` (Swin's windows) and the public ``attention``
 (any lead dims, a compact additive bias). A CUDA tensor goes through a
 hand-written Hopper kernel (``csrc/fused_qkv_attention.cu``,

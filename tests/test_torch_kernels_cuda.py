@@ -10,6 +10,7 @@ import importlib
 import pytest
 import torch
 
+from eqxvision_tpu_torch.ops import attention_half as AH
 from eqxvision_tpu_torch.ops import layernorm as LN
 from eqxvision_tpu_torch.ops import mlp_half as M
 from eqxvision_tpu_torch.ops import window_attention as W
@@ -421,3 +422,89 @@ def test_mlp_half_kernel_refuses(cuda, dtype, weight_dtype, c, error):
     params = [None if t is None else t.to(weight_dtype) for t in params]
     with pytest.raises(error):
         M.fused_mlp_half(x.to(dtype), residual.to(dtype), *params)
+
+
+# Fused attention half: (B, L, D, H). vit_base's block shape; a ragged L
+# above 256 (five 64-key tiles); L = 577, vit_base at 384 px (K and V staged
+# in two chunks at head dim 64); head dim 128 at L = 200 (two chunks); head
+# dim 24 (bf16 on the CUDA-core stage); one token.
+AH_SHAPES = [(2, 197, 768, 12), (2, 257, 384, 6), (1, 577, 768, 12), (2, 200, 256, 2), (2, 50, 96, 4), (1, 1, 64, 1)]
+
+
+def _ah_inputs(cuda, b, l, d, dtype, shift=0.0, qkv_bias=True):
+    """x of std 1 (plus ``shift``), LayerNorm affine near (1, 0), weights at
+    the models' init scale, all in the input's type."""
+    gen = torch.Generator(cuda).manual_seed(b * l + d)
+
+    def r(*shape, s=1.0, base=0.0):
+        return (base + s * torch.randn(*shape, device=cuda, generator=gen)).to(dtype)
+
+    params = [r(d, s=0.1, base=1.0), r(d, s=0.1), r(3 * d, d, s=d**-0.5), r(3 * d, s=0.1) if qkv_bias else None,
+              r(d, d, s=d**-0.5), r(d, s=0.1)]
+    return r(b, l, d, base=shift), params
+
+
+def _ah_plain(x, params, heads):
+    """The plain version on widened inputs: f64 for an f32 kernel, f32 for a bf16 one."""
+    wide = torch.float64 if x.dtype == torch.float32 else torch.float32
+    return AH.attention_half_reference(x.to(wide), *(None if t is None else t.to(wide) for t in params), heads,
+                                       (x.shape[-1] // heads) ** -0.5)
+
+
+# bf16: tests/test_hw_parity.py's whole-block v1 bound (0.05): two products
+# around an attention. f32: 1e-4 against the plain version in f64.
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", AH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_half_kernel_matches_plain(cuda, shape, dtype, bound):
+    b, l, d, heads = shape
+    x, params = _ah_inputs(cuda, b, l, d, dtype)
+    before = AH.fused_attention_half.launches
+    out = AH.fused_attention_half(x, *params, heads)
+    ref = _ah_plain(x, params, heads)
+    torch.cuda.synchronize()
+    assert AH.fused_attention_half.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert float((out.double() - ref.double()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_attention_half_kernel_without_qkv_bias(cuda, dtype, bound):
+    x, params = _ah_inputs(cuda, 2, 197, 384, dtype, qkv_bias=False)
+    out = AH.fused_attention_half(x, *params, 6)
+    assert float((out.double() - _ah_plain(x, params, 6).double()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_half_kernel_shifted_rows(cuda, dtype):
+    """Rows of 1e3 + N(0, 1) keep their variance. The outputs are x plus the
+    branch, near 1e3: bf16 rounds them to a step of 4, so its bound is half
+    that step plus the bf16 bound; in f32 the step there is 6.1e-5, and the
+    row mean itself rounds to it, so the bound is 2e-4."""
+    x, params = _ah_inputs(cuda, 2, 197, 384, dtype, shift=1e3)
+    out = AH.fused_attention_half(x, *params, 6)
+    bound = 2.0 + 0.05 if dtype == torch.bfloat16 else 2e-4
+    assert float((out.double() - _ah_plain(x, params, 6).double()).abs().max()) < bound
+
+
+def test_attention_half_kernel_gradient_recomputes_plain(cuda):
+    x, params = _ah_inputs(cuda, 2, 40, 64, torch.float32)
+    g = torch.randn(2, 40, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(9))
+    leaves = [t.clone().requires_grad_(True) for t in (x, *params)]
+    AH.fused_attention_half(*leaves, 4).backward(g)
+    refs = [t.clone().requires_grad_(True) for t in (x, *params)]
+    AH.attention_half_reference(*refs, 4, 16**-0.5).backward(g)
+    for t, r in zip(leaves, refs):
+        torch.testing.assert_close(t.grad, r.grad)
+
+
+@pytest.mark.parametrize(
+    "dtype,weight_dtype,d,heads,error",
+    [(torch.float16, torch.float16, 64, 4, TypeError), (torch.float32, torch.float64, 64, 4, TypeError),
+     (torch.float32, torch.float32, 20, 4, ValueError), (torch.float32, torch.float32, 320, 2, ValueError)],
+    ids=["float16", "weight-float64", "D-20", "head_dim-160"],
+)
+def test_attention_half_kernel_refuses(cuda, dtype, weight_dtype, d, heads, error):
+    x, params = _ah_inputs(cuda, 1, 4, d, torch.float32)
+    params = [None if t is None else t.to(weight_dtype) for t in params]
+    with pytest.raises(error):
+        AH.fused_attention_half(x.to(dtype), *params, heads)

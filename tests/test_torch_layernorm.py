@@ -152,12 +152,12 @@ def test_wrapper_rejects(x, weight, bias, device):
 
 # (model, kwargs, image size, LayerNorms per forward). ConvNeXt: stem, one
 # per downsampling, classifier (each block's norm is inside the fused MLP
-# half). ViT: norm1 of each block and the final norm (norm2 is inside the
-# fused MLP half). Swin: stem, two per block that does not take the
+# half). ViT: the final norm (norm1 and norm2 are inside the fused attention
+# and MLP halves). Swin: stem, two per block that does not take the
 # whole-block op (C > 192: stages 3 and 4), one per patch merging, final norm.
 PER_FORWARD = [
     ("convnext_tiny", {}, 32, 5),
-    ("vit_base", dict(img_size=32), 32, 13),
+    ("vit_base", dict(img_size=32), 32, 1),
     ("swin_t", {}, 64, 21),
     ("swin_v2_t", {}, 64, 21),
 ]

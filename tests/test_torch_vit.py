@@ -7,7 +7,8 @@ JAX model on its plain attention and on its Pallas kernel (interpret
 mode). Also: the port's full-width ``vit_base`` parameter names and shapes
 against the vendored manifest, the port never importing JAX,
 ``chip_smoke.py`` refusing to run without a card, and the training path
-with an active drop path, which runs the MLP half's layers one by one.
+with an active drop path or dropout, which runs the attention half's and
+the MLP half's layers one by one.
 """
 import contextlib
 import importlib
@@ -183,5 +184,46 @@ def test_training_with_drop_path_runs_unfused_and_draws(monkeypatch):
         torch.manual_seed(1)
         b = model(x)
     assert len(fused) == 4
+    assert not torch.allclose(a, b)
+    assert not torch.allclose(a, ref)
+
+
+@pytest.mark.parametrize(
+    "kwargs,fused_in_training,k1_in_training",
+    [(dict(drop_path_rate=0.5), 1, 1), (dict(drop_rate=0.1), 0, 2), (dict(attn_drop_rate=0.1), 0, 0)],
+    ids=["drop-path", "proj-dropout", "attention-dropout"],
+)
+def test_attention_half_fused_at_eval_and_unfused_in_training(monkeypatch, kwargs, fused_in_training, k1_in_training):
+    """At inference every block's attention half is one fused call. In
+    training, a block with an active drop path, proj dropout or attention
+    dropout runs norm1, qkv, the attention and proj one by one (the
+    attention on the fused-qkv op unless attention dropout needs the
+    probabilities) and each forward draws anew; with drop path alone the
+    first block (drop path 0) stays fused."""
+    calls = {"fused_attention_half": [], "fused_qkv_attention": []}
+
+    def counting(fn, seen):
+        def counted(*args, **kw):
+            seen.append(1)
+            return fn(*args, **kw)
+
+        return counted
+
+    for name, seen in calls.items():
+        monkeypatch.setattr(vit_module, name, counting(getattr(vit_module, name), seen))
+    model = create_model("vit_tiny", img_size=32, depth=2, num_classes=4, generator=torch.Generator().manual_seed(0),
+                         device="cpu", **kwargs)
+    x = torch.from_numpy(np.random.RandomState(4).randn(16, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        model.eval()
+        ref = model(x)
+        assert (len(calls["fused_attention_half"]), len(calls["fused_qkv_attention"])) == (2, 0)
+        model.train()
+        torch.manual_seed(0)
+        a = model(x)
+        torch.manual_seed(1)
+        b = model(x)
+    assert len(calls["fused_attention_half"]) == 2 + 2 * fused_in_training
+    assert len(calls["fused_qkv_attention"]) == 2 * k1_in_training
     assert not torch.allclose(a, b)
     assert not torch.allclose(a, ref)
