@@ -23,7 +23,13 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    beside the unfused torch composition it replaces; the fused ViT
    attention half at vit_base b256, a ragged L above 256, vit_base at
    384 px (577 tokens), without a qkv bias and with rows shifted by 1e3,
-   beside the unfused torch composition (with SDPA) it replaces.
+   beside the unfused torch composition (with SDPA) it replaces; the fused
+   Swin v1 attention half at swin_t stages 3 and 4 and swin_b stage 2
+   (b128), a ragged map whose windows hold padding tokens and a head 300
+   log-units down, beside the unfused composition (with SDPA) it replaces.
+   Then ``Linear`` and ``Conv2d`` (plain, strided, depthwise) with f32
+   parameters on a bf16 input against the same function in f64: the bias
+   is added to the f32 accumulator and rounded once.
 4. Serves ``vit_base``, ``swin_t`` (224 px), ``swin_v2_t`` (256 px) and
    ``convnext_tiny``, random weights from a seed: f32 logits of a batch of
    2 against the same weights on the CPU's plain path, then bf16 requests
@@ -101,6 +107,20 @@ ATTN_HALF_BF16_BOUND = 0.05
 # bf16 rounds to a step of 4 (bound: half of it plus the bf16 bound) and
 # f32 to a step of 6.1e-5, to which the row mean itself rounds.
 ATTN_HALF_SHIFTED_BOUND = {torch.bfloat16: 2.05, torch.float32: 2e-4}
+# Fused Swin v1 attention half (B, map side, C, heads): swin_t stages 3 and
+# 4 and swin_b stage 2 at b128 (window 7; the 7 x 7 map is one window, so
+# unshifted); a ragged 10 x 10 map, padded to 14 x 14, whose windows hold
+# padding tokens. Every one takes the shifted layout where it has one.
+WINDOW_HALF_CASES = {"swin_t b128 stage 3": (128, 14, 384, 12), "swin_t b128 stage 4": (128, 7, 768, 24),
+                     "swin_b b128 stage 2": (128, 28, 256, 8), "ragged 10 x 10": (8, 10, 384, 12)}
+# bf16: the whole-block v1 bound, two products around an attention.
+WINDOW_HALF_BF16_BOUND = 0.05
+# Linear and Conv2d with f32 parameters on a bf16 input, against the same
+# function in f64: one rounding of the f32 accumulator plus the bias is at
+# most half a bf16 step (taken at magnitude 1 for the smaller outputs), and
+# the f32 sum in another order may move a value across a rounding midpoint
+# by a few f32 steps.
+BIAS_LAYER_STEPS = 0.51
 
 
 def _check(ok, what):
@@ -297,15 +317,14 @@ def check_block(W):
                     lambda: W.fused_swin_block_reference(x, p, bias, h, scale, 1e-5, v2, gs),
                     lambda: W.fused_swin_block(x, p, bias, h, scale, 1e-5, v2, gs), 10,
                 )
-                extra = ""
+                e, tokens, hidden = x.element_size(), x.numel() // c, 4 * c
+                n_bytes = (2 * x.numel() + (4 * c * c + 2 * c * hidden)) * e + bias.numel() * 4 + (8 * c + hidden) * 4
+                flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * tokens * L * c
+                bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
                 if (name, stage, dtype) == ("swin_t", 1, torch.bfloat16):
-                    e, tokens, hidden = x.element_size(), x.numel() // c, 4 * c
-                    n_bytes = (2 * x.numel() + (4 * c * c + 2 * c * hidden)) * e + bias.numel() * 4 + (8 * c + hidden) * 4
-                    flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * tokens * L * c
-                    bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
                     main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                 library_ms=None)
-                    extra = f"; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)"
+                extra = f"; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)"
                 _report(what, (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms, plain_ms, turns, extra)
     print("fused_swin_block library_ms: null; no single PyTorch call computes a whole Swin block")
 
@@ -513,6 +532,125 @@ def check_attention_half(AH):
     return main
 
 
+def _window_half_inputs(b, side, c, heads, dtype, gen, W, WH):
+    """Windows of an NHWC map of std 1 (padded, shifted by half a window
+    where the map has more than one, partitioned), the window bias (a
+    relative-position bias plus the shift mask), the padding flags, and
+    LayerNorm affine near (1, 0) and weights at the models' init scale, all
+    in the input's type, as a bf16 model holds them."""
+
+    def r(*shape, s=1.0, base=0.0):
+        return (base + s * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+    win = (7, 7)
+    x, geo = W._to_windows(r(b, side, side, c), win, (3, 3))
+    rel = torch.randn(1, heads, 49, 49, device="cuda", generator=gen)
+    bias = W._window_bias(rel, win, heads, geo)
+    valid = WH._valid_rows_on(x.device, geo, *win)
+    params = (r(c, s=0.1, base=1.0), r(c, s=0.1), r(3 * c, c, s=c**-0.5), r(3 * c, s=0.1), r(c, c, s=c**-0.5),
+              r(c, s=0.1))
+    return x.contiguous(), params, bias, valid
+
+
+def _window_half_composition(x, lnw, lnb, wqkv, bqkv, wproj, bproj, bias, heads):
+    """The unfused torch composition the op replaces on windows, in x's
+    type, with SDPA (the bias as a float mask) as its attention."""
+    n, nw, L, c = x.shape
+    qkv = F.linear(F.layer_norm(x, (c,), lnw, lnb, 1e-5), wqkv, bqkv)
+    q, k, v = qkv.view(n * nw, L, 3, heads, c // heads).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = bias.to(x.dtype).expand(n, nw, heads, L, L).reshape(n * nw, heads, L, L)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return x + F.linear(o.transpose(1, 2).reshape(n, nw, L, c), wproj, bproj)
+
+
+def check_window_attention_half(W, WH):
+    """fused_window_attention_half kernel vs its plain version at swin_t
+    stages 3 and 4 and swin_b stage 2 (b128), a ragged map with padding
+    tokens and a head 300 log-units down, bf16 and f32; beside it the
+    unfused torch composition with SDPA (a reference: no single PyTorch call
+    computes this function). The f32 kernel is held against the plain
+    version in f64, the bf16 one against the plain version in f32. Returns
+    swin_t stage 3 bf16's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    main = None
+    cases = [(name, case, False) for name, case in WINDOW_HALF_CASES.items()]
+    cases.append(("swin_t b128 stage 3, head 300 below", WINDOW_HALF_CASES["swin_t b128 stage 3"], True))
+    for name, (b, side, c, heads), low_head in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            bound = WINDOW_HALF_BF16_BOUND if dtype == torch.bfloat16 else F32_BOUND
+            x, params, bias, valid = _window_half_inputs(b, side, c, heads, dtype, gen, W, WH)
+            if low_head:
+                bias[:, heads // 2] -= 300.0
+            wide = torch.float64 if dtype == torch.float32 else torch.float32
+            scale = (c // heads) ** -0.5
+            with torch.no_grad():
+                out = WH.fused_window_attention_half(x, *params, bias, heads, scale, 1e-5, valid)
+                ref = WH.window_attention_half_reference(x.to(wide), *(t.to(wide) for t in params), bias, heads,
+                                                         scale, 1e-5, valid)
+            err = _compare(out, ref, bound, f"fused_window_attention_half {name} {dtype}")
+            if low_head:
+                print(f"fused_window_attention_half {str(dtype)[6:]} with one head 300 log-units below the others: "
+                      f"finite, max|diff| {err:.3e} (bound {bound})")
+                continue
+            iters = 10 if dtype == torch.bfloat16 else 2
+            ms, plain_ms, turns = _turns(
+                lambda: WH.window_attention_half_reference(x, *params, bias, heads, scale, 1e-5, valid),
+                lambda: WH.fused_window_attention_half(x, *params, bias, heads, scale, 1e-5, valid), iters,
+            )
+            with torch.inference_mode():
+                composition_ms = _time_ms(lambda: _window_half_composition(x, *params, bias, heads), iters)
+            e, rows, L = x.element_size(), x.numel() // c, x.shape[2]
+            n_bytes = 2 * x.numel() * e + sum(t.numel() * e for t in params) + bias.numel() * 4
+            flops = 2 * rows * c * 4 * c + 4 * rows * L * c
+            bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
+            if (name, dtype) == ("swin_t b128 stage 3", torch.bfloat16):
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+            _report(f"fused_window_attention_half {name}", tuple(x.shape) + (heads,), dtype, err, bound, ms, plain_ms,
+                    turns, f"; reference: unfused torch composition with SDPA {composition_ms:.4f} ms; "
+                    f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    print("fused_window_attention_half library_ms: null; no single PyTorch call computes the attention half")
+    return main
+
+
+def check_bias_layers():
+    """Linear and Conv2d (plain, strided, depthwise) with f32 parameters on
+    a bf16 input, at Swin's and ConvNeXt's shapes, against the same function
+    in f64 on the bf16 operands: each output is the f32 accumulator plus the
+    bias, rounded once, so within half a bf16 step of the f64 value."""
+    from eqxvision_tpu_torch.nn import Conv2d, Linear
+
+    gen = torch.Generator().manual_seed(10)
+    layers = {
+        "Linear 384 -> 1152 (swin_t stage 3 qkv)": (Linear(384, 1152, generator=gen, device="cuda"), (8, 196, 384)),
+        "Conv2d 4x4 stride 4 (swin_t stem)": (Conv2d(3, 96, 4, 4, generator=gen, device="cuda"), (8, 224, 224, 3)),
+        "Conv2d 3x3 padding 1": (Conv2d(96, 96, 3, 1, 1, generator=gen, device="cuda"), (8, 56, 56, 96)),
+        "Conv2d 7x7 depthwise (convnext_tiny stage 1)": (
+            Conv2d(96, 96, 7, 1, 3, groups=96, generator=gen, device="cuda"), (8, 56, 56, 96)),
+    }
+    for name, (layer, shape) in layers.items():
+        with torch.no_grad():
+            layer.bias.mul_(64.0)  # biases large beside the products, where rounding them first shows most
+            x = torch.randn(*shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(11))
+            x = x.to(torch.bfloat16)
+            out = layer(x)
+            w64, b64 = layer.weight.to(torch.bfloat16).double(), layer.bias.double()
+            if isinstance(layer, Linear):
+                ref = F.linear(x.double(), w64, b64)
+            else:
+                (top, _), (left, _) = layer.padding
+                ref = F.conv2d(x.double().permute(0, 3, 1, 2), w64, b64, layer.stride, (top, left), layer.dilation,
+                               layer.groups).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        _check(out.dtype == torch.bfloat16 and out.shape == ref.shape, f"{name}: output {out.dtype} {tuple(out.shape)}")
+        # one bf16 step at each output's magnitude, taken at 1 below it (f32 sums err in absolute terms)
+        step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1.0))) - 7)
+        steps = ((out.double() - ref).abs() / step).max().item()
+        _check(steps <= BIAS_LAYER_STEPS, f"{name}: {steps} bf16 steps from the f64 value (bound {BIAS_LAYER_STEPS})")
+        print(f"{name}, f32 parameters, bf16 input {tuple(shape)}: at most {steps:.4f} bf16 steps from the f64 value "
+              f"(bound {BIAS_LAYER_STEPS})")
+
+
 def _attn_inputs(lead, n, dh, bias_lead, dtype, gen):
     q, k, v = (torch.randn(*lead, n, dh, device="cuda", generator=gen).to(dtype) for _ in range(3))
     bias = None if bias_lead is None else torch.randn(*bias_lead, n, n, device="cuda", generator=gen)
@@ -701,6 +839,7 @@ def main():
     from eqxvision_tpu_torch.ops import layernorm as LN
     from eqxvision_tpu_torch.ops import mlp_half as M
     from eqxvision_tpu_torch.ops import window_attention as W
+    from eqxvision_tpu_torch.ops import window_attention_half as WH
 
     attention = importlib.import_module("eqxvision_tpu_torch.ops.attention")  # ops.attention is the public op
 
@@ -725,19 +864,23 @@ def main():
     attn_main = check_attention(attention)
     mlp_main = check_mlp_half(M)
     attn_half_main = check_attention_half(AH)
+    window_half_main = check_window_attention_half(W, WH)
+    check_bias_layers()
 
-    # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention, MLP half, attention half
+    # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention, MLP half, attention half,
+    # Swin attention half
     counters = [attention.fused_qkv_attention, attention.window_qkv_attention, W.fused_swin_block, LN.layer_norm,
-                attention.attention, M.fused_mlp_half, AH.fused_attention_half]
-    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, counters, (0, 0, 0, 1, 0, 12, 12))
-    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0, 0))
-    serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0, 0))
+                attention.attention, M.fused_mlp_half, AH.fused_attention_half, WH.fused_window_attention_half]
+    vit_counts = serve(create_model, "vit_base", 224, VIT_REQUESTS, counters, (0, 0, 0, 1, 0, 12, 12, 0))
+    # swin_t: stages 1-2 on the whole block, stages 3-4 on the two fused halves; K6 in the stem, mergings and head
+    swin_counts = serve(create_model, "swin_t", 224, SWIN_REQUESTS, counters, (0, 0, 4, 5, 0, 8, 0, 8))
+    swin_v2_counts = serve(create_model, "swin_v2_t", 256, SWIN_REQUESTS, counters, (0, 8, 4, 21, 0, 0, 0, 0))
     # layer_scale 0.5: at the default 1e-6 every block is nearly an identity,
     # and the card-vs-CPU comparison would not see the blocks
-    convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters, (0, 0, 0, 5, 0, 18, 0),
-                            layer_scale=0.5)
+    convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters,
+                            (0, 0, 0, 5, 0, 18, 0, 0), layer_scale=0.5)
     # norm1 and norm2 of every block and the final norm on K6
-    train_counts = train_vit(create_model, counters, (12, 0, 0, 25, 0, 0, 0))
+    train_counts = train_vit(create_model, counters, (12, 0, 0, 25, 0, 0, 0, 0))
     attn_counts = serve_attention(attention, counters)
 
     src = "eqxvision_tpu_torch/csrc/"
@@ -747,10 +890,11 @@ def main():
          "replaces": ["eqxvision_tpu/ops/attention.py:245", "eqxvision_tpu/ops/attention.py:276"],
          "launches": train_counts["fused_qkv_attention"], **qkv_main},
         {"name": "window_qkv_attention", "route": "cuda", "source": src + "window_attention.cu",
-         "replaces": ["eqxvision_tpu/ops/attention.py:445", "eqxvision_tpu/ops/attention.py:682"],
-         "launches": swin_counts["window_qkv_attention"], **window_main},
+         "replaces": ["eqxvision_tpu/ops/attention.py:445", "eqxvision_tpu/ops/attention.py:682",
+                      "scripts/ablate_swin2.py:71", "scripts/ablate_swin9.py:53"],
+         "launches": swin_v2_counts["window_qkv_attention"], **window_main},
         {"name": "fused_swin_block", "route": "cuda", "source": src + "swin_block.cu",
-         "replaces": ["eqxvision_tpu/ops/window_attention.py:79"],
+         "replaces": ["eqxvision_tpu/ops/window_attention.py:79", "scripts/ablate_swin8.py:43"],
          "launches": swin_counts["fused_swin_block"], **block_main},
         {"name": "layer_norm", "route": "cuda", "source": src + "layer_norm.cu",
          "replaces": ["eqxvision_tpu/ops/layernorm.py:44"],
@@ -765,6 +909,9 @@ def main():
         {"name": "fused_attention_half", "route": "cuda", "source": src + "attention_half.cu",
          "replaces": ["scripts/ablate_vit2.py:172", "scripts/ablate_vit4.py:145"],
          "launches": vit_counts["fused_attention_half"], **attn_half_main},
+        {"name": "fused_window_attention_half", "route": "cuda", "source": src + "window_attention_half.cu",
+         "replaces": ["scripts/ablate_swin3.py:63", "scripts/ablate_swin4.py:65"],
+         "launches": swin_counts["fused_window_attention_half"], **window_half_main},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -25,7 +25,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _SOURCES = (
     "fused_qkv_attention.cu", "window_attention.cu", "swin_block.cu", "layer_norm.cu", "attention.cu", "mlp_half.cu",
-    "attention_half.cu",
+    "attention_half.cu", "window_attention_half.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -133,6 +133,12 @@ def library() -> ctypes.CDLL:
     lib.eqx_attention_half.restype = c_int
     lib.eqx_attention_half_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_attention_half_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_window_attention_half.argtypes = [
+        *([c_ptr] * 13), *([c_int] * 6), ctypes.c_float, ctypes.c_float, c_int, c_int, c_ptr,
+    ]
+    lib.eqx_window_attention_half.restype = c_int
+    lib.eqx_window_attention_half_smem_bytes.argtypes = [c_int, c_int, c_int]
+    lib.eqx_window_attention_half_smem_bytes.restype = ctypes.c_longlong
     lib.eqx_cuda_error_string.argtypes = [c_int]
     lib.eqx_cuda_error_string.restype = ctypes.c_char_p
     return lib

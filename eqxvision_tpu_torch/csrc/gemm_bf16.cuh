@@ -1,16 +1,22 @@
-// GEMM machinery shared by mlp_half.cu and attention_half.cu:
+// GEMM machinery shared by mlp_half.cu, attention_half.cu and
+// window_attention_half.cu:
 //
 //   out[r, n] = epi(sum_k A'[r, k] * W[n, k])
 //
 // with W in torch's (out, in) layout, k contiguous, and A' either A itself
 // or A normalised row by row with precomputed LayerNorm statistics and the
 // LayerNorm affine (applied to the A tile as it lands in shared memory).
-// Two independent compile-time choices:
+// Three independent compile-time choices:
 //   kNormA  normalise the A tile with the row statistics (yes / no);
 //   kEpi    the epilogue on the f32 accumulator: the bias only; the bias
-//           then exact-erf gelu; or the bias, an optional per-column scale
-//           and a residual.
-// Every epilogue rounds once to the output type.
+//           then exact-erf gelu; the bias, an optional per-column scale
+//           and a residual; or the accumulator rounded to the output type
+//           plus the bias rounded to it (a product and its bias added in
+//           the input's type, as the JAX Swin computes its windowed qkv).
+//   kMaskRows  rows whose flag in row_valid is 0 read A as zeros (their
+//           normalised A is 0, not the LayerNorm's shift): the padding
+//           tokens of Swin's windows.
+// Every epilogue then rounds once to the output type.
 //
 // bf16 runs on the tensor cores: 128 x 128 output tiles, 8 warps of 64 x 32,
 // mma.sync m16n8k16 with f32 accumulation, operand tiles of depth 32 staged
@@ -52,10 +58,18 @@ constexpr int kGemmSmemBytes = kStages * (kBM + kBN) * kSk * 2;
 // f32 CUDA-core GEMM
 constexpr int kFM = 64, kFN = 64, kFK = 16;
 
-enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2 };
+enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2, kRoundedBias = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// x rounded to T and back.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) { return __bfloat162float(__float2bfloat16(x)); }
 
 // Element i of a vector stored in f32 (bf16 == false) or bf16, in f32.
 __device__ __forceinline__ float param(const void* p, bool bf16, int i) {
@@ -88,18 +102,33 @@ struct GemmArgs {
   const void* scale;     // kBiasResidual: (N,) column scale, or null for 1
   const void* residual;  // kBiasResidual: (M, N) in T
   bool param_bf16;       // ln_w, ln_b, bias and scale are bf16 (else f32)
+  const unsigned char* row_valid;  // kMaskRows: (valid_period,) flags, row r reads row_valid[r % valid_period]
+  long long valid_period;
 };
+
+template <bool kMaskRows>
+__device__ __forceinline__ bool row_reads_a(const GemmArgs& p, long long r) {
+  if constexpr (kMaskRows) {
+    return r < p.M && p.row_valid[r % p.valid_period] != 0;
+  } else {
+    return r < p.M;
+  }
+}
 
 template <typename T, int kEpi>
 __device__ __forceinline__ float epilogue(const GemmArgs& p, long long r, int n, float acc) {
-  float y = acc + param(p.bias, p.param_bf16, n);
-  if constexpr (kEpi == kBiasGelu) {
-    return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
-  } else if constexpr (kEpi == kBiasResidual) {
-    if (p.scale != nullptr) y *= param(p.scale, p.param_bf16, n);
-    return to_f32(static_cast<const T*>(p.residual)[r * p.N + n]) + y;
+  if constexpr (kEpi == kRoundedBias) {
+    return round_to<T>(acc) + round_to<T>(param(p.bias, p.param_bf16, n));
   } else {
-    return y;
+    float y = acc + param(p.bias, p.param_bf16, n);
+    if constexpr (kEpi == kBiasGelu) {
+      return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
+    } else if constexpr (kEpi == kBiasResidual) {
+      if (p.scale != nullptr) y *= param(p.scale, p.param_bf16, n);
+      return to_f32(static_cast<const T*>(p.residual)[r * p.N + n]) + y;
+    } else {
+      return y;
+    }
   }
 }
 
@@ -152,7 +181,7 @@ cudaError_t launch_row_stats(const void* x, float2* stats, long long rows, int d
 // 64 * (w % 2) .. +64 and columns 32 * (w / 2) .. +32 as 4 x 4 m16n8 tiles.
 // Each thread copies two 16-byte pieces of each operand tile: rows lr and
 // lr + 64, columns lc .. lc + 8 of the k-tile.
-template <bool kNormA, int kEpi>
+template <bool kNormA, int kEpi, bool kMaskRows = false>
 __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmArgs p) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -176,7 +205,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmArgs p) 
   for (int q = 0; q < 2; ++q) {
     const long long r = m0 + lr + 64 * q;
     const int n = n0 + lr + 64 * q;
-    a_ok[q] = r < p.M;
+    a_ok[q] = row_reads_a<kMaskRows>(p, r);
     w_ok[q] = n < p.N;
     a_src[q] = A + (a_ok[q] ? r : 0) * p.K;
     w_src[q] = W + (long long)(w_ok[q] ? n : 0) * p.K;
@@ -211,7 +240,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmArgs p) 
     const int stage = kt % kStages;
     if constexpr (kNormA) {
       // LayerNorm of this thread's own pieces of the A tile, in place,
-      // rounded to bf16; padding (rows past M, k past K) stays zero
+      // rounded to bf16; padding (rows past M or masked, k past K) stays zero
       const int k = kt * kBK + lc;
       if (k < p.K) {
         float g[8], b[8];
@@ -282,7 +311,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmArgs p) 
 // f32 on the CUDA cores. Block tile kFM x kFN; thread (tx, ty) of 16 x 16
 // computes rows ty + 16 i and columns tx + 16 j. Each k-tile of A and W is
 // read as one float4 a thread (row lr, k piece lk) and stored k-major.
-template <bool kNormA, int kEpi>
+template <bool kNormA, int kEpi, bool kMaskRows = false>
 __global__ void __launch_bounds__(kGemmThreads) gemm_f32_kernel(GemmArgs p) {
   __shared__ float sA[kFK][kFM + 4];
   __shared__ float sB[kFK][kFN + 4];
@@ -292,7 +321,7 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_f32_kernel(GemmArgs p) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int lr = threadIdx.x / 4, lk = (threadIdx.x % 4) * 4;
   const long long ar = m0 + lr;
-  const bool a_ok = ar < p.M, w_ok = n0 + lr < p.N;
+  const bool a_ok = row_reads_a<kMaskRows>(p, ar), w_ok = n0 + lr < p.N;
   const float* a_src = static_cast<const float*>(p.a) + (a_ok ? ar : 0) * p.K;
   const float* w_src = static_cast<const float*>(p.w) + (long long)(w_ok ? n0 + lr : 0) * p.K;
   float mean = 0.f, rstd = 0.f;
@@ -353,12 +382,12 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_f32_kernel(GemmArgs p) {
   }
 }
 
-template <typename T, bool kNormA, int kEpi>
+template <typename T, bool kNormA, int kEpi, bool kMaskRows = false>
 cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     const long long blocks = ((p.M + kBM - 1) / kBM) * ((p.N + kBN - 1) / kBN);
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
-    auto kernel = gemm_bf16_kernel<kNormA, kEpi>;
+    auto kernel = gemm_bf16_kernel<kNormA, kEpi, kMaskRows>;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes);
     if (err != cudaSuccess) return err;
@@ -366,7 +395,7 @@ cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
   } else {
     const long long blocks = ((p.M + kFM - 1) / kFM) * ((p.N + kFN - 1) / kFN);
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
-    gemm_f32_kernel<kNormA, kEpi><<<(unsigned)blocks, kGemmThreads, 0, stream>>>(p);
+    gemm_f32_kernel<kNormA, kEpi, kMaskRows><<<(unsigned)blocks, kGemmThreads, 0, stream>>>(p);
   }
   return cudaGetLastError();
 }

@@ -11,6 +11,13 @@ from ..nn.dropout import Dropout
 from ..nn.linear import Linear
 
 
+def mlp_forward(fc1: Linear, act: Callable, drop1: nn.Module, fc2: Linear, drop2: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``drop2(fc2(drop1(act(fc1(x)))))`` with the activation acting on fc1's
+    f32 accumulator (``Linear.preactivation``) and rounded to x's type once
+    after it, as the JAX ``MlpProjection`` does."""
+    return drop2(fc2(drop1(act(fc1.preactivation(x)).to(x.dtype))))
+
+
 class MlpProjection(nn.Module):
     def __init__(
         self,
@@ -34,10 +41,7 @@ class MlpProjection(nn.Module):
         self.drop2 = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # The JAX layer applies the activation to fc1's f32 accumulator and
-        # casts once (Linear.preactivation). torch's GEMM returns the input
-        # dtype, so in bf16 this rounds fc1's output before gelu. ViT's
-        # blocks take this path only in training with dropout or drop path;
-        # otherwise they run ops.fused_mlp_half, which rounds once.
-        x = self.drop1(self.act(self.fc1(x)))
-        return self.drop2(self.fc2(x))
+        # ViT's blocks take this path only in training with dropout or drop
+        # path; otherwise they run ops.fused_mlp_half, which rounds as
+        # mlp_forward does.
+        return mlp_forward(self.fc1, self.act, self.drop1, self.fc2, self.drop2, x)

@@ -7,11 +7,14 @@ torchvision's module tree and state-dict names (``features.0.0`` stem conv,
 package's dynamic padding. The buffers ``relative_position_index`` and
 (v2) ``relative_coords_table`` are computed here from the window size.
 
-Dispatch, as in the JAX package: at inference (``eval()``, every dropout
-and drop-path inert) a block with C <= 192 runs as one whole-block kernel
-(``ops.window_attention.fused_swin_block_v1``/``_v2``); every other block
-runs norm -> qkv ``Linear`` -> the window-attention kernel -> proj
-``Linear`` -> residual -> MLP.
+Dispatch: at inference (``eval()``, every dropout and drop-path inert) a
+block with C <= 192 runs as one whole-block kernel
+(``ops.window_attention.fused_swin_block_v1``/``_v2``), as in the JAX
+package; the other v1 blocks (C > 192) run two fused halves,
+``ops.fused_window_attention_half`` then ``ops.fused_mlp_half``, the
+counterpart of the prototype scripts/ablate_swin4.py; every other block
+(training, v2 with C > 192) runs norm -> qkv -> the window-attention kernel
+-> proj -> residual -> MLP.
 """
 from __future__ import annotations
 
@@ -23,9 +26,12 @@ from torch import nn
 
 from ...core import init
 from ...layers import DropPath
+from ...layers.mlps import mlp_forward
 from ...nn import Dropout, LayerNorm, Linear
 from ...nn.conv import Conv2d
 from ...ops import window_attention as wa
+from ...ops import window_attention_half as wah
+from ...ops.mlp_half import fused_mlp_half
 from .._common import debatch, default_generator, ensure_nhwc, maybe_load_state_dict, resolve_device
 
 
@@ -140,9 +146,16 @@ class _ShiftedWindowAttentionV2(_ShiftedWindowAttention):
         return self.logit_scale
 
 
-def _mlp(dim: int, hidden: int, dropout: float, **kw) -> nn.Sequential:
-    """torchvision's Swin MLP: Linear, GELU, Dropout, Linear, Dropout."""
-    return nn.Sequential(Linear(dim, hidden, **kw), nn.GELU(), Dropout(dropout), Linear(hidden, dim, **kw), Dropout(dropout))
+class _SwinMlp(nn.Sequential):
+    """torchvision's Swin MLP and its names: Linear, GELU, Dropout, Linear,
+    Dropout, run by ``mlp_forward``: gelu acts on fc1's f32 accumulator and
+    is rounded once, as the JAX package's ``MlpProjection`` does."""
+
+    def __init__(self, dim: int, hidden: int, dropout: float, **kw):
+        super().__init__(Linear(dim, hidden, **kw), nn.GELU(), Dropout(dropout), Linear(hidden, dim, **kw), Dropout(dropout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_forward(*self, x)
 
 
 class _SwinTransformerBlock(nn.Module):
@@ -160,7 +173,7 @@ class _SwinTransformerBlock(nn.Module):
         )
         self.stochastic_depth = DropPath(stochastic_depth_prob)
         self.norm2 = LayerNorm(dim, device=device)
-        self.mlp = _mlp(dim, int(dim * mlp_ratio), dropout, **kw)
+        self.mlp = _SwinMlp(dim, int(dim * mlp_ratio), dropout, **kw)
 
     def _regularizers_inert(self) -> bool:
         """The whole-block kernel computes no dropout or drop-path: each must
@@ -178,6 +191,14 @@ class _SwinTransformerBlock(nn.Module):
             )
         )
 
+    def _can_fuse_halves(self) -> bool:
+        a = self.attn
+        return (
+            not a.training
+            and self._regularizers_inert()
+            and wah.window_attention_half_supported(a.qkv.in_features, a.num_heads, a.window_size[0] * a.window_size[1])
+        )
+
     def _fused_kwargs(self) -> dict:
         a = self.attn
         return dict(
@@ -193,6 +214,16 @@ class _SwinTransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._can_fuse():
             return wa.fused_swin_block_v1(x, **self._fused_kwargs())
+        if self._can_fuse_halves():
+            a, fc1, fc2 = self.attn, self.mlp[0], self.mlp[3]
+            h = wah.window_attention_half_v1(
+                x, norm1_w=self.norm1.weight, norm1_b=self.norm1.bias, qkv_weight=a.qkv.weight,
+                qkv_bias=a.qkv.bias, proj_weight=a.proj.weight, proj_bias=a.proj.bias,
+                relative_position_bias=a.get_relative_position_bias(), window_size=a.window_size,
+                shift_size=a.shift_size, num_heads=a.num_heads, eps=self.norm1.eps,
+            )
+            return fused_mlp_half(h, h, self.norm2.weight, self.norm2.bias, fc1.weight, fc1.bias, fc2.weight,
+                                  fc2.bias, None, self.norm2.eps)
         x = x + self.stochastic_depth(self.attn(self.norm1(x)))
         return x + self.stochastic_depth(self.mlp(self.norm2(x)))
 

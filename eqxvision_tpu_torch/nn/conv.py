@@ -7,7 +7,10 @@ layout, so the convolution needs no copy. Padding takes the JAX layer's
 forms: an int, a pair (one per spatial dim, both sides), or a pair of
 (before, after) pairs; uneven sides are padded with ``F.pad`` first. The
 JAX layer's opt-in space-to-depth stem (``EQXVISION_TPU_S2D_STEM``) is not
-ported yet.
+ported yet. The bias is added, in its stored type, to the f32 accumulator,
+which is rounded once: one call where the bias has the input's type, else
+(f32 parameters and a bf16 input) the convolution runs in f32 on the upcast
+operands, which holds every product exactly, and is rounded after the bias.
 """
 from __future__ import annotations
 
@@ -69,14 +72,16 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(init.uniform_fan_in((out_channels,), fan_in, **kw)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        dt = x.dtype
         (top, bottom), (left, right) = self.padding
         if top == bottom and left == right:
             padding = (top, left)
         else:  # uneven sides: pad H and W of the NHWC tensor, then convolve unpadded
             x = F.pad(x, (0, 0, left, right, top, bottom))
             padding = (0, 0)
-        y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.weight.to(x.dtype), bias, self.stride, padding, self.dilation, self.groups
-        )
-        return y.permute(0, 2, 3, 1)
+        w, bias = self.weight.to(dt), self.bias
+        if bias is not None and bias.dtype != dt:
+            wide = torch.promote_types(dt, torch.float32)
+            x, w, bias = x.to(wide), w.to(wide), bias.to(wide)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, bias, self.stride, padding, self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1).to(dt)

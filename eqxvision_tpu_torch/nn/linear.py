@@ -2,8 +2,11 @@
 
 The weight is stored (out_features, in_features), as torch stores it; the
 JAX package stores (in, out), and ``weights.from_jax`` transposes. Parameters
-keep their dtype and are cast to the input's at use, as in the JAX layer.
-Torch's matmuls accumulate bf16 products in f32.
+keep their dtype and the weight is cast to the input's at use, as in the JAX
+layer. Torch's matmuls accumulate bf16 products in f32. The bias is added,
+in its stored type, to the f32 accumulator, which is then rounded once: one
+call where the bias has the input's type, else ``preactivation`` (f32
+parameters and a bf16 input, the JAX package's mixed path).
 """
 from __future__ import annotations
 
@@ -29,5 +32,27 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(init.uniform_fan_in((out_features,), in_features, **kw)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        if self.bias is None or self.bias.dtype == x.dtype:
+            return F.linear(x, self.weight.to(x.dtype), self.bias)
+        return self.preactivation(x).to(x.dtype)
+
+    def preactivation(self, x: torch.Tensor) -> torch.Tensor:
+        """The product accumulated in f32 (or x's type where that is wider)
+        plus the bias in that type, before the cast to x's type: the JAX
+        layer's ``Linear.preactivation``. An activation applied to it acts on
+        the accumulator, not on a rounded output. On the card, where no
+        gradient is taken, a bf16 product keeps the GEMM's f32 accumulator
+        (``torch.mm``'s ``out_dtype``, which has no derivative;
+        ``torch.addmm``'s expands the bias over the output first, which is
+        slower). Otherwise the operands are upcast: exact, since f32 (and
+        TF32) holds every bf16 value, and differentiable."""
+        w = self.weight.to(x.dtype)
+        wide = torch.promote_types(x.dtype, torch.float32)
+        needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+        if x.dtype == wide:
+            y = F.linear(x, w)
+        elif x.device.type == "cuda" and not needs_grad:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=wide).reshape(*x.shape[:-1], w.shape[0])
+        else:
+            y = F.linear(x.to(wide), w.to(wide))
+        return y if self.bias is None else y + self.bias.to(wide)

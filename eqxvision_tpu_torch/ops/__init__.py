@@ -18,6 +18,7 @@ from .window_attention import (
     fused_swin_block_v2,
     shifted_window_attention,
 )
+from .window_attention_half import fused_window_attention_half, window_attention_half_reference
 
 __all__ = [
     "attention",
@@ -32,10 +33,12 @@ __all__ = [
     "fused_swin_block_supported",
     "fused_swin_block_v1",
     "fused_swin_block_v2",
+    "fused_window_attention_half",
     "layer_norm",
     "layer_norm_reference",
     "mlp_half_reference",
     "shifted_window_attention",
     "window_qkv_attention",
+    "window_attention_half_reference",
     "window_qkv_attention_reference",
 ]

@@ -157,6 +157,15 @@ def _v2_qkv_bias(qkv_bias: Optional[torch.Tensor], c: int) -> Optional[torch.Ten
     return torch.cat((qkv_bias[:c], torch.zeros_like(qkv_bias[c : 2 * c]), qkv_bias[2 * c :]))
 
 
+def _product_then_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x @ weight.T`` rounded to x's type, then ``bias`` in x's type added
+    and rounded again: the JAX package's windowed projections
+    (``xw @ w`` then ``+ bias.astype(x.dtype)``), two roundings where
+    ``F.linear`` with a bias makes one."""
+    y = F.linear(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
 def shifted_window_attention(
     x: torch.Tensor,
     qkv_weight: torch.Tensor,  # (3C, C), torch's (out, in)
@@ -182,7 +191,7 @@ def shifted_window_attention(
     if logit_scale is not None:
         qkv_bias = _v2_qkv_bias(qkv_bias, c)
     dt = x.dtype
-    qkv = F.linear(xw, qkv_weight.to(dt), None if qkv_bias is None else qkv_bias.to(dt))
+    qkv = _product_then_bias(xw, qkv_weight, qkv_bias)
     bias = _window_bias(relative_position_bias, window_size, num_heads, geo)
     cosine_gs = None if logit_scale is None else _cosine_gs(logit_scale, num_heads)
     scale = 1.0 if logit_scale is not None else (c // num_heads) ** -0.5
@@ -197,7 +206,7 @@ def shifted_window_attention(
         out = torch.matmul(p, v).transpose(2, 3).reshape(nb, nw, L, c)
     else:
         out = window_qkv_attention(qkv, bias, num_heads, scale, cosine_gs)
-    out = F.linear(out, proj_weight.to(dt), None if proj_bias is None else proj_bias.to(dt))
+    out = _product_then_bias(out, proj_weight, proj_bias)
     out = F.dropout(out, dropout, training=training)
     return _from_windows(out, window_size, geo)
 

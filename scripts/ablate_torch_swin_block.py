@@ -10,7 +10,9 @@ that copy's ``csrc/swin_block.cu`` (the outputs are then wrong; only the
 time is read), builds it in a fresh process, and times the kernel with
 CUDA events at the b128 bf16 shapes of swin_t stages 1 and 2 and
 swin_v2_t stage 1. A phase's cost is the base time less the variant's.
-Imports nothing of JAX.
+The variants are the counterpart of the prototype scripts/ablate_swin8.py,
+which times a v2 block with one piece switched off at swin_v2_t stage 1
+(``no_norm`` is its ``nonorm``). Imports nothing of JAX.
 """
 import argparse
 import shutil
@@ -22,6 +24,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "eqxvision_tpu_torch"
 HEADS = "  for (int h = 0; h < H; ++h) {"
 MLP = "  for (int c0 = 0; c0 < p.hidden; c0 += kHidChunk) {"
+COSINE = "    if (p.gs != nullptr) {\n      // cosine attention"
 VARIANTS = {  # name: [(source line, replacement)]
     "base": [],
     "no_attn": [("      attention_head_mma(qkvh, sq, Dh, L, q_scale, k_inv, p.scale, bias_h, s_buf, o_t + h * Dh, lda);", "")],
@@ -29,6 +32,9 @@ VARIANTS = {  # name: [(source line, replacement)]
     "no_mlp": [(MLP, MLP.replace("c0 < p.hidden", "c0 < 0"))],
     "no_fc2": [("    block_matmul(hid, sh, nc, p.w_fc2 + c0,", "    if (0) block_matmul(hid, sh, nc, p.w_fc2 + c0,")],
     "shell": [(HEADS, HEADS.replace("h < H", "h < 0")), (MLP, MLP.replace("c0 < p.hidden", "c0 < 0"))],
+    # v2's cosine head norm skipped (q and k scales stay 1): the prototype
+    # scripts/ablate_swin8.py's ``nonorm``; v1 shapes do not run it
+    "no_norm": [(COSINE, COSINE.replace("p.gs != nullptr", "false"))],
     "no_gelu": [("from_f32<T>(0.5f * u * (1.f + erff(u * 0.70710678118654752f)))", "from_f32<T>(u)")],
     "no_fetch": [("      if (n < N && k < K) v[q] =", "      if (n < 0) v[q] =")],
     "no_mma": [("      mma_bf16(acc[0], a, b01[0], b01[1]);\n      mma_bf16(acc[1], a, b01[2], b01[3]);\n"

@@ -5,15 +5,20 @@ Every test here needs a CUDA card and skips without one. On the card, run
 (``--noconftest``: the suite's conftest imports JAX, which the port's
 machine need not have). This file imports only torch and the port.
 """
+import copy
 import importlib
 
 import pytest
 import torch
 
+from eqxvision_tpu_torch.layers import MlpProjection
+from eqxvision_tpu_torch.models.classification import swin as S
+from eqxvision_tpu_torch.nn import Linear
 from eqxvision_tpu_torch.ops import attention_half as AH
 from eqxvision_tpu_torch.ops import layernorm as LN
 from eqxvision_tpu_torch.ops import mlp_half as M
 from eqxvision_tpu_torch.ops import window_attention as W
+from eqxvision_tpu_torch.ops import window_attention_half as WH
 
 A = importlib.import_module("eqxvision_tpu_torch.ops.attention")
 
@@ -508,3 +513,158 @@ def test_attention_half_kernel_refuses(cuda, dtype, weight_dtype, d, heads, erro
     params = [None if t is None else t.to(weight_dtype) for t in params]
     with pytest.raises(error):
         AH.fused_attention_half(x.to(dtype), *params, heads)
+
+
+# Fused Swin v1 attention half: (B, map side, C, heads) with window 7 and
+# shift 3: swin_t stage 3 and 4 widths, swin_b stage 2, a ragged map whose
+# windows hold padding tokens, and head dim 16.
+WH_SHAPES = [(2, 14, 384, 12), (2, 7, 768, 24), (1, 28, 256, 8), (2, 10, 384, 12), (2, 9, 64, 4)]
+
+
+def _wh_inputs(cuda, b, side, c, heads, dtype, qkv_bias=True):
+    """Windows of an NHWC map of std 1, the window bias, the padding flags,
+    LayerNorm affine near (1, 0) and weights at the models' init scale, all
+    in the input's type."""
+    gen = torch.Generator(cuda).manual_seed(b * side + c)
+
+    def r(*shape, s=1.0, base=0.0):
+        return (base + s * torch.randn(*shape, device=cuda, generator=gen)).to(dtype)
+
+    x, geo = W._to_windows(r(b, side, side, c), (7, 7), (3, 3))
+    bias = W._window_bias(torch.randn(1, heads, 49, 49, device=cuda, generator=gen), (7, 7), heads, geo)
+    params = [r(c, s=0.1, base=1.0), r(c, s=0.1), r(3 * c, c, s=c**-0.5), r(3 * c, s=0.1) if qkv_bias else None,
+              r(c, c, s=c**-0.5), r(c, s=0.1)]
+    return x.contiguous(), params, bias, WH._valid_rows_on(x.device, geo, 7, 7)
+
+
+def _wh_plain(x, params, bias, heads, valid):
+    """The plain version on widened inputs: f64 for an f32 kernel, f32 for a bf16 one."""
+    wide = torch.float64 if x.dtype == torch.float32 else torch.float32
+    return WH.window_attention_half_reference(x.to(wide), *(None if t is None else t.to(wide) for t in params), bias,
+                                              heads, (x.shape[-1] // heads) ** -0.5, 1e-5, valid)
+
+
+# bf16: tests/test_hw_parity.py's whole-block v1 bound (0.05): two products
+# around an attention. f32: 1e-4 against the plain version in f64.
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", WH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_window_attention_half_kernel_matches_plain(cuda, shape, dtype, bound):
+    b, side, c, heads = shape
+    x, params, bias, valid = _wh_inputs(cuda, b, side, c, heads, dtype)
+    before = WH.fused_window_attention_half.launches
+    out = WH.fused_window_attention_half(x, *params, bias, heads, None, 1e-5, valid)
+    ref = _wh_plain(x, params, bias, heads, valid)
+    torch.cuda.synchronize()
+    assert WH.fused_window_attention_half.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert float((out.double() - ref.double()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_window_attention_half_kernel_without_qkv_bias_or_mask(cuda, dtype, bound):
+    x, params, bias, _ = _wh_inputs(cuda, 2, 14, 192, 6, dtype, qkv_bias=False)
+    out = WH.fused_window_attention_half(x, *params, bias, 6)
+    assert float((out.double() - _wh_plain(x, params, bias, 6, None).double()).abs().max()) < bound
+
+
+def test_window_attention_half_kernel_padding_rows_are_zero_before_qkv(cuda):
+    """On a ragged map the flags matter: the kernel with them matches the
+    plain version with them, and not the plain version without them."""
+    x, params, bias, valid = _wh_inputs(cuda, 2, 10, 128, 4, torch.float32)
+    out = WH.fused_window_attention_half(x, *params, bias, 4, None, 1e-5, valid)
+    assert float((out.double() - _wh_plain(x, params, bias, 4, valid)).abs().max()) < 1e-4
+    assert float((out.double() - _wh_plain(x, params, bias, 4, None)).abs().max()) > 1e-2
+
+
+def test_window_attention_half_kernel_gradient_recomputes_plain(cuda):
+    x, params, bias, valid = _wh_inputs(cuda, 1, 10, 64, 4, torch.float32)
+    g = torch.randn(*x.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(9))
+    leaves = [t.clone().requires_grad_(True) for t in (x, *params)]
+    WH.fused_window_attention_half(*leaves, bias, 4, None, 1e-5, valid).backward(g)
+    refs = [t.clone().requires_grad_(True) for t in (x, *params)]
+    WH.window_attention_half_reference(*refs, bias, 4, 0.25, 1e-5, valid).backward(g)
+    for t, r in zip(leaves, refs):
+        torch.testing.assert_close(t.grad, r.grad)
+
+
+@pytest.mark.parametrize(
+    "dtype,weight_dtype,c,heads,error",
+    [(torch.float16, torch.float16, 64, 4, TypeError), (torch.float32, torch.float64, 64, 4, TypeError),
+     (torch.float32, torch.float32, 96, 4, ValueError), (torch.float32, torch.float32, 256, 2, ValueError)],
+    ids=["float16", "weight-float64", "head_dim-24", "head_dim-128"],
+)
+def test_window_attention_half_kernel_refuses(cuda, dtype, weight_dtype, c, heads, error):
+    x, params, bias, valid = _wh_inputs(cuda, 1, 7, c, heads, torch.float32)
+    params = [None if t is None else t.to(weight_dtype) for t in params]
+    with pytest.raises(error):
+        WH.fused_window_attention_half(x.to(dtype), *params, bias, heads, None, 1e-5, valid)
+
+
+def test_swin_t_blocks_above_192_channels_run_the_fused_halves(cuda):
+    """A swin_t at inference launches the attention half and the MLP half
+    once per C > 192 block, and no window-attention kernel."""
+    from eqxvision_tpu_torch.models import create_model
+
+    model = create_model("swin_t", depths=(2, 2, 2, 2), num_classes=10, generator=torch.Generator().manual_seed(0),
+                         device=cuda).eval()
+    counters = (WH.fused_window_attention_half, M.fused_mlp_half, A.window_qkv_attention, W.fused_swin_block)
+    before = [fn.launches for fn in counters]
+    x = torch.randn(2, 112, 112, 3, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [4, 4, 0, 4]
+    cpu = create_model("swin_t", depths=(2, 2, 2, 2), num_classes=10, generator=torch.Generator().manual_seed(0),
+                       device="cpu").eval()
+    cpu.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ref = cpu(x.cpu())
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
+# Modules whose bf16 input meets Linear.preactivation: the f32 accumulator
+# that the card computes with torch.mm's out_dtype where no gradient is
+# taken. ViT's training MLP, a Swin block with C > 192 in training (its MLP,
+# and the window-attention kernel under the qkv), and a Linear with f32
+# parameters.
+GRAD_CASES = {
+    "mlp-bf16": (lambda: MlpProjection(96, 384, generator=_gen()).to(torch.bfloat16), (2, 50, 96)),
+    "swin-block-c256-bf16-train": (
+        lambda: S._SwinTransformerBlock(256, 8, [7, 7], [3, 3], generator=_gen()).to(torch.bfloat16).train(),
+        (2, 14, 14, 256),
+    ),
+    "linear-f32-params": (lambda: Linear(96, 160, generator=_gen()), (3, 7, 96)),
+}
+
+
+def _rel(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("name", list(GRAD_CASES))
+def test_bf16_input_gradients_on_the_card_match_the_cpu(cuda, name):
+    """A backward through a bf16 input on the card: the output and every
+    gradient against the same module on the CPU. bf16 outputs and input
+    gradients round differently on the two devices, by a step or so, so
+    the error is taken relative to each tensor's norm."""
+    build, shape = GRAD_CASES[name]
+    cpu = build()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(1)).bfloat16()
+    results = []
+    for module, dev in ((cpu, "cpu"), (card, cuda)):
+        xi = x.clone().to(dev).requires_grad_(True)
+        y = module(xi)
+        g = torch.randn(*y.shape, generator=torch.Generator().manual_seed(2)).to(y.dtype)
+        y.backward(g.to(dev))
+        results.append([y, xi.grad] + [p.grad for p in module.parameters()])
+    assert results[1][0].dtype == torch.bfloat16
+    for ref, out in zip(*results):
+        assert out is not None and ref is not None
+        assert torch.isfinite(out).all()
+        assert _rel(out.cpu(), ref) < 2e-2

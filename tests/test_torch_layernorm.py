@@ -153,12 +153,13 @@ def test_wrapper_rejects(x, weight, bias, device):
 # (model, kwargs, image size, LayerNorms per forward). ConvNeXt: stem, one
 # per downsampling, classifier (each block's norm is inside the fused MLP
 # half). ViT: the final norm (norm1 and norm2 are inside the fused attention
-# and MLP halves). Swin: stem, two per block that does not take the
-# whole-block op (C > 192: stages 3 and 4), one per patch merging, final norm.
+# and MLP halves). Swin: stem, one per patch merging, final norm; v2 also two
+# per block that does not take the whole-block op (C > 192: stages 3 and 4),
+# whose norms v1 runs inside its fused attention and MLP halves.
 PER_FORWARD = [
     ("convnext_tiny", {}, 32, 5),
     ("vit_base", dict(img_size=32), 32, 1),
-    ("swin_t", {}, 64, 21),
+    ("swin_t", {}, 64, 5),
     ("swin_v2_t", {}, 64, 21),
 ]
 

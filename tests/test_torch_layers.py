@@ -121,6 +121,36 @@ def test_layer_matches_jax(name):
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
+# Layers whose bias meets the f32 accumulator: f32 parameters on a bf16 input.
+BIAS_CASES = {
+    "linear": (_case_linear, (4, 9, 24)),
+    "conv2d": (_conv_case(5, 8, 3, padding=1), (2, 9, 10, 5)),
+    "conv2d-strided": (_case_conv2d, (2, 9, 9, 5)),
+    "conv2d-depthwise": (_conv_case(6, 6, 7, padding=3, groups=6), (2, 9, 10, 6)),
+}
+
+
+@pytest.mark.parametrize("name", list(BIAS_CASES))
+def test_bias_meets_f32_accumulator_as_jax(name):
+    """f32 parameters and a bf16 input: the JAX layer adds the f32 bias to
+    the f32 accumulator and rounds once, and so does the port's; it rounded
+    the bias to bf16 first. The biases are drawn large beside the products,
+    where rounding them first moves most outputs. The outputs are equal."""
+    case, shape = BIAS_CASES[name]
+    jax_layer, torch_layer = case()[0]
+    rng = np.random.RandomState(3)
+    bias = (3.0 * rng.randn(*jax_layer.bias.shape)).astype(np.float32)
+    jax_layer = jax.tree_util.tree_map(lambda a: jnp.asarray(bias) if a.shape == bias.shape else a, jax_layer)
+    with torch.no_grad():
+        torch_layer.bias.copy_(torch.from_numpy(bias))
+    x = jnp.asarray(rng.randn(*shape), jnp.bfloat16)
+    ref = np.asarray(jax_layer(x).astype(jnp.float32))
+    with torch.no_grad():
+        out = torch_layer(torch.from_numpy(np.asarray(x.astype(jnp.float32))).bfloat16())
+    assert out.dtype == torch.bfloat16 and torch_layer.bias.dtype == torch.float32
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
 def test_drop_path_drops_whole_samples():
     layer = TL.DropPath(0.5).train()
     x = torch.ones(64, 3, 4)

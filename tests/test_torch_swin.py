@@ -4,9 +4,10 @@ Both packages build the model through ``create_model``; the JAX parameters
 are carried into the port with ``weights.from_jax`` and the logits compared
 in f32 at atol 1e-4, rtol 1e-4 (the repo's logit-parity bound), with the
 JAX model on its plain path and on its Pallas kernels in interpret mode.
-The small configs reach both of the port's paths: C <= 192 blocks take the
-whole-block op, the others the window-attention op, and the last stage's
-input is padded up to the window. Also: the full-width ``swin_t`` and
+The small configs reach each of the port's paths: C <= 192 blocks take the
+whole-block op, the others the fused attention and MLP halves (v1) or the
+window-attention op (v2), and the last stage's input is padded up to the
+window. Also: the full-width ``swin_t`` and
 ``swin_v2_t`` parameter names and shapes against the vendored manifests.
 """
 import contextlib
@@ -28,6 +29,7 @@ from eqxvision_tpu.models import create_model as jax_create_model
 from eqxvision_tpu.weights.serialize import _flatten_with_paths
 from eqxvision_tpu_torch.models import create_model
 from eqxvision_tpu_torch.ops import window_attention as TW
+from eqxvision_tpu_torch.ops import window_attention_half as TWH
 from eqxvision_tpu_torch.weights import load_jax_params
 
 jax_attention = importlib.import_module("eqxvision_tpu.ops.attention")
@@ -81,21 +83,24 @@ def test_logits_match_jax(config, jax_path):
             stack.enter_context(mock.patch.object(jax_window, "_swin_use_pallas", lambda *a: True))
         ref, _ = jax.jit(lambda m, t, s: m(t, s))(model, jnp.asarray(x), state)
     assert len(calls) == (n_kernels if jax_path == "pallas-interpret" else 0)
-    before = (T.window_qkv_attention.launches, TW.fused_swin_block.launches)
+    counters = (T.window_qkv_attention, TW.fused_swin_block, TWH.fused_window_attention_half)
+    before = [fn.launches for fn in counters]
     with torch.no_grad():
         out = port(torch.from_numpy(x)).numpy()
-    assert (T.window_qkv_attention.launches, TW.fused_swin_block.launches) == before  # CPU: plain versions
+    assert [fn.launches for fn in counters] == before  # CPU: plain versions
     assert out.shape == (2, 10)
     np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_port_routes_blocks_as_jax(config, monkeypatch):
-    """Stages 1-3 (C <= 192 here) take the whole-block op, stage 4 the
-    window-attention op, once per block: the JAX package's dispatch."""
+    """Stages 1-3 (C <= 192 here) take the whole-block op, as in the JAX
+    package; stage 4 takes the fused attention half (v1) or the
+    window-attention op (v2), once per block. Training takes the
+    window-attention op everywhere."""
     port = _port(config)
     size = CONFIGS[config][1]
-    calls = {"block": 0, "window": 0}
+    calls = {"block": 0, "window": 0, "half": 0}
 
     def count(key, fn):
         def wrapper(*args, **kwargs):
@@ -106,13 +111,15 @@ def test_port_routes_blocks_as_jax(config, monkeypatch):
 
     monkeypatch.setattr(TW, "fused_swin_block", count("block", TW.fused_swin_block))
     monkeypatch.setattr(TW, "window_qkv_attention", count("window", TW.window_qkv_attention))
+    monkeypatch.setattr(TWH, "fused_window_attention_half", count("half", TWH.fused_window_attention_half))
     with torch.no_grad():
         port(torch.zeros(1, size, size, 3))
-    assert calls == {"block": 6, "window": 2}
+    v2 = CONFIGS[config][0].startswith("swin_v2")
+    assert calls == {"block": 6, "window": 2 if v2 else 0, "half": 0 if v2 else 2}
     port.train()
-    calls.update(block=0, window=0)
+    calls.update(block=0, window=0, half=0)
     port(torch.zeros(1, size, size, 3))
-    assert calls == {"block": 0, "window": 8}  # training: drop-path is live, no whole-block op
+    assert calls == {"block": 0, "window": 8, "half": 0}  # training: drop-path is live, no fused op
 
 
 @pytest.mark.parametrize("name", ["swin_t", "swin_v2_t"])

@@ -5,12 +5,16 @@ counterparts: the numpy helpers (relative-position index, v2 coordinate
 table, shift mask), window partition with padding and roll, the
 window-attention op against the JAX Pallas kernels K3
 (``_window_qkv_kernel``) and K4 (``_packed_window_kernel``) in interpret
-mode, and the whole-block op against K5 (``_swin_block_kernel``) in
-interpret mode. On a CPU tensor the port's ops run their plain torch
+mode and the prototype P6 (scripts/ablate_swin2.py) in interpret mode, and
+the whole-block op against K5 (``_swin_block_kernel``) in interpret mode.
+On a CPU tensor the port's ops run their plain torch
 versions; the CUDA kernels are compared with those in
 tests/test_torch_kernels_cuda.py, on the card. f32 throughout.
 """
+import functools
 import importlib
+import importlib.util
+import os
 from unittest import mock
 
 import jax.experimental.pallas as pl
@@ -24,6 +28,7 @@ from eqxvision_tpu_torch.ops import window_attention as TW
 A = importlib.import_module("eqxvision_tpu.ops.attention")
 T = importlib.import_module("eqxvision_tpu_torch.ops.attention")
 WA = importlib.import_module("eqxvision_tpu.ops.window_attention")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def rand(*shape, seed=0, scale=1.0):
@@ -130,6 +135,34 @@ def test_window_attention_matches_jax_kernels(case, shifted):
     gs_t = None if gs is None else torch.from_numpy(gs)
     out = T.window_qkv_attention(torch.from_numpy(qkv), torch.from_numpy(bias), heads, scale, gs_t).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _ablate_swin2():
+    spec = importlib.util.spec_from_file_location("ablate_swin2", os.path.join(REPO, "scripts", "ablate_swin2.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["shared-bias", "bias-per-window"])
+def test_window_attention_matches_p6_prototype(shifted):
+    """The prototype P6, ``packed_window_attention`` of
+    scripts/ablate_swin2.py, in interpret mode, on q|k|v and a bias packed
+    with the script's own ``pack_qkv`` and ``pack_bias``: K3/K4's v1
+    function, which the port's plain version (and csrc/window_attention.cu)
+    computes."""
+    P6 = _ablate_swin2()
+    c, heads, nw, L = 96, 3, 4, 49
+    qkv, bias = _window_case(c, heads, nw, L, shifted, seed=31 + shifted)
+    assert bias.shape[0] == (nw if shifted else 1)
+    scale = (c // heads) ** -0.5
+    cp = -(-c // 128) * 128
+    with _pallas_interpret():
+        qkvp = P6.pack_qkv(jnp.asarray(qkv), c, cp)
+        ref = np.asarray(P6.packed_window_attention(qkvp, P6.pack_bias(jnp.asarray(bias), heads, L), heads, scale, c))
+    out = T.window_qkv_attention(torch.from_numpy(qkv), torch.from_numpy(bias), heads, scale).numpy()
+    np.testing.assert_allclose(out, ref[..., :c], atol=1e-5)
 
 
 @pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
