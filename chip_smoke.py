@@ -6,7 +6,13 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``eqxvision_tpu_torch/csrc`` with nvcc (one
    process per source, in parallel) and prints the build time and the
-   compiler's report.
+   compiler's report. Then the bf16 GEMM of the three fused halves
+   (``csrc/gemm_bf16.cuh``): its registers and spills from that report
+   (a spill fails the run), and each instantiation driven through its op at
+   the main path's shapes (vit_base b256 fc1, fc2, qkv and proj;
+   convnext_tiny b128 stage 1 fc1 and fc2; swin_t stage 3 qkv at b128 on a
+   ragged map with padding rows), its device time, rate and bound beside
+   ``F.linear`` on the same operands.
 3. Holds each kernel against its plain torch version on the card at the
    shapes its paths give it, and times both with CUDA events in turns
    (plain, kernel, kernel, plain): the fused-qkv attention at ViT-B/16's
@@ -44,6 +50,7 @@ kernels; the last line is the JSON result.
 """
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +122,24 @@ WINDOW_HALF_CASES = {"swin_t b128 stage 3": (128, 14, 384, 12), "swin_t b128 sta
                      "swin_b b128 stage 2": (128, 28, 256, 8), "ragged 10 x 10": (8, 10, 384, 12)}
 # bf16: the whole-block v1 bound, two products around an attention.
 WINDOW_HALF_BF16_BOUND = 0.05
+# bf16 GEMMs of the fused halves at the main path's shapes, driven through
+# their ops: (GEMM, op case, kernel instantiation <kNormA, kEpi, with the
+# row mask>, M, N, K). The op cases are vit_base b256's MLP and attention
+# halves, convnext_tiny b128 stage 1's MLP half, and swin_t stage 3's
+# attention half at b128 on a ragged 10 x 10 map (windows with padding rows).
+GEMM_OPS = {"vit_base b256 MLP": ("mlp", (50432, 768, True)), "vit_base b256 attention": ("attn", (256, 197, 768, 12)),
+            "convnext_tiny b128 stage 1 MLP": ("mlp", (401408, 96, False)),
+            "swin_t b128 stage 3 attention, ragged 10 x 10": ("window", (128, 10, 384, 12))}
+GEMM_CASES = [
+    ("fc1 + LayerNorm + gelu", "vit_base b256 MLP", "<true, 1, false,", 50432, 3072, 768),
+    ("fc2 + residual", "vit_base b256 MLP", "<false, 2, false,", 50432, 768, 3072),
+    ("qkv + LayerNorm", "vit_base b256 attention", "<true, 0, false,", 50432, 2304, 768),
+    ("proj + residual", "vit_base b256 attention", "<false, 2, false,", 50432, 768, 768),
+    ("fc1 + LayerNorm + gelu", "convnext_tiny b128 stage 1 MLP", "<true, 1, false,", 401408, 384, 96),
+    ("fc2 + layer scale + residual", "convnext_tiny b128 stage 1 MLP", "<false, 2, false,", 401408, 96, 384),
+    ("qkv + LayerNorm, padding rows masked, rounded bias", "swin_t b128 stage 3 attention, ragged 10 x 10",
+     "<true, 3, true,", 25088, 1152, 384),
+]
 # Linear and Conv2d with f32 parameters on a bf16 input, against the same
 # function in f64: one rounding of the f32 accumulator plus the bias is at
 # most half a bf16 step (taken at magnitude 1 for the smaller outputs), and
@@ -613,6 +638,95 @@ def check_window_attention_half(W, WH):
     return main
 
 
+def _gemm_build_report(log):
+    """(instantiation, registers, spill bytes) of each bf16 GEMM kernel in
+    ptxas's report; the mangled name's template arguments, decoded."""
+    found, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S*gemm_bf16_kernel\S*)'", line)
+        if m or "Compiling entry function" in line:
+            name = m.group(1) if m else None
+        elif name and "spill stores" in line:
+            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif name and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            args = re.search(r"ILb(\d)ELi(\d)ELb(\d)ELi(\d+)E", name).groups()
+            found.append((f"<{'true' if args[0] == '1' else 'false'}, {args[1]}, "
+                          f"{'true' if args[2] == '1' else 'false'}, {args[3]}>", regs, spills))
+            name = None
+    return found
+
+
+def check_gemm(M, AH, W, WH, log):
+    """The bf16 GEMMs of the three fused halves (gemm_bf16.cuh), driven
+    through their ops at the main path's shapes: each op against its plain
+    version, then each GEMM's device time per call from torch.profiler,
+    its rate, its bound, and F.linear on the same operands (a yardstick the
+    port never calls). Fails on a GEMM kernel that spills."""
+    from torch.profiler import ProfilerActivity, profile
+
+    report = sorted(set(_gemm_build_report(log)))  # each source that includes the header builds its own copy
+    _check(len(report) > 0, "no gemm_bf16_kernel in the build log")
+    for inst, regs, spills in report:
+        print(f"gemm_bf16_kernel{inst}: {regs} registers, {spills} bytes spilled (ptxas -v)")
+    _check(all(spills == 0 for _, _, spills in report), "a bf16 GEMM kernel spills")
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    iters = 10
+    for op_name, (kind, case) in GEMM_OPS.items():
+        if kind == "mlp":
+            x, residual, params = _mlp_inputs(*case, torch.bfloat16, gen)
+            call = lambda: M.fused_mlp_half(x, residual, *params)  # noqa: E731
+            ref = M.mlp_half_reference(x.float(), residual.float(), *(None if t is None else t.float() for t in params))
+            rows, c = case[:2]
+            hidden = torch.randn(rows, 4 * c, device="cuda", generator=gen).to(torch.bfloat16)
+            operands = {"<true, 1, false,": (x, params[2], params[3]),
+                        "<false, 2, false,": (hidden, params[4], params[5])}
+            bound = MLP_BF16_BOUND
+        elif kind == "attn":
+            b, l, d, heads = case
+            x, params = _attn_half_inputs(b, l, d, torch.bfloat16, gen)
+            call = lambda: AH.fused_attention_half(x, *params, heads)  # noqa: E731
+            ref = AH.attention_half_reference(x.float(), *(t.float() for t in params), heads, (d // heads) ** -0.5)
+            o = torch.randn(b * l, d, device="cuda", generator=gen).to(torch.bfloat16)
+            operands = {"<true, 0, false,": (x, params[2], params[3]), "<false, 2, false,": (o, params[4], params[5])}
+            bound = ATTN_HALF_BF16_BOUND
+        else:
+            b, side, c, heads = case
+            x, params, bias, valid = _window_half_inputs(b, side, c, heads, torch.bfloat16, gen, W, WH)
+            scale = (c // heads) ** -0.5
+            call = lambda: WH.fused_window_attention_half(x, *params, bias, heads, scale, 1e-5, valid)  # noqa: E731
+            ref = WH.window_attention_half_reference(x.float(), *(t.float() for t in params), bias, heads, scale, 1e-5,
+                                                     valid)
+            operands = {"<true, 3, true,": (x, params[2], params[3])}
+            bound = WINDOW_HALF_BF16_BOUND
+        with torch.inference_mode():
+            err = _compare(call(), ref, bound, f"check_gemm {op_name}")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    call()
+                torch.cuda.synchronize()
+        kernels = {e.key: e.device_time_total / 1e3 / e.count for e in prof.key_averages()
+                   if "gemm_bf16_kernel<" in e.key and e.count}
+        print(f"check_gemm {op_name}: op against its plain version max|diff| {err:.3e} (bound {bound})")
+        for gemm, case_op, inst, m, n, k in GEMM_CASES:
+            if case_op != op_name:
+                continue
+            hits = [(key, ms) for key, ms in kernels.items() if inst in key]
+            _check(len(hits) == 1, f"check_gemm {op_name} {gemm}: kernels {list(kernels)}")
+            key, ms = hits[0]
+            a, w, bvec = operands[inst]
+            with torch.inference_mode():
+                library_ms = _time_ms(lambda: F.linear(a.reshape(-1, a.shape[-1]), w, bvec), iters)
+            flops = 2 * m * n * k
+            n_bytes = 2 * (m * k + n * k + m * n * (2 if inst.startswith("<false, 2") else 1) + n)
+            bound_ms, bound_by = _bound_ms(n_bytes, flops, torch.bfloat16)
+            tile = key[key.index("gemm_bf16_kernel<") + len("gemm_bf16_kernel"):key.index(">") + 1]
+            print(f"gemm {gemm} {tile} at {op_name} (M {m}, N {n}, K {k}): {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+                  f"TFLOP/s; bound {bound_ms:.4f} ms ({bound_by}); library (F.linear, same operands) "
+                  f"{library_ms:.4f} ms, {flops / library_ms / 1e9:.1f} TFLOP/s")
+
+
 def check_bias_layers():
     """Linear and Conv2d (plain, strided, depthwise) with f32 parameters on
     a bf16 input, at Swin's and ConvNeXt's shapes, against the same function
@@ -856,6 +970,7 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({_native.library_path().name})")
     print(_native.build_log().strip())
 
+    check_gemm(M, AH, W, WH, _native.build_log())
     qkv_main = check_fused_qkv(attention)
     window_main = check_window_attention(attention)
     block_main = check_block(W)

@@ -55,17 +55,22 @@
 // once: at vit_base b256 in bf16 238 + 30.5 GFLOP, 0.27 ms at 989 TFLOP/s,
 // against 0.05 ms of device memory. This version also recomputes Q K^T in
 // its second pass, moves qkv and the attention output through device
-// memory, and runs mma.sync, a fraction of the card's wgmma rate; wgmma,
-// TMA and a persistent schedule are later work.
-// Limits: D a multiple of 8, D divisible by H, Dh <= 128, 16-byte aligned
-// tensors; the entry point returns cudaErrorInvalidValue otherwise.
+// memory, and its attention stage runs mma.sync, a fraction of the card's
+// wgmma rate (the two GEMMs are gemm_bf16.cuh's TMA-fed wgmma ones); a
+// wgmma stage is later work.
+// Limits: D a multiple of 8, D divisible by H, Dh <= 128, in bf16 D at most
+// 12,344 (the qkv GEMM's LayerNorm vectors), 16-byte aligned tensors; the
+// entry point returns cudaErrorInvalidValue otherwise.
 
 #include "gemm_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using eqx_tc::ldmatrix_x4;
 using eqx_tc::ldmatrix_x4_trans;
+using eqx_tc::mma_bf16;
+using eqx_tc::pack_bf16;
 using eqx_tc::warp_max;
 
 constexpr int kMaxHeadDim = 128;

@@ -5,7 +5,7 @@
 //
 // with W in torch's (out, in) layout, k contiguous, and A' either A itself
 // or A normalised row by row with precomputed LayerNorm statistics and the
-// LayerNorm affine (applied to the A tile as it lands in shared memory).
+// LayerNorm affine (applied to the A tile once it lands in shared memory).
 // Three independent compile-time choices:
 //   kNormA  normalise the A tile with the row statistics (yes / no);
 //   kEpi    the epilogue on the f32 accumulator: the bias only; the bias
@@ -18,20 +18,69 @@
 //           tokens of Swin's windows.
 // Every epilogue then rounds once to the output type.
 //
-// bf16 runs on the tensor cores: 128 x 128 output tiles, 8 warps of 64 x 32,
-// mma.sync m16n8k16 with f32 accumulation, operand tiles of depth 32 staged
-// by cp.async in a ring of three, fragments read with ldmatrix. The grid is
-// one-dimensional with the column tiles of a row panel adjacent, so that the
-// panel is read from device memory once and from L2 by its neighbours.
+// bf16 runs on Hopper's tensor cores (sm_90a), warp-specialised:
+//   - One producer warp issues TMA loads (cp.async.bulk.tensor) of 128 x 64
+//     tiles of A and BN x 64 tiles of W, both with the 128-byte swizzle,
+//     into a ring of kStages stages with a full and an empty mbarrier each.
+//     W stays in its (N, K) layout, which is K-major for wgmma's B: nothing
+//     is transposed. TMA zero-fills rows past M or N and k past K (K = 96
+//     is one and a half k-tiles).
+//   - Two consumer warpgroups each own 64 rows x BN columns of the output
+//     tile and issue wgmma.mma_async m64nBNk16 (f32 accumulation) from
+//     shared-memory descriptors: stride 1024 bytes between 8-row groups,
+//     32 bytes further per k16 step. setmaxnreg gives the producer's
+//     registers to the consumers (40 and 232 a thread).
+//   - LayerNorm on A (and kMaskRows), off the producer's path: when a stage
+//     lands, each consumer warpgroup normalises its own 64 rows in place, in
+//     16-byte pieces (the logical piece of a swizzled row is its physical
+//     index XOR row % 8), with gamma and beta of all of K staged once per
+//     block in shared memory in f32 and each thread's row statistics in
+//     registers; then fence.proxy.async, a warpgroup barrier, and only then
+//     its wgmma reads the stage. A' is rounded where the prototypes round
+//     it: bf16((x - mean) * rstd * g + b), all in f32. Normalising in
+//     place rather than in registers keeps both operands in shared memory
+//     for wgmma, and one pass serves both the row's norm and its mask.
+//   - Epilogue through shared memory: each warp passes its 16 rows of the
+//     accumulator, 32 columns at a time, through its part of a buffer
+//     (XOR-swizzled 16-byte units: no bank conflicts on either side), then
+//     each lane finishes 8 consecutive columns of a row with the bias and
+//     scale staged once per tile, reads the residual and writes the output
+//     as 16-byte vectors. What the epilogue and the LayerNorm pass read from
+//     device memory is asked for early, so that its latency falls under the
+//     products: the bias and scale into registers as a tile starts, the
+//     residual into L2 four k-tiles before its end, the row statistics of
+//     the next tile before this tile's epilogue.
+//   - A persistent grid: one block per SM walks the tiles in order, the
+//     column tiles of a row panel adjacent, so that the panel is read from
+//     device memory once and from L2 by its neighbours, and the producer
+//     loads the next tile's first stages while the consumers run the
+//     epilogue (which is why the epilogue has a buffer of its own and does
+//     not reuse a drained stage). Measured against one block per tile at
+//     vit_base b256 fc1 on an H100: 0.72 against 0.79 ms.
+//   - BN: the widest of 256, 128 and 96 with the least padding, so 256 for
+//     N = 3072 or 2304, 128 for 1152 or 384, 96 for N = 96 or 192 (where
+//     128 would pad by a quarter or a third of each tile); a narrower one
+//     where the LayerNorm vectors of a large K would not fit beside a
+//     256-wide ring. Measured at convnext_tiny b128's fc2: at N = 192 the
+//     96-wide tile takes 0.097 ms against 0.106 for a 256-wide one; at
+//     N = 96 it ties a 128-wide one.
+// What holds it back (scripts/ablate_torch_gemm.py): a warp's wgmma issue
+// waits for the tensor cores, so the LayerNorm pass and the epilogue, which
+// run in the issuing warps, run beside no products. At vit_base b256 fc1
+// the products alone would take 0.36 ms with the pass and 0.25 without it;
+// the epilogue adds 0.36 (gelu 0.12 of it).
 // f32 runs true f32 FMAs on the CUDA cores (no TF32): 64 x 64 tiles, a 4 x 4
 // register tile per thread.
 // Limits: K and N multiples of 8, A, W and out 16-byte aligned (the callers
-// check them).
+// check them); in bf16 M below 2^31 and, with kNormA, K at most 12,344
+// (the LayerNorm vectors beside the narrowest tile's ring).
 //
 // Everything here has internal linkage: each source that includes the
 // header gets its own copy of the kernels it instantiates.
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -44,19 +93,29 @@
 
 namespace {
 
-using eqx_tc::ldmatrix_x4;
-using eqx_tc::mma_bf16;
-using eqx_tc::pack_bf16;
 using eqx_tc::warp_sum;
 
-constexpr int kGemmThreads = 256;
+constexpr int kGemmThreads = 256;  // row statistics and the f32 GEMM
 constexpr int kGemmWarps = kGemmThreads / 32;
-// bf16 tensor-core GEMM
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kSk = kBK + 8;  // smem row stride: 80 bytes, so 8 ldmatrix rows hit 8 distinct 16-byte bank groups
-constexpr int kGemmSmemBytes = kStages * (kBM + kBN) * kSk * 2;
+// bf16 wgmma GEMM: a producer warpgroup, then two consumer warpgroups
+constexpr int kWarpgroup = 128;
+constexpr int kBf16Threads = 3 * kWarpgroup;
+constexpr int kBM = 128, kBK = 64, kStages = 4;
+constexpr int kATileBytes = kBM * kBK * 2;
+constexpr int kEpiCols = 32;            // accumulator columns a warpgroup stages at a time
+constexpr int kMaxSmemBytes = 232448;   // shared memory one block may opt into (227 KB)
 // f32 CUDA-core GEMM
 constexpr int kFM = 64, kFN = 64, kFK = 16;
+
+__host__ __device__ constexpr int gemm_stage_bytes(int bn) { return kATileBytes + bn * kBK * 2; }
+
+// Dynamic shared memory of one bf16 block without the LayerNorm vectors
+// (kNormA adds 8 K bytes): alignment slack to 1024 bytes for the swizzle,
+// the ring, two epilogue buffers, bias and scale per warpgroup, barriers.
+__host__ __device__ constexpr int gemm_smem_bytes(int bn) {
+  return 1024 + kStages * gemm_stage_bytes(bn) + 2 * 64 * kEpiCols * 4 + 2 * 2 * bn * 4 + 2 * kStages * 8;
+}
+constexpr int kGemmSmemBytes = gemm_smem_bytes(256);  // the widest tile's
 
 enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2, kRoundedBias = 3 };
 
@@ -115,20 +174,32 @@ __device__ __forceinline__ bool row_reads_a(const GemmArgs& p, long long r) {
   }
 }
 
+// The epilogue's arithmetic on one f32 accumulator, with the column's bias
+// and scale (1 where there is none) and the row's residual in f32.
 template <typename T, int kEpi>
-__device__ __forceinline__ float epilogue(const GemmArgs& p, long long r, int n, float acc) {
+__device__ __forceinline__ float finish(float acc, float bias, float scale, float residual) {
   if constexpr (kEpi == kRoundedBias) {
-    return round_to<T>(acc) + round_to<T>(param(p.bias, p.param_bf16, n));
+    return round_to<T>(acc) + round_to<T>(bias);
   } else {
-    float y = acc + param(p.bias, p.param_bf16, n);
+    float y = acc + bias;
     if constexpr (kEpi == kBiasGelu) {
       return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
     } else if constexpr (kEpi == kBiasResidual) {
-      if (p.scale != nullptr) y *= param(p.scale, p.param_bf16, n);
-      return to_f32(static_cast<const T*>(p.residual)[r * p.N + n]) + y;
+      return residual + y * scale;
     } else {
       return y;
     }
+  }
+}
+
+template <typename T, int kEpi>
+__device__ __forceinline__ float epilogue(const GemmArgs& p, long long r, int n, float acc) {
+  const float bias = param(p.bias, p.param_bf16, n);
+  if constexpr (kEpi == kBiasResidual) {
+    const float scale = p.scale != nullptr ? param(p.scale, p.param_bf16, n) : 1.f;
+    return finish<T, kEpi>(acc, bias, scale, to_f32(static_cast<const T*>(p.residual)[r * p.N + n]));
+  } else {
+    return finish<T, kEpi>(acc, bias, 1.f, 0.f);
   }
 }
 
@@ -177,132 +248,437 @@ cudaError_t launch_row_stats(const void* x, float2* stats, long long rows, int d
   return cudaGetLastError();
 }
 
-// bf16 on the tensor cores. Block tile kBM x kBN; warp w computes rows
-// 64 * (w % 2) .. +64 and columns 32 * (w / 2) .. +32 as 4 x 4 m16n8 tiles.
-// Each thread copies two 16-byte pieces of each operand tile: rows lr and
-// lr + 64, columns lc .. lc + 8 of the k-tile.
-template <bool kNormA, int kEpi, bool kMaskRows = false>
-__global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmArgs p) {
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // kStages x kBM x kSk
-  bf16* sB = sA + kStages * kBM * kSk;       // kStages x kBN x kSk
-  const int n_tiles = (p.N + kBN - 1) / kBN;
-  const long long m0 = (long long)(blockIdx.x / n_tiles) * kBM;
-  const int n0 = (blockIdx.x % n_tiles) * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
-  const bf16* A = static_cast<const bf16*>(p.a);
-  const bf16* W = static_cast<const bf16*>(p.w);
-  const int k_tiles = (p.K + kBK - 1) / kBK;
+// ---- Hopper primitives: mbarriers, TMA, wgmma ----
 
-  const int lr = threadIdx.x / 4, lc = (threadIdx.x % 4) * 8;
-  bool a_ok[2], w_ok[2];
-  const bf16* a_src[2];
-  const bf16* w_src[2];
-  float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `parity` to complete. A wait that lasts over 2^34
+// cycles (about 9 s) is a deadlock: it traps, so the launch fails rather
+// than hold the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1LL << 34)) {
+      __trap();
+    }
+  }
+}
+
+// The box of `map` at (c0 along the contiguous axis, c1 along rows) into
+// shared memory; its bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :
+      : "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// wgmma descriptor of a K-major operand tile in shared memory with the
+// 128-byte swizzle, 1024-byte aligned: rows of 64 bf16 (128 bytes), 8-row
+// groups 1024 bytes apart. A k16 step further along is +2 (32 bytes).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulator across
+// the asynchronous wgmma's issue and wait.
+template <int R>
+__device__ __forceinline__ void fence_accumulator(float (&d)[R]) {
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const long long r = m0 + lr + 64 * q;
-    const int n = n0 + lr + 64 * q;
-    a_ok[q] = row_reads_a<kMaskRows>(p, r);
-    w_ok[q] = n < p.N;
-    a_src[q] = A + (a_ok[q] ? r : 0) * p.K;
-    w_src[q] = W + (long long)(w_ok[q] ? n : 0) * p.K;
-    if constexpr (kNormA) {
-      if (a_ok[q]) {
-        const float2 s = p.stats[r];
-        mean[q] = s.x;
-        rstd[q] = s.y;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (+)= A B^T for a 64 x BN tile: A and B by descriptor, D in the wgmma
+// accumulator layout (register 4 j + e holds row 16 (warp % 4) + lane / 4
+// + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2); accumulate = 0 overwrites.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\nwgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,"
+      "%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,"
+      "%120,%121,%122,%123,%124,%125,%126,%127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\nwgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  if constexpr (BN == 256) {
+    wgmma_m64n256k16(d, desc_a, desc_b, accumulate);
+  } else if constexpr (BN == 128) {
+    wgmma_m64n128k16(d, desc_a, desc_b, accumulate);
+  } else {
+    static_assert(BN == 96, "column tiles are 256, 128 or 96 wide");
+    wgmma_m64n96k16(d, desc_a, desc_b, accumulate);
+  }
+}
+
+// Float index of (row, col) in a warpgroup's 64 x kEpiCols epilogue buffer:
+// 16-byte unit col / 4 of the row stored at unit (col / 4) ^ f(row), f(row)
+// = 2 (row % 4) + row % 2, so that the float2 writes of the accumulator
+// layout (4 rows a half-warp) and the float4 reads of 8-column groups (2 rows
+// a quarter-warp) each hit 32 distinct banks.
+__device__ __forceinline__ int epi_index(int row, int col) {
+  return row * kEpiCols + ((((col >> 2) ^ (((row & 3) << 1) | (row & 1)))) << 2) + (col & 3);
+}
+
+struct Bf16Gemm {
+  CUtensorMap a_map;  // A (M, K): boxes of kBM rows x kBK, 128-byte swizzle
+  CUtensorMap w_map;  // W (N, K): boxes of BN rows x kBK, 128-byte swizzle
+  GemmArgs p;
+};
+
+// bf16 on the tensor cores; see the note at the top. Warpgroup 0 is the
+// producer (one thread issues the loads), warpgroups 1 and 2 the consumers
+// of rows 0 .. 63 and 64 .. 127 of each 128 x BN output tile.
+template <bool kNormA, int kEpi, bool kMaskRows, int BN>
+__global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid_constant__ Bf16Gemm g) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kStageBytes = gemm_stage_bytes(BN);
+  constexpr bool kTransformA = kNormA || kMaskRows;
+  const GemmArgs& p = g.p;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;  // the swizzle's alignment
+  float* epi_buf = reinterpret_cast<float*>(smem + kStages * kStageBytes);  // [2][64 x kEpiCols]
+  float* vec = epi_buf + 2 * 64 * kEpiCols;                                 // [2][bias BN, scale BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec + 4 * BN);
+  uint64_t* empty = full + kStages;
+  float* ln = reinterpret_cast<float*>(empty + kStages);  // kNormA: gamma (K), beta (K)
+
+  const int n_cols = (p.N + BN - 1) / BN;
+  const long long n_tiles = (p.M + kBM - 1) / kBM * n_cols;
+  const int k_tiles = (p.K + kBK - 1) / kBK;
+  const int wg = threadIdx.x / kWarpgroup;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&g.a_map)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&g.w_map)) : "memory");
+      uint32_t it = 0;  // stage uses so far: stage it % kStages, round it / kStages
+      for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (int)(tile / n_cols) * kBM, n0 = (int)(tile % n_cols) * BN;
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);  // round 0 finds the stage free
+          unsigned char* stage = smem + s * kStageBytes;
+          mbar_arrive_expect_tx(&full[s], kStageBytes);
+          tma_load_2d(stage, &g.a_map, &full[s], kt * kBK, m0);
+          tma_load_2d(stage + kATileBytes, &g.w_map, &full[s], kt * kBK, n0);
+        }
       }
     }
-  }
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k = kt * kBK + lc;
-    const bool k_ok = k < p.K;  // K % 8 == 0: a piece is wholly in or out
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      cp_async16(sA + (stage * kBM + lr + 64 * q) * kSk + lc, a_src[q] + (k_ok ? k : 0), a_ok[q] && k_ok);
-      cp_async16(sB + (stage * kBN + lr + 64 * q) * kSk + lc, w_src[q] + (k_ok ? k : 0), w_ok[q] && k_ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) load_tile(s, s);
-    cp_async_commit();
-  }
-
-  float acc[4][4][4] = {};
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kStages - 2>();  // this thread's pieces of tile kt have landed
-    const int stage = kt % kStages;
+  } else {
+    setmaxnreg_inc<232>();
+    const int ct = threadIdx.x - kWarpgroup;  // consumer thread, 0 .. 255
+    const int cw = wg - 1;                    // consumer warpgroup: rows 64 cw .. 64 cw + 63 of a tile
+    const int wt = ct % kWarpgroup, warp = wt / 32, lane = wt % 32;
     if constexpr (kNormA) {
-      // LayerNorm of this thread's own pieces of the A tile, in place,
-      // rounded to bf16; padding (rows past M or masked, k past K) stays zero
-      const int k = kt * kBK + lc;
-      if (k < p.K) {
-        float g[8], b[8];
+      for (int k = ct; k < p.K; k += 2 * kWarpgroup) {
+        ln[k] = param(p.ln_w, p.param_bf16, k);
+        ln[p.K + k] = param(p.ln_b, p.param_bf16, k);
+      }
+      named_barrier(3, 2 * kWarpgroup);
+    }
+    // The LayerNorm / mask pass: this thread's logical 16-byte piece of each
+    // k-tile, in rows tr0 + 16 i (i < 4) of the warpgroup's 64, with each
+    // row's statistics and flag loaded a tile ahead.
+    const int piece = wt % 8, tr0 = wt / 8;
+    float2 stat[4], next_stat[4];
+    bool reads[4], next_reads[4];
+    auto load_rows = [&](long long tile, float2(&st)[4], bool(&ok)[4]) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          g[e] = param(p.ln_w, p.param_bf16, k + e);
-          b[e] = param(p.ln_b, p.param_bf16, k + e);
+      for (int i = 0; i < 4; ++i) {
+        const long long r = tile / n_cols * kBM + 64 * cw + tr0 + 16 * i;
+        // M < 2^31 here, so the flag's index is taken in 32 bits (a 64-bit
+        // remainder is a call, whose saved registers spill)
+        ok[i] = r < p.M && (!kMaskRows || p.row_valid[(unsigned)r % (unsigned)p.valid_period] != 0);
+        st[i] = kNormA && ok[i] ? p.stats[r] : make_float2(0.f, 0.f);
+      }
+    };
+    if constexpr (kTransformA) load_rows(blockIdx.x, stat, reads);
+    // the epilogue's columns c = wt + 128 j of the tile: bias and scale
+    constexpr int kVec = (BN + kWarpgroup - 1) / kWarpgroup;
+    float* sv = vec + cw * 2 * BN;  // [bias BN, scale BN] of the tile, in f32
+    float* buf = epi_buf + cw * 64 * kEpiCols;
+    bf16* out = static_cast<bf16*>(p.out);
+    const bf16* residual = static_cast<const bf16*>(p.residual);
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    uint32_t it = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long long m0 = tile / n_cols * kBM;
+      const int n0 = (int)(tile % n_cols) * BN;
+      float bias_c[kVec], scale_c[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int c = wt + kWarpgroup * j, n = n0 + c;
+        const bool ok = c < BN && n < p.N;
+        bias_c[j] = ok ? param(p.bias, p.param_bf16, n) : 0.f;
+        scale_c[j] = ok && kEpi == kBiasResidual && p.scale ? param(p.scale, p.param_bf16, n) : 1.f;
+      }
+
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        if constexpr (kEpi == kBiasResidual) {
+          // this warpgroup's residual rows into L2 while the last four
+          // k-tiles' products run (earlier, the operand stream evicts them)
+          if (kt == (k_tiles > 4 ? k_tiles - 4 : 0)) {
+            for (int j = wt / 64; j * 64 < BN; j += 2) {
+              const long long r = m0 + 64 * cw + wt % 64;
+              const int n = n0 + 64 * j;
+              if (r < p.M && n < p.N) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(residual + r * p.N + n));
+            }
+          }
+        }
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        unsigned char* stage = smem + s * kStageBytes;
+        unsigned char* a_tile = stage + cw * 64 * 128;  // this warpgroup's 64 rows, 1024-byte aligned
+        if constexpr (kTransformA) {
+          // rows past M and k past K arrived as zeros and stay so; a masked
+          // row becomes zeros; the others are normalised in place
+          const int k = kt * kBK + 8 * piece;
+          float gam[8], bet[8];
+          if (kNormA && k < p.K) {
+            const float4* gp = reinterpret_cast<const float4*>(ln + k);
+            const float4* bp = reinterpret_cast<const float4*>(ln + p.K + k);
+            const float4 g0 = gp[0], g1 = gp[1], b0 = bp[0], b1 = bp[1];
+            gam[0] = g0.x, gam[1] = g0.y, gam[2] = g0.z, gam[3] = g0.w;
+            gam[4] = g1.x, gam[5] = g1.y, gam[6] = g1.z, gam[7] = g1.w;
+            bet[0] = b0.x, bet[1] = b0.y, bet[2] = b0.z, bet[3] = b0.w;
+            bet[4] = b1.x, bet[5] = b1.y, bet[6] = b1.z, bet[7] = b1.w;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int tr = tr0 + 16 * i;
+            uint4* dst = reinterpret_cast<uint4*>(a_tile + tr * 128) + (piece ^ (tr % 8));
+            if (!reads[i]) {
+              if (m0 + 64 * cw + tr < p.M) *dst = make_uint4(0u, 0u, 0u, 0u);
+            } else if (kNormA && k < p.K) {
+              uint4 raw = *dst;
+              bf16* v = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                v[e] = __float2bfloat16((__bfloat162float(v[e]) - stat[i].x) * stat[i].y * gam[e] + bet[e]);
+              *dst = raw;
+            }
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes, then wgmma's reads
+          named_barrier(1 + cw, kWarpgroup);
+        }
+        const uint64_t da = sw128_desc(a_tile), db = sw128_desc(stage + kATileBytes);
+        fence_accumulator(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks) wgmma_tile<BN>(acc, da + 2 * ks, db + 2 * ks, kt > 0 || ks > 0);
+        wgmma_commit();
+        fence_accumulator(acc);
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      wgmma_wait<0>();
+      fence_accumulator(acc);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      if constexpr (kTransformA) {
+        if (tile + gridDim.x < n_tiles) load_rows(tile + gridDim.x, next_stat, next_reads);
+      }
+
+      // Epilogue. The tile's bias and scale into shared memory (every warp is
+      // past the previous tile's epilogue), then each warp passes its own 16
+      // rows through the buffer 32 columns at a time: float2 writes in the
+      // accumulator layout, then 8 consecutive columns of a row a lane,
+      // finished with 16-byte residual reads and output writes. The next
+      // chunk's residual is read while this one is finished.
+      const int cg = lane % 4;
+      uint4 res[2][2] = {};
+      auto load_residual = [&](int ch, uint4(&dst)[2]) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const long long r = m0 + 64 * cw + 16 * warp + lane / 4 + 8 * q;
+          const int n = n0 + ch * kEpiCols + 8 * cg;
+          if (r < p.M && n < p.N) dst[q] = *reinterpret_cast<const uint4*>(residual + r * p.N + n);
+        }
+      };
+      if constexpr (kEpi == kBiasResidual) load_residual(0, res[0]);
+      named_barrier(1 + cw, kWarpgroup);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int c = wt + kWarpgroup * j;
+        if (c < BN) {
+          sv[c] = bias_c[j];
+          sv[BN + c] = scale_c[j];
+        }
+      }
+      named_barrier(1 + cw, kWarpgroup);
+#pragma unroll
+      for (int ch = 0; ch < BN / kEpiCols; ++ch) {
+#pragma unroll
+        for (int j = 0; j < kEpiCols / 8; ++j) {
+          const int J = ch * (kEpiCols / 8) + j, col = 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(buf + epi_index(16 * warp + lane / 4 + 8 * h, col)) =
+                make_float2(acc[4 * J + 2 * h], acc[4 * J + 2 * h + 1]);
+        }
+        __syncwarp();
+        if constexpr (kEpi == kBiasResidual) {
+          if (ch + 1 < BN / kEpiCols) load_residual(ch + 1, res[(ch + 1) % 2]);
         }
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          if (!a_ok[q]) continue;
-          uint4* piece = reinterpret_cast<uint4*>(sA + (stage * kBM + lr + 64 * q) * kSk + lc);
-          uint4 raw = *piece;
-          bf16* v = reinterpret_cast<bf16*>(&raw);
+          const int br = 16 * warp + lane / 4 + 8 * q, c = ch * kEpiCols + 8 * cg;
+          const long long r = m0 + 64 * cw + br;
+          const int n = n0 + c;
+          if (r < p.M && n < p.N) {  // N % 8 == 0: the 8 columns are wholly in or out
+            const float4 a0 = *reinterpret_cast<const float4*>(buf + epi_index(br, 8 * cg));
+            const float4 a1 = *reinterpret_cast<const float4*>(buf + epi_index(br, 8 * cg + 4));
+            const float4 b0 = *reinterpret_cast<const float4*>(sv + c);
+            const float4 b1 = *reinterpret_cast<const float4*>(sv + c + 4);
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+            float sc[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f}, rr[8] = {};
+            if constexpr (kEpi == kBiasResidual) {
+              const float4 s0 = *reinterpret_cast<const float4*>(sv + BN + c);
+              const float4 s1 = *reinterpret_cast<const float4*>(sv + BN + c + 4);
+              const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+              const bf16* rv = reinterpret_cast<const bf16*>(&res[ch % 2][q]);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16((__bfloat162float(v[e]) - mean[q]) * rstd[q] * g[e] + b[e]);
-          *piece = raw;
+              for (int u = 0; u < 8; ++u) {
+                sc[u] = s[u];
+                rr[u] = __bfloat162float(rv[u]);
+              }
+            }
+            uint4 packed;
+            __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              o[u] = __floats2bfloat162_rn(finish<bf16, kEpi>(a[2 * u], b[2 * u], sc[2 * u], rr[2 * u]),
+                                           finish<bf16, kEpi>(a[2 * u + 1], b[2 * u + 1], sc[2 * u + 1],
+                                                              rr[2 * u + 1]));
+            *reinterpret_cast<uint4*>(out + r * p.N + n) = packed;
+          }
         }
+        __syncwarp();  // this warp's rows of the buffer are free again
       }
-    }
-    __syncthreads();  // tile kt is visible to every warp, and every warp is done with tile kt - 1
-    if (kt + kStages - 1 < k_tiles) load_tile(kt + kStages - 1, (kt + kStages - 1) % kStages);
-    cp_async_commit();
-
-    // this lane's ldmatrix rows: A row wm + lane % 16 at k + 8 * (lane / 16);
-    // B row (an n) wn + lane % 8 + 8 * (lane / 16) at k + 8 * (lane / 8 % 2)
-    const bf16* a_row = sA + (stage * kBM + wm + lane % 16) * kSk + 8 * (lane / 16);
-    const bf16* b_row = sB + (stage * kBN + wn + lane % 8 + 8 * (lane / 16)) * kSk + 8 * (lane / 8 % 2);
+      if constexpr (kTransformA) {
 #pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t a[4][4], b01[4], b23[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ldmatrix_x4(a[i], a_row + i * 16 * kSk + ks);
-      ldmatrix_x4(b01, b_row + ks);             // n8 tiles 0 and 1: {b0, b1} of each
-      ldmatrix_x4(b23, b_row + 16 * kSk + ks);  // n8 tiles 2 and 3
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mma_bf16(acc[i][0], a[i], b01[0], b01[1]);
-        mma_bf16(acc[i][1], a[i], b01[2], b01[3]);
-        mma_bf16(acc[i][2], a[i], b23[0], b23[1]);
-        mma_bf16(acc[i][3], a[i], b23[2], b23[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // accumulator (i, j, e): row wm + 16 i + g + 8 (e / 2), column wn + 8 j + 2 t + e % 2
-  const int g = lane >> 2, t = lane & 3;
-  bf16* out = static_cast<bf16*>(p.out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long r = m0 + wm + 16 * i + g + 8 * h;
-      if (r >= p.M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + 8 * j + 2 * t;  // N is even: n + 1 < N with n
-        if (n >= p.N) continue;
-        const float y0 = epilogue<bf16, kEpi>(p, r, n, acc[i][j][2 * h]);
-        const float y1 = epilogue<bf16, kEpi>(p, r, n + 1, acc[i][j][2 * h + 1]);
-        *reinterpret_cast<uint32_t*>(out + r * p.N + n) = pack_bf16(__float2bfloat16(y0), __float2bfloat16(y1));
+        for (int i = 0; i < 4; ++i) {
+          stat[i] = next_stat[i];
+          reads[i] = next_reads[i];
+        }
       }
     }
   }
@@ -382,22 +758,92 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_f32_kernel(GemmArgs p) {
   }
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime once
+// (the library links no libcuda); null where the driver lacks it.
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = []() -> PFN_cuTensorMapEncodeTiled_v12000 {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }();
+  return fn;
+}
+
+// TMA map of a (rows, K) bf16 matrix, k contiguous, read in boxes of
+// box_rows x kBK with the 128-byte swizzle; rows and k past the edges read
+// as zeros.
+cudaError_t encode_operand(CUtensorMap* map, const void* base, long long rows, int K, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t element_strides[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+                            element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Column tile of the bf16 GEMM: the widest of 256, 128 and 96 that pads N
+// least and whose shared memory (with the LayerNorm vectors under kNormA)
+// fits one block; 0 if none does.
+int gemm_tile_n(int N, int K, bool norm_a) {
+  const int widths[3] = {256, 128, 96};
+  int best = 0;
+  long long best_padded = 0;
+  for (int bn : widths) {
+    const long long padded = (long long)(N + bn - 1) / bn * bn;
+    if (gemm_smem_bytes(bn) + (norm_a ? 8LL * K : 0) > kMaxSmemBytes) continue;
+    if (best == 0 || padded < best_padded) {
+      best = bn;
+      best_padded = padded;
+    }
+  }
+  return best;
+}
+
+template <bool kNormA, int kEpi, bool kMaskRows, int BN>
+cudaError_t launch_gemm_bf16(const GemmArgs& p, cudaStream_t stream) {
+  Bf16Gemm g;
+  g.p = p;
+  cudaError_t err = encode_operand(&g.a_map, p.a, p.M, p.K, kBM);
+  if (err == cudaSuccess) err = encode_operand(&g.w_map, p.w, p.N, p.K, BN);
+  if (err != cudaSuccess) return err;
+  const int smem = gemm_smem_bytes(BN) + (kNormA ? 8 * p.K : 0);
+  auto kernel = gemm_bf16_kernel<kNormA, kEpi, kMaskRows, BN>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (p.M + kBM - 1) / kBM * ((p.N + BN - 1) / BN);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);  // persistent: one block per SM
+  kernel<<<grid, kBf16Threads, smem, stream>>>(g);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kNormA, int kEpi, bool kMaskRows = false>
 cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const long long blocks = ((p.M + kBM - 1) / kBM) * ((p.N + kBN - 1) / kBN);
-    if (blocks > INT_MAX) return cudaErrorInvalidValue;
-    auto kernel = gemm_bf16_kernel<kNormA, kEpi, kMaskRows>;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmemBytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)blocks, kGemmThreads, kGemmSmemBytes, stream>>>(p);
+    if (p.M > INT_MAX) return cudaErrorInvalidValue;  // TMA coordinates are 32-bit
+    switch (gemm_tile_n(p.N, p.K, kNormA)) {
+      case 256: return launch_gemm_bf16<kNormA, kEpi, kMaskRows, 256>(p, stream);
+      case 128: return launch_gemm_bf16<kNormA, kEpi, kMaskRows, 128>(p, stream);
+      case 96: return launch_gemm_bf16<kNormA, kEpi, kMaskRows, 96>(p, stream);
+      default: return cudaErrorInvalidValue;  // kNormA with a K whose LayerNorm vectors do not fit
+    }
   } else {
     const long long blocks = ((p.M + kFM - 1) / kFM) * ((p.N + kFN - 1) / kFN);
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
     gemm_f32_kernel<kNormA, kEpi, kMaskRows><<<(unsigned)blocks, kGemmThreads, 0, stream>>>(p);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }

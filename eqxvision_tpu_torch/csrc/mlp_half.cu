@@ -25,11 +25,9 @@
 //   1. Row statistics: one warp per row writes (mean, rstd) in f32, the
 //      mean taken about the row's first value, the variance over the
 //      centred values (a row of 1e3 + N(0, 1) keeps its variance).
-//   2. fc1: a GEMM whose A tile is x, normalised in shared memory as each
-//      k-tile lands (every thread normalises the 16-byte pieces it copied
-//      itself, before the barrier that publishes the tile), with b1 and
-//      gelu in the epilogue; h goes to device memory in x's type, the
-//      prototypes' rounding point.
+//   2. fc1: a GEMM whose A tile is x, normalised in shared memory once the
+//      tile lands, with b1 and gelu in the epilogue; h goes to device memory
+//      in x's type, the prototypes' rounding point.
 //   3. fc2: a GEMM on h with b2, the layer scale and the residual in the
 //      epilogue.
 // A one-pass kernel would keep a rows x C f32 accumulator for fc2 while
@@ -39,19 +37,25 @@
 // several GB per call. Two GEMMs read the weights as any GEMM does and pay
 // h's round trip instead: 2 * rows * 4C * itemsize bytes.
 // The row statistics and both GEMMs are gemm_bf16.cuh's (fc1: A normalised,
-// bias + gelu epilogue; fc2: bias + layer scale + residual epilogue); bf16
-// runs on the tensor cores (mma.sync), f32 on the CUDA cores (no TF32).
+// bias + gelu epilogue; fc2: bias + layer scale + residual epilogue). bf16
+// runs its Hopper GEMM: TMA-fed operand tiles in a ring of four stages, a
+// producer warp and two consumer warpgroups issuing wgmma, the LayerNorm of
+// A in the consumers, the epilogue through shared memory with 16-byte
+// stores, a persistent grid; 256-wide column tiles for fc1 at 4C = 3072,
+// 96-wide ones for fc2 at C = 96 or 192. f32 runs on the CUDA cores (no
+// TF32).
 //
 // What bounds it. 4 * rows * C * 4C operations against reading x, the
 // residual and the weights and writing out once: in bf16 at C = 768
 // (vit_base b256, 50,432 rows) 476 GFLOP, 0.48 ms at 989 TFLOP/s, against
 // 0.07 ms of device memory; at C = 96 (convnext_tiny b128 stage 1, 401,408
 // rows) 0.059 ms of math against 0.069 ms of bytes. This version also
-// moves h and normalises A in its staging, and mma.sync reaches a fraction
-// of the card's wgmma rate; wgmma with TMA-fed tiles, h kept on chip for
-// narrow C, and the epilogue through shared memory are later work.
-// Limits: C and 4C (any hidden width) multiples of 8, 16-byte aligned
-// tensors; the entry point returns cudaErrorInvalidValue otherwise.
+// moves h through device memory (at C = 96 its round trip alone is 0.18
+// ms), and each GEMM's epilogue runs after its products rather than beside
+// the next tile's; h kept on chip for narrow C is later work.
+// Limits: C and 4C (any hidden width) multiples of 8, in bf16 C at most
+// 12,344 (fc1's LayerNorm vectors), 16-byte aligned tensors; the entry
+// point returns cudaErrorInvalidValue otherwise.
 
 #include "gemm_bf16.cuh"
 

@@ -42,10 +42,12 @@
 // What bounds it. 2 * rows * C * 4C GEMM operations and 4 * rows * L * C
 // attention operations against x and out read or written once: at swin_t
 // stage 3 b128 in bf16 29.6 + 1.9 GFLOP, 0.032 ms at 989 TFLOP/s, against
-// 0.011 ms of device memory. This version runs mma.sync, a fraction of the
-// card's wgmma rate; the roll and partition stay outside the kernels.
-// Limits: C a multiple of 8, C divisible by H, Dh <= 64, 16-byte aligned
-// tensors; the entry point returns cudaErrorInvalidValue otherwise.
+// 0.011 ms of device memory. The GEMMs are gemm_bf16.cuh's TMA-fed wgmma
+// ones; the window attention runs mma.sync, a fraction of the card's wgmma
+// rate; the roll and partition stay outside the kernels.
+// Limits: C a multiple of 8, C divisible by H, Dh <= 64, in bf16 C at most
+// 12,344 (the qkv GEMM's LayerNorm vectors), 16-byte aligned tensors; the
+// entry point returns cudaErrorInvalidValue otherwise.
 
 #include "gemm_bf16.cuh"
 
@@ -145,7 +147,8 @@ int eqx_window_attention_half(const void* x, const void* ln_w, const void* ln_b,
 }
 
 // Dynamic shared memory the largest of the four launches needs for one
-// block; for error messages and reports.
+// block (the qkv GEMM's at its widest tile, before its LayerNorm vectors,
+// 8 * dim bytes); for error messages and reports.
 long long eqx_window_attention_half_smem_bytes(int seq_len, int head_dim, int dtype) {
   if (seq_len <= 0 || head_dim <= 0 || head_dim > kMaxHeadDim) return 0;
   const long long stage = eqx_window_attention_smem_bytes(seq_len, head_dim, dtype == 1 ? 2 : 4);

@@ -1,0 +1,76 @@
+"""Time the port's three fused halves in bf16 at chip_smoke.py's cases, in
+the tree the script sits in.
+
+Run from the root of a tree on a machine with a CUDA card:
+
+    python3 scripts/time_torch_halves.py [--iters 20]
+
+It builds (or loads) that tree's kernels and, for each case of its
+``chip_smoke.py``'s MLP_CASES, ATTN_HALF_CASES and WINDOW_HALF_CASES, makes
+the inputs as chip_smoke does (seeded), calls the op once, then times
+``--iters`` calls with CUDA events and prints the mean ms a call, beside the
+device time of the op's kernels a call by torch.profiler (at small shapes
+the host's launch cost, not the kernels, sets the first). To compare two
+trees on one card, copy the script into the other tree and run the two in
+one command in turns (parent, change, change, parent). Imports nothing of
+JAX.
+"""
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_torch_halves: needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from eqxvision_tpu_torch.ops import attention_half as AH
+    from eqxvision_tpu_torch.ops import mlp_half as M
+    from eqxvision_tpu_torch.ops import window_attention as W
+    from eqxvision_tpu_torch.ops import window_attention_half as WH
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    calls = []
+    for name, (rows, c, residual_is_x) in cs.MLP_CASES.items():
+        x, residual, params = cs._mlp_inputs(rows, c, residual_is_x, bf16, gen)
+        calls.append((f"fused_mlp_half {name} {(rows, c, 4 * c)}",
+                      lambda x=x, residual=residual, params=params: M.fused_mlp_half(x, residual, *params)))
+    for name, (b, l, d, heads) in cs.ATTN_HALF_CASES.items():
+        x, params = cs._attn_half_inputs(b, l, d, bf16, gen)
+        calls.append((f"fused_attention_half {name} {(b, l, d, heads)}",
+                      lambda x=x, params=params, heads=heads: AH.fused_attention_half(x, *params, heads)))
+    for name, (b, side, c, heads) in cs.WINDOW_HALF_CASES.items():
+        x, params, bias, valid = cs._window_half_inputs(b, side, c, heads, bf16, gen, W, WH)
+        calls.append((f"fused_window_attention_half {name} {tuple(x.shape) + (heads,)}",
+                      lambda x=x, params=params, bias=bias, heads=heads, valid=valid:
+                      WH.fused_window_attention_half(x, *params, bias, heads, None, 1e-5, valid)))
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in calls:
+        with torch.inference_mode():
+            events_ms = cs._time_ms(fn, args.iters)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(args.iters):
+                    fn()
+                torch.cuda.synchronize()
+        device_ms = sum(e.device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / args.iters
+        print(f"{name}: {events_ms:.4f} ms by CUDA events, {device_ms:.4f} ms of kernels", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -600,6 +600,83 @@ def test_window_attention_half_kernel_refuses(cuda, dtype, weight_dtype, c, head
         WH.fused_window_attention_half(x.to(dtype), *params, bias, heads, None, 1e-5, valid)
 
 
+# The bf16 GEMM of csrc/gemm_bf16.cuh (TMA-fed wgmma) at its edges, driven
+# through the three ops that run it: (op, shape). MLP half (rows, C,
+# residual is x): fc1 takes the LayerNorm on A and gelu (N = 4C, K = C),
+# fc2 the residual (N = C, K = 4C). Attention half (B, L, D, heads): qkv
+# takes the LayerNorm and the bias-only epilogue, proj the residual. Swin
+# attention half (B, map side, C, heads): qkv takes the LayerNorm, the
+# rounded bias and, on a ragged map, the padding rows read as zeros.
+GEMM_EDGES = {
+    "M-100-below-one-row-tile": ("mlp", (100, 384, False)),
+    "M-392-convnext_large-b8-stage4": ("mlp", (392, 1536, False)),
+    "one-row": ("mlp", (1, 96, False)),
+    "N-96-K-96": ("mlp", (1000, 96, False)),  # fc2 N = 96, fc1 K = 96: one and a half k-tiles
+    "N-192": ("mlp", (777, 192, False)),
+    "K-3072": ("mlp", (300, 768, True)),  # fc2 of vit_base
+    "f32-vectors": ("mlp-f32-vectors", (250, 192, False)),
+    "rows-shifted-by-1e3": ("mlp-shifted", (260, 384, False)),
+    "bias-epilogue-N-2304": ("attention", (2, 197, 768, 12)),
+    "bias-epilogue-N-1152-ragged": ("attention", (3, 45, 384, 6)),
+    "rounded-bias-masked-rows": ("window", (2, 10, 384, 12)),
+    "rounded-bias-N-768": ("window", (1, 14, 256, 8)),
+}
+
+
+# bf16: the halves' bound, tests/test_hw_parity.py's whole-block v1 bound
+# (0.05), against the plain versions in f32.
+@pytest.mark.parametrize("edge", list(GEMM_EDGES))
+def test_bf16_gemm_edges_through_the_ops(cuda, edge):
+    kind, shape = GEMM_EDGES[edge]
+    if kind.startswith("mlp"):
+        x, residual, params = _mlp_inputs(cuda, *shape, torch.bfloat16, shift=1e3 if kind == "mlp-shifted" else 0.0)
+        if kind == "mlp-f32-vectors":
+            params = [t if t is None or t.ndim == 2 else t.float() for t in params]
+        out = M.fused_mlp_half(x, residual, *params)
+        ref = _mlp_plain(x, residual, params)
+    elif kind == "attention":
+        b, l, d, heads = shape
+        x, params = _ah_inputs(cuda, b, l, d, torch.bfloat16)
+        out = AH.fused_attention_half(x, *params, heads)
+        ref = _ah_plain(x, params, heads)
+    else:
+        b, side, c, heads = shape
+        x, params, bias, valid = _wh_inputs(cuda, b, side, c, heads, torch.bfloat16)
+        assert (valid is not None) == (side % 7 != 0)
+        out = WH.fused_window_attention_half(x, *params, bias, heads, None, 1e-5, valid)
+        ref = _wh_plain(x, params, bias, heads, valid)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert float((out.float() - ref.float()).abs().max()) < 0.05
+
+
+def test_refused_launch_raises_and_does_not_fall_back(cuda):
+    """The C entry point refuses an x that is not 16-byte aligned (the Python
+    wrappers copy such tensors first) with an error code, launches nothing,
+    and _native.check raises on the code."""
+    from eqxvision_tpu_torch import _native
+
+    rows, c = 64, 96
+    x, residual, params = _mlp_inputs(cuda, rows, c, False, torch.bfloat16)
+    ln_w, ln_b, w1, b1, w2, b2, scale = params
+    unaligned = torch.empty(rows * c + 8, dtype=torch.bfloat16, device=cuda)[1:1 + rows * c]
+    unaligned.copy_(x.view(-1))
+    assert unaligned.data_ptr() % 16 != 0
+    hidden = torch.empty(rows, 4 * c, dtype=torch.bfloat16, device=cuda)
+    stats = torch.empty(rows, 2, dtype=torch.float32, device=cuda)
+    out = torch.full((rows, c), 7.0, dtype=torch.bfloat16, device=cuda)
+    err = _native.library().eqx_mlp_half(
+        unaligned.data_ptr(), residual.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), scale.data_ptr(), hidden.data_ptr(), stats.data_ptr(), out.data_ptr(), rows, c,
+        4 * c, 1e-6, 1, 1, torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _native.check(err, "eqx_mlp_half on an unaligned x")
+    assert bool((out == 7.0).all())  # nothing ran
+
+
 def test_swin_t_blocks_above_192_channels_run_the_fused_halves(cuda):
     """A swin_t at inference launches the attention half and the MLP half
     once per C > 192 block, and no window-attention kernel."""
