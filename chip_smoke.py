@@ -48,8 +48,10 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
 Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
 """
+import ctypes
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -317,12 +319,61 @@ def _block_inputs(c, h, nw, L, shifted, v2, dtype, gen, W):
     return x, p, bias, gs
 
 
-def check_block(W):
-    """fused_swin_block kernel vs its plain version at the whole-block
-    stages (C <= 192) of swin_t and swin_v2_t at b128; returns swin_t
-    stage 1 bf16's numbers."""
+def _map_block_inputs(c, h, side, win, v2, dtype, gen):
+    """The NHWC entry's keywords at a stage: weights at the models' init
+    scale, a relative-position bias of std 1, v2's logit scale 10."""
+    def r(*shape, s=0.1, base=0.0):
+        return base + s * torch.randn(*shape, device="cuda", generator=gen)
+
+    hidden = 4 * c
+    kw = dict(
+        norm1_w=r(c, base=1.0), norm1_b=r(c), qkv_weight=r(3 * c, c, s=c**-0.5).to(dtype), qkv_bias=r(3 * c),
+        proj_weight=r(c, c, s=c**-0.5).to(dtype), proj_bias=r(c), norm2_w=r(c, base=1.0), norm2_b=r(c),
+        fc1_weight=r(hidden, c, s=c**-0.5).to(dtype), fc1_bias=r(hidden),
+        fc2_weight=r(c, hidden, s=hidden**-0.5).to(dtype), fc2_bias=r(c),
+        relative_position_bias=r(1, h, win * win, win * win, s=1.0),
+    )
+    if v2:
+        kw["qkv_bias"][c : 2 * c] = 0.0
+        kw["logit_scale"] = torch.full((h, 1, 1), math.log(10.0), device="cuda")
+    return r(SWIN_BATCH, side, side, c, s=0.5).to(dtype), kw
+
+
+def _block_build_report(log):
+    """(kernel, registers, spill bytes) of each whole-block kernel in
+    ptxas's report, the bf16 kernels named by their template arguments
+    (proj width, cosine attention)."""
+    found, name, spills = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"swin_block_(bf16|f32)_kernel(ILi(\d+)ELb([01])E)?", line)
+            name = None if m is None else f"swin_block_{m.group(1)}_kernel" + (
+                f"<{m.group(3)}, {'true' if m.group(4) == '1' else 'false'}>" if m.group(2) else "")
+        elif name and "spill stores" in line:
+            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif name and "registers" in line:
+            found.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spills))
+            name = None
+    return found
+
+
+def check_block(W, log):
+    """The whole-block kernel. On (N, nW, L, C) windows against its plain
+    version at the whole-block stages (C <= 192) of swin_t and swin_v2_t at
+    b128, bf16 and f32, and a head 300 log-units down. Then the NHWC entry
+    (fused_swin_block_v1/_v2: one launch that reads the windows from the
+    map) at the same four stage shapes, bf16: against the f32 plain path on
+    the same map, and timed in turns against that plain path (pad, roll,
+    partition, the block on windows, and back) beside its bound; with the
+    design's windows per block (G), blocks per SM, and each instantiation's
+    registers and spills from ptxas. Returns swin_t stage 1 bf16's numbers."""
+    from eqxvision_tpu_torch import _native
+
+    report = sorted(set(_block_build_report(log)))
+    _check(len(report) == 7, f"whole-block kernels in the build log: {report}")
+    for kernel, regs, spills in report:
+        print(f"{kernel}: {regs} registers, {spills} bytes of spill stores and loads (ptxas -v)")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    main = None
     for name in SWIN:
         v2 = name.startswith("swin_v2")
         for stage, nw, L, c, h, shifted in _stage_shapes(name):
@@ -336,22 +387,9 @@ def check_block(W):
                 with torch.no_grad():
                     out = W.fused_swin_block(x, p, bias, h, scale, 1e-5, v2, gs)
                     ref = W.fused_swin_block_reference(x.float(), p32, bias, h, scale, 1e-5, v2, gs)
-                what = f"fused_swin_block {name} stage {stage}"
-                err = _compare(out, ref, bound, f"{what} {dtype}")
-                ms, plain_ms, turns = _turns(
-                    lambda: W.fused_swin_block_reference(x, p, bias, h, scale, 1e-5, v2, gs),
-                    lambda: W.fused_swin_block(x, p, bias, h, scale, 1e-5, v2, gs), 10,
-                )
-                e, tokens, hidden = x.element_size(), x.numel() // c, 4 * c
-                n_bytes = (2 * x.numel() + (4 * c * c + 2 * c * hidden)) * e + bias.numel() * 4 + (8 * c + hidden) * 4
-                flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * tokens * L * c
-                bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
-                if (name, stage, dtype) == ("swin_t", 1, torch.bfloat16):
-                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=None)
-                extra = f"; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB)"
-                _report(what, (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms, plain_ms, turns, extra)
-    print("fused_swin_block library_ms: null; no single PyTorch call computes a whole Swin block")
+                err = _compare(out, ref, bound, f"fused_swin_block windows {name} stage {stage} {dtype}")
+                print(f"fused_swin_block on windows {name} stage {stage} {(SWIN_BATCH, nw, L, c, h)} "
+                      f"{str(dtype)[6:]}: max|kernel-plain_f32| {err:.3e} (bound {bound})")
 
     for dtype, bound in ((torch.bfloat16, BLOCK_BF16_BOUND[False]), (torch.float32, F32_BOUND)):
         x, p, bias, gs = _block_inputs(96, 3, 64, 49, True, False, dtype, gen, W)
@@ -363,7 +401,66 @@ def check_block(W):
                            f"fused_swin_block, head 300 below, {dtype}")
         print(f"fused_swin_block {str(dtype)[6:]} with one head 300 log-units below the others: finite, "
               f"max|diff| {err:.3e} (bound {bound})")
+
+    lib = _native.library()
+    main = None
+    for name in SWIN:
+        size, win, dim, heads = SWIN[name]
+        v2 = name.startswith("swin_v2")
+        fn = W.fused_swin_block_v2 if v2 else W.fused_swin_block_v1
+        side = size // 4
+        for stage, h in enumerate(heads, 1):
+            c = dim * 2 ** (stage - 1)
+            if c > W.BLOCK_MAX_CHANNELS:
+                break
+            shift = win // 2 if side > win else 0
+            geometry = dict(window_size=(win, win), shift_size=(shift, shift), num_heads=h)
+            x, kw = _map_block_inputs(c, h, side, win, v2, torch.bfloat16, gen)
+            kw32 = {k: v.float() for k, v in kw.items()}
+            with torch.no_grad():
+                out = fn(x, **kw, **geometry)
+                ref = W._block_map_reference(
+                    x.float(), *_map_reference_args(W, kw32, c, h, win, shift, side, v2))
+            bound = BLOCK_BF16_BOUND[v2]
+            err = _compare(out, ref, bound, f"fused_swin_block NHWC {name} stage {stage}")
+            plain_args = _map_reference_args(W, kw, c, h, win, shift, side, v2)
+            ms, plain_ms, turns = _turns(lambda: W._block_map_reference(x, *plain_args),
+                                         lambda: fn(x, **kw, **geometry), 10)
+            tokens, hidden, L = x.numel() // c, 4 * c, win * win
+            n_windows = SWIN_BATCH * (-(-side // win)) ** 2
+            bias_rows = (-(-side // win)) ** 2 if shift else 1
+            e = x.element_size()
+            n_bytes = (2 * x.numel() + (4 * c * c + 2 * c * hidden)) * e + bias_rows * h * L * L * 4 + (9 * c + hidden) * 4
+            # the products on this run's tokens, and the attention on its windows of L tokens
+            flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * n_windows * L * L * c
+            bound_ms, bound_by = _bound_ms(n_bytes, flops, torch.bfloat16)
+            info = (ctypes.c_int * 4)()
+            _native.check(lib.eqx_swin_block_config(c, h, info), "eqx_swin_block_config")
+            extra = (f"; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB); "
+                     f"G = {info[0]} windows a block, {info[1]} weight stages, {info[2]} bytes of shared memory, "
+                     f"{info[3]} block(s) per SM")
+            _report(f"fused_swin_block NHWC {name} stage {stage} (plain: pad, roll, partition, block, back)",
+                    (SWIN_BATCH, side, side, c, h), torch.bfloat16, err, bound, ms, plain_ms, turns, extra)
+            if (name, stage) == ("swin_t", 1):
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+            side = -(-side // 2)
+    print("fused_swin_block library_ms: null; no single PyTorch call computes a whole Swin block")
     return main
+
+
+def _map_reference_args(W, kw, c, h, win, shift, side, v2):
+    """The positional arguments after x of the plain NHWC path
+    (``W._block_map_reference``) for the entry's keywords."""
+    qkv_bias = W._v2_qkv_bias(kw["qkv_bias"], c) if v2 else kw["qkv_bias"]
+    params = W.SwinBlockParams(kw["norm1_w"], kw["norm1_b"], kw["qkv_weight"], qkv_bias, kw["proj_weight"],
+                               kw["proj_bias"], kw["norm2_w"], kw["norm2_b"], kw["fc1_weight"], kw["fc1_bias"],
+                               kw["fc2_weight"], kw["fc2_bias"])
+    geo = W.window_geometry(side, side, (win, win), (shift, shift))
+    bias = W._window_bias(kw["relative_position_bias"], (win, win), h, geo)
+    gs = W._cosine_gs(kw["logit_scale"], h) if v2 else None
+    scale = 1.0 if v2 else (c // h) ** -0.5
+    return (bias, gs, *params, h, scale, 1e-5, v2, (win, win), (shift, shift))
 
 
 def _ln_inputs(rows, d, dtype, gen, shift=0.0, affine=True):
@@ -973,7 +1070,7 @@ def main():
     check_gemm(M, AH, W, WH, _native.build_log())
     qkv_main = check_fused_qkv(attention)
     window_main = check_window_attention(attention)
-    block_main = check_block(W)
+    block_main = check_block(W, _native.build_log())
     check_ragged(W)
     ln_main = check_layer_norm(LN)
     attn_main = check_attention(attention)

@@ -106,23 +106,42 @@ class _Windows(NamedTuple):
     sw: int
 
 
+def window_geometry(h: int, w: int, window_size, shift_size) -> _Windows:
+    """Where an (N, h, w, C) map's windows sit: padded bottom/right to a
+    multiple of the window, and the shift zeroed along a side that one
+    window covers. The torch plumbing (``_to_windows``) and the whole-block
+    kernel, which reads the windows straight from the map, both take it
+    from here."""
+    wh, ww = window_size
+    ph, pw = h + (wh - h % wh) % wh, w + (ww - w % ww) % ww
+    sh, sw = shift_size
+    return _Windows(h, w, ph, pw, 0 if wh >= ph else sh, 0 if ww >= pw else sw)
+
+
+def window_token_index(geo: _Windows, window_size) -> torch.Tensor:
+    """(nW, L) index ``y * w + x`` into an image's (h, w) map of each window
+    token, -1 for a padding token: the whole-block kernel's formula. Token
+    t of window (wy, wx) sits at ``y = (wy * wh + t // ww + sh) % ph``,
+    ``x = (wx * ww + t % ww + sw) % pw`` (the roll by -shift of the padded
+    map, then the partition); ``y >= h`` or ``x >= w`` is padding."""
+    wh, ww = window_size
+    wi = torch.arange((geo.ph // wh) * (geo.pw // ww))
+    t = torch.arange(wh * ww)
+    nwx = geo.pw // ww
+    y = ((wi // nwx)[:, None] * wh + (t // ww)[None] + geo.sh) % geo.ph
+    x = ((wi % nwx)[:, None] * ww + (t % ww)[None] + geo.sw) % geo.pw
+    return torch.where((y < geo.h) & (x < geo.w), y * geo.w + x, -1)
+
+
 def _to_windows(x: torch.Tensor, window_size, shift_size) -> Tuple[torch.Tensor, _Windows]:
     """Pad bottom/right to the window, roll by -shift, partition."""
     n, h, w, c = x.shape
-    wh, ww = window_size
-    pad_b = (wh - h % wh) % wh
-    pad_r = (ww - w % ww) % ww
-    if pad_b or pad_r:
-        x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
-    ph, pw = h + pad_b, w + pad_r
-    sh, sw = shift_size
-    if wh >= ph:
-        sh = 0
-    if ww >= pw:
-        sw = 0
-    if sh or sw:
-        x = torch.roll(x, (-sh, -sw), dims=(1, 2))
-    return window_partition(x, wh, ww), _Windows(h, w, ph, pw, sh, sw)
+    geo = window_geometry(h, w, window_size, shift_size)
+    if geo.ph != h or geo.pw != w:
+        x = F.pad(x, (0, 0, 0, geo.pw - w, 0, geo.ph - h))
+    if geo.sh or geo.sw:
+        x = torch.roll(x, (-geo.sh, -geo.sw), dims=(1, 2))
+    return window_partition(x, *window_size), geo
 
 
 def _from_windows(xw: torch.Tensor, window_size, geo: _Windows) -> torch.Tensor:
@@ -301,10 +320,24 @@ def fused_swin_block_reference(
     return (h + (_layer_norm_f32(y, p.norm2_w, p.norm2_b, eps) if postnorm else y)).to(dt)
 
 
-def _launch_block_kernel(xw, params, bias, num_heads, scale, eps, postnorm, cosine_gs):
-    if xw.dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused_swin_block kernel takes float32 or bfloat16, got {xw.dtype}")
-    n, nw, L, c = xw.shape
+def _block_vectors(params: SwinBlockParams, dev: torch.device):
+    """The eight LayerNorm and bias vectors on ``dev`` in the type the
+    kernel reads them in, and its code: bf16 if all are bf16, else f32
+    (a bf16 vector among f32 ones is widened, which is exact)."""
+    vecs = (params.norm1_w, params.norm1_b, params.qkv_b, params.proj_b,
+            params.norm2_w, params.norm2_b, params.fc1_b, params.fc2_b)
+    dt = torch.bfloat16 if all(v.dtype == torch.bfloat16 for v in vecs) else torch.float32
+    return [v.to(device=dev, dtype=dt).contiguous() for v in vecs], _DTYPE_CODES[dt]
+
+
+def _launch_block_kernel(x, params, bias, num_heads, scale, eps, postnorm, cosine_gs, window_size, shift_size):
+    """The kernel on the NHWC map x (N, H, W, C), its windows read and
+    written in place of the pad, roll, partition and their inverses."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_swin_block kernel takes float32 or bfloat16, got {x.dtype}")
+    n, h, w, c = x.shape
+    wh, ww = window_size
+    L = wh * ww
     hidden = params.fc1_w.shape[0]
     if not fused_swin_block_supported(c, hidden, num_heads, L):
         raise ValueError(
@@ -312,63 +345,64 @@ def _launch_block_kernel(xw, params, bias, num_heads, scale, eps, postnorm, cosi
             f"head_dim <= {BLOCK_MAX_HEAD_DIM}, and C, hidden and head_dim multiples of 16; "
             f"got C={c}, hidden={hidden}, L={L}, {num_heads} heads"
         )
-    dev, dt = xw.device, xw.dtype
-    xw = xw.contiguous()
+    geo = window_geometry(h, w, window_size, shift_size)
+    dev, dt = x.device, x.dtype
+    x = x.contiguous()
     mats = [t.to(device=dev, dtype=dt).contiguous() for t in (params.qkv_w, params.proj_w, params.fc1_w, params.fc2_w)]
-    if any(t.data_ptr() % 16 for t in (xw, *mats)):
-        raise ValueError("fused_swin_block kernel reads windows and weights 16 bytes at a time; pass aligned tensors")
-    vecs = [
-        t.to(device=dev, dtype=torch.float32).contiguous()
-        for t in (params.norm1_w, params.norm1_b, params.qkv_b, params.proj_b,
-                  params.norm2_w, params.norm2_b, params.fc1_b, params.fc2_b)
-    ]
+    if any(t.data_ptr() % 16 for t in (x, *mats)):
+        raise ValueError("fused_swin_block kernel reads the map and weights 16 bytes at a time; pass aligned tensors")
+    vecs, param_code = _block_vectors(params, dev)
     bias = bias.to(device=dev, dtype=torch.float32).contiguous()
     gs = None if cosine_gs is None else cosine_gs.to(device=dev, dtype=torch.float32).contiguous()
-    out = torch.empty_like(xw)
+    out = torch.empty_like(x)
     lib = _native.library()
     with torch.cuda.device(dev):
         err = lib.eqx_swin_block(
-            xw.data_ptr(), out.data_ptr(),
+            x.data_ptr(), out.data_ptr(),
             *(m.data_ptr() for m in mats), *(v.data_ptr() for v in vecs),
             bias.data_ptr(), None if gs is None else gs.data_ptr(),
-            n * nw, nw, bias.shape[0], L, c, hidden, num_heads, scale, eps, int(postnorm),
-            _DTYPE_CODES[dt], torch.cuda.current_stream().cuda_stream,
+            n, h, w, geo.ph, geo.pw, wh, ww, geo.sh, geo.sw, bias.shape[0], c, hidden, num_heads, scale, eps,
+            int(postnorm), _DTYPE_CODES[dt], param_code, torch.cuda.current_stream().cuda_stream,
         )
     if err:
-        smem = lib.eqx_swin_block_smem_bytes(c, c // num_heads, xw.element_size())
+        smem = lib.eqx_swin_block_smem_bytes(c, c // num_heads, x.element_size())
         _native.check(
             err,
-            f"fused_swin_block kernel on windows {tuple(xw.shape)} {dt} with {num_heads} heads "
-            f"(one block needs {smem} bytes of shared memory)",
+            f"fused_swin_block kernel on the map {tuple(x.shape)} {dt}, window {tuple(window_size)}, shift "
+            f"{(geo.sh, geo.sw)}, {num_heads} heads (one block needs {smem} bytes of shared memory)",
         )
     fused_swin_block.launches += 1
     return out
 
 
-def _block_forward(xw, params, bias, num_heads, scale, eps, postnorm, cosine_gs):
-    if xw.device.type == "cuda":
-        return _launch_block_kernel(xw, params, bias, num_heads, scale, eps, postnorm, cosine_gs)
-    if xw.device.type == "cpu":
-        return fused_swin_block_reference(xw, params, bias, num_heads, scale, eps, postnorm, cosine_gs)
-    raise ValueError(f"fused_swin_block runs on cuda (kernel) or cpu (plain torch), not {xw.device}")
-
-
-def _block_reference_positional(xw, bias, cosine_gs, *rest):
-    params, (num_heads, scale, eps, postnorm) = SwinBlockParams(*rest[:12]), rest[12:]
-    return fused_swin_block_reference(xw, params, bias, num_heads, scale, eps, postnorm, cosine_gs)
+def _block_map_reference(x, bias, cosine_gs, *rest):
+    """Plain version on the NHWC map: pad, roll, partition, the block on
+    windows, then unpartition, roll back and crop. Positional, as the
+    autograd function saves it."""
+    params, (num_heads, scale, eps, postnorm, window_size, shift_size) = SwinBlockParams(*rest[:12]), rest[12:]
+    xw, geo = _to_windows(x, window_size, shift_size)
+    out = fused_swin_block_reference(xw, params, bias, num_heads, scale, eps, postnorm, cosine_gs)
+    return _from_windows(out, window_size, geo)
 
 
 class _FusedSwinBlock(torch.autograd.Function):
+    """The block on an NHWC map: a CUDA tensor launches the kernel, a CPU
+    tensor takes the plain version; the gradient recomputes through it."""
+
     @staticmethod
-    def forward(ctx, xw, bias, cosine_gs, *rest):
+    def forward(ctx, x, bias, cosine_gs, *rest):
         params, static = SwinBlockParams(*rest[:12]), rest[12:]
-        ctx.save_for_backward(xw, bias, cosine_gs, *params)
+        ctx.save_for_backward(x, bias, cosine_gs, *params)
         ctx.static = static
-        return _block_forward(xw, params, bias, *static[:4], cosine_gs)
+        if x.device.type == "cuda":
+            return _launch_block_kernel(x, params, bias, *static[:4], cosine_gs, *static[4:])
+        if x.device.type == "cpu":
+            return _block_map_reference(x, bias, cosine_gs, *rest)
+        raise ValueError(f"fused_swin_block runs on cuda (kernel) or cpu (plain torch), not {x.device}")
 
     @staticmethod
     def backward(ctx, grad_out):
-        return recompute_grads(ctx, _block_reference_positional, grad_out, n_static=4)
+        return recompute_grads(ctx, _block_map_reference, grad_out, n_static=6)
 
 
 def fused_swin_block(
@@ -380,17 +414,29 @@ def fused_swin_block(
     eps: float = 1e-5,
     postnorm: bool = False,
     cosine_gs: Optional[torch.Tensor] = None,
+    window_size: Optional[Tuple[int, int]] = None,
+    shift_size: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
-    """One whole Swin block on (N, nW, L, C) windows, the kernel's own
-    layout: the counterpart of the JAX package's ``_swin_block_kernel``.
-    A CUDA tensor goes through ``csrc/swin_block.cu``, a CPU tensor through
-    ``fused_swin_block_reference``; the gradient recomputes through the
-    plain version. ``fused_swin_block.launches`` counts kernel launches."""
+    """One whole Swin block: the counterpart of the JAX package's
+    ``_swin_block_kernel``. Without ``window_size``, ``xw`` holds (N, nW, L,
+    C) windows, the kernel's own layout (read as a map of (nW, L) tokens
+    cut into (1, L) windows, unshifted). With it, ``xw`` is the NHWC map
+    (N, H, W, C) and the block runs on its (window_size, shift_size)
+    windows as ``fused_swin_block_v1``/``_v2`` give them. A CUDA tensor
+    goes through ``csrc/swin_block.cu``, a CPU tensor through
+    ``fused_swin_block_reference`` on ``_to_windows``' windows; the
+    gradient recomputes through the plain version.
+    ``fused_swin_block.launches`` counts kernel launches."""
     if xw.ndim != 4:
-        raise ValueError(f"expected windows of shape (N, nW, L, C), got {tuple(xw.shape)}")
-    n, nw, L, c = xw.shape
+        raise ValueError(f"expected windows (N, nW, L, C) or a map (N, H, W, C), got {tuple(xw.shape)}")
+    c = xw.shape[-1]
     if c % num_heads:
         raise ValueError(f"C={c} is not divisible by num_heads={num_heads}")
+    if window_size is None:
+        window_size, shift_size = (1, xw.shape[2]), (0, 0)
+    window_size, shift_size = tuple(window_size), tuple(shift_size)
+    geo = window_geometry(xw.shape[1], xw.shape[2], window_size, shift_size)
+    nw, L = (geo.ph // window_size[0]) * (geo.pw // window_size[1]), window_size[0] * window_size[1]
     if bias.ndim != 4 or bias.shape[0] not in (1, nw) or tuple(bias.shape[1:]) != (num_heads, L, L):
         raise ValueError(f"expected bias of shape ({nw} or 1, {num_heads}, {L}, {L}), got {tuple(bias.shape)}")
     hidden = params.fc1_w.shape[0]
@@ -398,7 +444,8 @@ def fused_swin_block(
     for field, t, shape in zip(SwinBlockParams._fields, params, shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_swin_block: {field} has shape {tuple(t.shape)}, expected {shape}")
-    return _FusedSwinBlock.apply(xw, bias, cosine_gs, *params, num_heads, float(scale), float(eps), bool(postnorm))
+    return _FusedSwinBlock.apply(xw, bias, cosine_gs, *params, num_heads, float(scale), float(eps), bool(postnorm),
+                                 window_size, shift_size)
 
 
 fused_swin_block.launches = 0
@@ -410,29 +457,30 @@ def _fused_swin_block(
     eps=1e-5, logit_scale=None, postnorm=False,
 ):
     c = x.shape[-1]
-    xw, geo = _to_windows(x, window_size, shift_size)
 
-    def zeros(n):
-        return torch.zeros(n, device=x.device, dtype=torch.float32)
+    def zeros(k):
+        return torch.zeros(k, device=x.device, dtype=norm1_w.dtype)
 
     params = SwinBlockParams(
         norm1_w, norm1_b, qkv_weight, zeros(3 * c) if qkv_bias is None else qkv_bias,
         proj_weight, zeros(c) if proj_bias is None else proj_bias, norm2_w, norm2_b,
         fc1_weight, fc1_bias, fc2_weight, fc2_bias,
     )
+    geo = window_geometry(x.shape[1], x.shape[2], window_size, shift_size)
     bias = _window_bias(relative_position_bias, window_size, num_heads, geo)
     cosine_gs = None if logit_scale is None else _cosine_gs(logit_scale, num_heads)
     scale = 1.0 if logit_scale is not None else (c // num_heads) ** -0.5
-    out = fused_swin_block(xw, params, bias, num_heads, scale, eps, postnorm, cosine_gs)
-    return _from_windows(out, window_size, geo)
+    return fused_swin_block(x, params, bias, num_heads, scale, eps, postnorm, cosine_gs, window_size, shift_size)
 
 
 def fused_swin_block_v1(x: torch.Tensor, **kw) -> torch.Tensor:
     """One Swin v1 block (pre-norm, inference) on NHWC ``x``:
     ``x + proj(attn(LN1 x))``, then ``+ fc2(gelu(fc1(LN2 .)))``, with
     torchvision's shifted-window attention. Keywords as the JAX package's
-    ``fused_swin_block_v1``, weights in torch's (out, in) layout. The
-    padding, roll, partition, unpartition and crop stay in torch."""
+    ``fused_swin_block_v1``, weights in torch's (out, in) layout. On the
+    card one kernel launch reads the windows from the map and writes the
+    block's output back to it (no pad, roll or partition in torch); on the
+    CPU the plain version runs on ``_to_windows``' windows."""
     return _fused_swin_block(x, logit_scale=None, postnorm=False, **kw)
 
 

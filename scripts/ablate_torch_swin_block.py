@@ -5,14 +5,30 @@ Run from the root of the repository on a machine with a CUDA card:
     python3 scripts/ablate_torch_swin_block.py [--variants base no_attn ...] [--iters 20]
 
 For each variant it copies ``eqxvision_tpu_torch`` into
-``eqxvision_tpu_torch/_build/ablate/<variant>/``, deletes one phase from
-that copy's ``csrc/swin_block.cu`` (the outputs are then wrong; only the
-time is read), builds it in a fresh process, and times the kernel with
-CUDA events at the b128 bf16 shapes of swin_t stages 1 and 2 and
-swin_v2_t stage 1. A phase's cost is the base time less the variant's.
-The variants are the counterpart of the prototype scripts/ablate_swin8.py,
-which times a v2 block with one piece switched off at swin_v2_t stage 1
-(``no_norm`` is its ``nonorm``). Imports nothing of JAX.
+``eqxvision_tpu_torch/_build/ablate/<variant>/``, changes one phase of the
+bf16 kernel in that copy's ``csrc/swin_block.cu`` (the outputs are then
+wrong; only the time is read), builds it in a fresh process, and times the
+NHWC entry (``fused_swin_block_v1``/``_v2``, one kernel launch that reads
+the windows from the map) with CUDA events at the b128 bf16 shapes of
+swin_t stages 1 and 2 (224 px, window 7, shifted) and swin_v2_t stages 1
+and 2 (256 px, window 8, shifted). A phase's cost is the base time less
+the variant's. Each patch names one whole source line, which must occur
+exactly once, or the script stops.
+
+Variants (the counterpart of the prototype scripts/ablate_swin8.py, which
+times a v2 block with one piece switched off; ``no_norm`` is its
+``nonorm``):
+  base      the kernel as it is
+  no_attn   no attention (S, softmax, P V) for any head
+  no_mlp    no MLP: no hidden chunk is loaded or multiplied
+  no_fc2    fc2's products not issued (its weights still stream)
+  no_gelu   gelu's erf replaced by the identity
+  no_fetch  no weight tile is loaded by TMA (the stages are still handed over)
+  no_mma    no tensor-core instruction: no wgmma and no mma.sync
+  shell     load, LN1, proj, the residual, store: no qkv, attention or MLP
+  no_norm   v2's cosine head norm skipped (the q and k scales stay 1)
+  no_bias   the attention's bias table is not read
+Imports nothing of JAX.
 """
 import argparse
 import shutil
@@ -22,46 +38,58 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "eqxvision_tpu_torch"
-HEADS = "  for (int h = 0; h < H; ++h) {"
-MLP = "  for (int c0 = 0; c0 < p.hidden; c0 += kHidChunk) {"
-COSINE = "    if (p.gs != nullptr) {\n      // cosine attention"
-VARIANTS = {  # name: [(source line, replacement)]
+PIECES = "  const int n_pieces = (H + hp - 1) / hp;"
+CHUNKS = "  const int n_chunks = (hidden + kChunk - 1) / kChunk;"
+VARIANTS = {  # name: [(whole source line, replacement)]
     "base": [],
-    "no_attn": [("      attention_head_mma(qkvh, sq, Dh, L, q_scale, k_inv, p.scale, bias_h, s_buf, o_t + h * Dh, lda);", "")],
-    "no_heads": [(HEADS, HEADS.replace("h < H", "h < 0"))],
-    "no_mlp": [(MLP, MLP.replace("c0 < p.hidden", "c0 < 0"))],
-    "no_fc2": [("    block_matmul(hid, sh, nc, p.w_fc2 + c0,", "    if (0) block_matmul(hid, sh, nc, p.w_fc2 + c0,")],
-    "shell": [(HEADS, HEADS.replace("h < H", "h < 0")), (MLP, MLP.replace("c0 < p.hidden", "c0 < 0"))],
-    # v2's cosine head norm skipped (q and k scales stay 1): the prototype
-    # scripts/ablate_swin8.py's ``nonorm``; v1 shapes do not run it
-    "no_norm": [(COSINE, COSINE.replace("p.gs != nullptr", "false"))],
-    "no_gelu": [("from_f32<T>(0.5f * u * (1.f + erff(u * 0.70710678118654752f)))", "from_f32<T>(u)")],
-    "no_fetch": [("      if (n < N && k < K) v[q] =", "      if (n < 0) v[q] =")],
-    "no_mma": [("      mma_bf16(acc[0], a, b01[0], b01[1]);\n      mma_bf16(acc[1], a, b01[2], b01[3]);\n"
-                "      mma_bf16(acc[2], a, b23[0], b23[1]);\n      mma_bf16(acc[3], a, b23[2], b23[3]);",
-                "      acc[0][0] += __uint_as_float(a[0] ^ b01[0] ^ b23[0]);")],
+    "no_attn": [("      for (int hl = 0; hl < heads; ++hl) {", "      for (int hl = 0; hl < 0; ++hl) {")],
+    "no_mlp": [(CHUNKS, "  const int n_chunks = 0;")],
+    "no_fc2": [("        mma_k_tile<NC>(acc, sw128_desc(hid_tile), sw128_desc(st), true);  // fc2's partial product", "")],
+    "no_gelu": [("          a1[4 * jj + e] = 0.5f * u * (1.f + erff(u * 0.70710678118654752f));",
+                 "          a1[4 * jj + e] = u;")],
+    "no_fetch": [("  auto expect = [&](int s, int bytes) { mbar_arrive_expect_tx(&full[s], bytes); };",
+                  "  auto expect = [&](int s, int bytes) { mbar_arrive(&full[s]); };"),
+                 ("    tma_load_2d(ring + s * kStageBytes + offset, map, &full[s], c0, c1);", "")],
+    "no_mma": [
+        ("  for (int ks = 0; ks < 4; ++ks) wgmma_tile<N>(acc, da + 2 * ks, db + 2 * ks, accumulate || ks > 0);", ""),
+        ("            mma_bf16(s[2 * jj], qf, kb[0], kb[1]);", "            s[2 * jj][0] += __uint_as_float(qf[0] ^ kb[0]);"),
+        ("            mma_bf16(s[2 * jj + 1], qf, kb[2], kb[3]);", ""),
+        ("            mma_bf16(o[2 * nd], a, vb[0], vb[1]);", "            o[2 * nd][0] += __uint_as_float(a[0] ^ vb[0]);"),
+        ("            mma_bf16(o[2 * nd + 1], a, vb[2], vb[3]);", ""),
+    ],
+    "shell": [(PIECES, "  const int n_pieces = 0;"), (CHUNKS, "  const int n_chunks = 0;")],
+    "no_norm": [("  constexpr bool cosine = kCosine;  // v2: q and k L2-normalised per head",
+                 "  constexpr bool cosine = false;")],
+    "no_bias": [("            bv[n][e] = r < L && c < L ? __ldg(bias_h + r * L + c) : 0.f;", "            bv[n][e] = 0.f;"),
+                ("            const float2 b2 = r < L && c < L ? __ldg(reinterpret_cast<const float2*>(bias_h + r * L + c))",
+                 "            const float2 b2 = false ? __ldg(reinterpret_cast<const float2*>(bias_h + r * L + c))")],
 }
-SHAPES = [  # name, C, heads, nW, L, v2
-    ("swin_t stage 1", 96, 3, 64, 49, False),
-    ("swin_t stage 2", 192, 6, 16, 49, False),
-    ("swin_v2_t stage 1", 96, 3, 64, 64, True),
+SHAPES = [  # name, map side, window, C, heads, v2
+    ("swin_t stage 1", 56, 7, 96, 3, False),
+    ("swin_t stage 2", 28, 7, 192, 6, False),
+    ("swin_v2_t stage 1", 64, 8, 96, 3, True),
+    ("swin_v2_t stage 2", 32, 8, 192, 6, True),
 ]
 
 TIMER = """
-import sys, torch
+import math, sys, torch
 sys.path.insert(0, sys.argv[1])
 from eqxvision_tpu_torch.ops import window_attention as W
 gen = torch.Generator(device="cuda").manual_seed(0)
-for name, c, h, nw, L, v2 in {shapes}:
+for name, side, win, c, h, v2 in {shapes}:
     def r(*shape, s=0.1, base=0.0):
         return base + s * torch.randn(*shape, device="cuda", generator=gen)
     hid = 4 * c
-    p = W.SwinBlockParams(r(c, base=1.0), r(c), r(3 * c, c).bfloat16(), r(3 * c), r(c, c).bfloat16(), r(c),
-                          r(c, base=1.0), r(c), r(hid, c).bfloat16(), r(hid), r(c, hid).bfloat16(), r(c))
-    x = r(128, nw, L, c, s=0.5).bfloat16()
-    bias = torch.randn(nw, h, L, L, device="cuda", generator=gen)
-    gs = torch.full((h,), 10.0, device="cuda") if v2 else None
-    f = lambda: W.fused_swin_block(x, p, bias, h, 1.0 if v2 else (c // h) ** -0.5, 1e-5, v2, gs)
+    kw = dict(norm1_w=r(c, base=1.0), norm1_b=r(c), qkv_weight=r(3 * c, c).bfloat16(), qkv_bias=r(3 * c),
+              proj_weight=r(c, c).bfloat16(), proj_bias=r(c), norm2_w=r(c, base=1.0), norm2_b=r(c),
+              fc1_weight=r(hid, c).bfloat16(), fc1_bias=r(hid), fc2_weight=r(c, hid).bfloat16(), fc2_bias=r(c),
+              relative_position_bias=r(1, h, win * win, win * win, s=1.0), window_size=(win, win),
+              shift_size=(win // 2, win // 2), num_heads=h)
+    x = r(128, side, side, c, s=0.5).bfloat16()
+    if v2:
+        f = lambda: W.fused_swin_block_v2(x, logit_scale=torch.full((h, 1, 1), math.log(10.0), device="cuda"), **kw)
+    else:
+        f = lambda: W.fused_swin_block_v1(x, **kw)
     with torch.inference_mode():
         f()
         torch.cuda.synchronize()
@@ -75,23 +103,37 @@ for name, c, h, nw, L, v2 in {shapes}:
 """
 
 
+def patch(text, name):
+    lines = text.split("\n")
+    for old, new in VARIANTS[name]:
+        hits = [i for i, line in enumerate(lines) if line == old]
+        if len(hits) != 1:
+            raise SystemExit(f"{name}: the line to change occurs {len(hits)} times in swin_block.cu: {old!r}")
+        lines[hits[0]] = new
+    return "\n".join(lines)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     code = TIMER.format(shapes=SHAPES, iters=args.iters)
+    for name in args.variants:  # patch them all first: a stale patch stops the run before any build
+        patch((PKG / "csrc" / "swin_block.cu").read_text(), name)
+    roots = {}
     for name in args.variants:
-        root = PKG / "_build" / "ablate" / name
+        root = roots[name] = PKG / "_build" / "ablate" / name
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(PKG, root / PKG.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
         src = root / PKG.name / "csrc" / "swin_block.cu"
-        text = src.read_text()
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise SystemExit(f"{name}: the line to remove is not in swin_block.cu: {old!r}")
-            text = text.replace(old, new)
-        src.write_text(text)
+        src.write_text(patch(src.read_text(), name))
+    # build every copy at once, then time them one after another
+    build = "import sys; sys.path.insert(0, sys.argv[1]); from eqxvision_tpu_torch import _native; _native.library()"
+    procs = [subprocess.Popen([sys.executable, "-c", build, str(root)]) for root in roots.values()]
+    if any([proc.wait() for proc in procs]):
+        raise SystemExit("a variant failed to build")
+    for name, root in roots.items():
         subprocess.run([sys.executable, "-c", code, str(root), name], check=True)
     return 0
 

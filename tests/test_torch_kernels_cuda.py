@@ -191,6 +191,96 @@ def test_block_kernel_refuses_wide_blocks(cuda):
         W.fused_swin_block(x, p, bias, 8, 0.1768)
 
 
+# The NHWC entry, whose kernel reads the windows from the map itself:
+# (C, heads, N, map (H, W), window, shift, v2). swin_t stages 1-2 shapes
+# shifted and not; C = 128 on a 10 x 10 map padded to 14 x 14; a 20 x 6
+# map of 3 windows (a ragged last group of the two-window blocks) whose
+# width one window covers (no shift there); v2's 8 x 8 windows at C = 96
+# and 192, and a single-window 8 x 8 map (shift zeroed) in 3 images.
+MAP_CASES = {
+    "c96-14-shifted": (96, 3, 2, (14, 14), 7, 3, False),
+    "c96-14-unshifted": (96, 3, 1, (14, 14), 7, 0, False),
+    "c128-10x10-padded": (128, 4, 3, (10, 10), 7, 3, False),
+    "c192-14-shifted": (192, 6, 1, (14, 14), 7, 3, False),
+    "c96-20x6-ragged": (96, 3, 1, (20, 6), 7, 3, False),
+    "c96-16-v2": (96, 3, 1, (16, 16), 8, 4, True),
+    "c192-16-v2": (192, 6, 1, (16, 16), 8, 4, True),
+    "c128-8-v2-one-window": (128, 4, 3, (8, 8), 8, 4, True),
+}
+
+
+def _map_inputs(cuda, c, heads, n, hw, win, v2, dtype):
+    gen = torch.Generator(cuda).manual_seed(c + hw[0] * hw[1] + win)
+
+    def r(*shape, s=0.1, base=0.0):
+        return base + s * torch.randn(*shape, device=cuda, generator=gen)
+
+    hidden = 4 * c
+    kw = dict(
+        norm1_w=r(c, base=1.0), norm1_b=r(c), qkv_weight=r(3 * c, c, s=c**-0.5).to(dtype), qkv_bias=r(3 * c),
+        proj_weight=r(c, c, s=c**-0.5).to(dtype), proj_bias=r(c), norm2_w=r(c, base=1.0), norm2_b=r(c),
+        fc1_weight=r(hidden, c, s=c**-0.5).to(dtype), fc1_bias=r(hidden),
+        fc2_weight=r(c, hidden, s=hidden**-0.5).to(dtype), fc2_bias=r(c),
+        relative_position_bias=r(1, heads, win * win, win * win, s=1.0),
+    )
+    if v2:
+        kw["qkv_bias"][c : 2 * c] = 0.0
+        kw["logit_scale"] = torch.full((heads, 1, 1), float(torch.log(torch.tensor(10.0))), device=cuda)
+    return r(n, *hw, c, s=0.5).to(dtype), kw
+
+
+# bf16 against the f32 plain path on the CPU from the same bf16-rounded
+# inputs: tests/test_hw_parity.py's whole-block bounds (0.05 v1, 0.12 v2);
+# f32 card against CPU at 1e-4 (the windows entry's bound).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(MAP_CASES))
+def test_block_kernel_on_the_map_matches_the_cpu(cuda, case, dtype):
+    c, heads, n, hw, win, shift, v2 = MAP_CASES[case]
+    x, kw = _map_inputs(cuda, c, heads, n, hw, win, v2, dtype)
+    fn = W.fused_swin_block_v2 if v2 else W.fused_swin_block_v1
+    geometry = dict(window_size=(win, win), shift_size=(shift, shift), num_heads=heads)
+    before = W.fused_swin_block.launches
+    with torch.no_grad():
+        out = fn(x, **kw, **geometry)
+        torch.cuda.synchronize()
+        assert W.fused_swin_block.launches == before + 1
+        ref = fn(x.float().cpu(), **{k: v.float().cpu() for k, v in kw.items()}, **geometry)
+    assert out.dtype == dtype and out.shape == x.shape
+    bound = (0.12 if v2 else 0.05) if dtype == torch.bfloat16 else 1e-4
+    assert float((out.float().cpu() - ref).abs().max()) < bound
+
+
+def test_block_kernel_on_the_map_refuses_wide_blocks(cuda):
+    x, kw = _map_inputs(cuda, 256, 8, 1, (14, 14), 7, False, torch.bfloat16)
+    with pytest.raises(ValueError, match="C <= 192"):
+        W.fused_swin_block_v1(x, **kw, window_size=(7, 7), shift_size=(3, 3), num_heads=8)
+
+
+def test_block_kernel_refused_launch_raises(cuda):
+    """The C entry point refuses an x that is not 16-byte aligned with an
+    error code and launches nothing; _native.check raises on the code."""
+    from eqxvision_tpu_torch import _native
+
+    c, heads = 96, 3
+    x, kw = _map_inputs(cuda, c, heads, 1, (14, 14), 7, False, torch.bfloat16)
+    unaligned = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)[1 : 1 + x.numel()]
+    unaligned.copy_(x.view(-1))
+    out = torch.full_like(x, 7.0)
+    mats = [kw[k] for k in ("qkv_weight", "proj_weight", "fc1_weight", "fc2_weight")]
+    vecs = [kw[k] for k in ("norm1_w", "norm1_b", "qkv_bias", "proj_bias", "norm2_w", "norm2_b", "fc1_bias", "fc2_bias")]
+    bias = kw["relative_position_bias"]
+    err = _native.library().eqx_swin_block(
+        unaligned.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in mats), *(v.data_ptr() for v in vecs),
+        bias.data_ptr(), None, 1, 14, 14, 14, 14, 7, 7, 3, 3, 1, c, 4 * c, heads, c**-0.5, 1e-5, 0, 1, 0,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _native.check(err, "eqx_swin_block on an unaligned x")
+    assert bool((out == 7.0).all())  # nothing ran
+
+
 # LayerNorm: (rows, D). The zoo's widths (96 at 4 lanes a row, 384, 768,
 # 2048 = swin_b's widest merge), a 128-row classifier norm, and widths that
 # take the one-warp-per-row kernel (100: rows not 16-byte multiples in

@@ -87,6 +87,42 @@ def test_windows_match_jax(hw, window, shift):
     )
 
 
+# The whole-block kernel reads its windows straight from the NHWC map with
+# window_token_index's formula: written here as a torch gather and scatter,
+# it must equal the pad / roll / partition plumbing and its inverse. The
+# geometries of every BLOCK_CASES entry (below), a map whose height one
+# window covers (shift zeroed there), a 20 x 6 map of 3 windows (width
+# covered), and v2's 8 x 8 window on a map it covers whole.
+GEOMETRY_CASES = {
+    "v1-unshifted": ((14, 14), 7, 0), "v1-shifted": ((14, 14), 7, 3), "v1-padded": ((10, 10), 7, 3),
+    "v2-unshifted": ((16, 16), 8, 0), "v2-shifted": ((16, 16), 8, 4), "v2-padded": ((12, 12), 8, 4),
+    "height-covered": ((6, 20), 7, 3), "20x6-three-windows": ((20, 6), 7, 3), "v2-one-window": ((8, 8), 8, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(GEOMETRY_CASES))
+def test_window_token_index_matches_torch_plumbing(case):
+    (h, w), win, shift = GEOMETRY_CASES[case]
+    window, shifts = (win, win), (shift, shift)
+    x = torch.from_numpy(rand(2, h, w, 5, seed=h * w + shift))
+    xw, geo = TW._to_windows(x, window, shifts)
+    assert geo == TW.window_geometry(h, w, window, shifts)
+    idx = TW.window_token_index(geo, window)
+    nw = (geo.ph // win) * (geo.pw // win)
+    assert idx.shape == (nw, win * win)
+    valid = idx >= 0
+    # every token of the map is read by exactly one window position
+    assert sorted(idx[valid].tolist()) == list(range(h * w))
+    flat = x.reshape(2, h * w, 5)
+    gathered = torch.zeros(2, nw, win * win, 5)
+    gathered[:, valid] = flat[:, idx[valid]]
+    torch.testing.assert_close(gathered, xw, rtol=0, atol=0)
+    scattered = torch.empty_like(flat)
+    scattered[:, idx[valid]] = xw[:, valid]
+    torch.testing.assert_close(scattered.reshape(2, h, w, 5), TW._from_windows(xw, window, geo), rtol=0, atol=0)
+    torch.testing.assert_close(scattered.reshape(2, h, w, 5), x, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------- window attention (K3, K4)
 
 
@@ -326,6 +362,29 @@ def test_fused_block_gradient_recomputes_through_plain():
     (g_op,) = torch.autograd.grad(TW.fused_swin_block(*args).square().sum(), x)
     (g_ref,) = torch.autograd.grad(TW.fused_swin_block_reference(*args).square().sum(), x)
     torch.testing.assert_close(g_op, g_ref)
+
+
+@pytest.mark.parametrize("postnorm", [False, True], ids=["v1", "v2"])
+def test_fused_block_map_entry_matches_windows_entry(postnorm):
+    """fused_swin_block on the NHWC map (window_size given) is the windows
+    entry between _to_windows and _from_windows, gradient included."""
+    c, heads, win, shift = 32, 1, (7, 7), (3, 3)
+    w = {k: torch.from_numpy(v.T.copy() if k.endswith("_weight") else v) for k, v in _block_weights(c, heads, win, 7).items()}
+    params = TW.SwinBlockParams(
+        w["norm1_w"], w["norm1_b"], w["qkv_weight"], w["qkv_bias"], w["proj_weight"], w["proj_bias"],
+        w["norm2_w"], w["norm2_b"], w["fc1_weight"], w["fc1_bias"], w["fc2_weight"], w["fc2_bias"],
+    )
+    x = torch.from_numpy(rand(2, 10, 13, c, seed=8)).requires_grad_(True)
+    geo = TW.window_geometry(10, 13, win, shift)
+    bias = TW._window_bias(w["relative_position_bias"], win, heads, geo)
+    gs = torch.tensor([10.0]) if postnorm else None
+    out = TW.fused_swin_block(x, params, bias, heads, c**-0.5, 1e-5, postnorm, gs, win, shift)
+    xw, _ = TW._to_windows(x, win, shift)
+    ref = TW._from_windows(TW.fused_swin_block(xw, params, bias, heads, c**-0.5, 1e-5, postnorm, gs), win, geo)
+    torch.testing.assert_close(out, ref)
+    (g_map,) = torch.autograd.grad(out.square().sum(), x)
+    (g_win,) = torch.autograd.grad(ref.square().sum(), x)
+    torch.testing.assert_close(g_map, g_win)
 
 
 def test_fused_block_rejects_misshapen_weights():
