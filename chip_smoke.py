@@ -15,8 +15,11 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    ``F.linear`` on the same operands.
 3. Holds each kernel against its plain torch version on the card at the
    shapes its paths give it, and times both with CUDA events in turns
-   (plain, kernel, kernel, plain): the fused-qkv attention at ViT-B/16's
-   shapes; the window attention at every stage shape of ``swin_t``
+   (plain, kernel, kernel, plain): the fused-qkv attention (the attention
+   stage of ``csrc/attention_stage.cuh``, whose instantiations' registers
+   and spills it prints first, and its design at each case) at ViT-B/16's
+   shapes, at 384 px, a ragged L above 256 and L = 1024 with head dim 128;
+   the window attention at every stage shape of ``swin_t``
    (224 px) and ``swin_v2_t`` (256 px) at b128 and the whole Swin block at
    their C <= 192 stages, each also with a head biased 300 log-units below
    the others; a ragged input (odd window count from padding, a window
@@ -29,7 +32,8 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    beside the unfused torch composition it replaces; the fused ViT
    attention half at vit_base b256, a ragged L above 256, vit_base at
    384 px (577 tokens), without a qkv bias and with rows shifted by 1e3,
-   beside the unfused torch composition (with SDPA) it replaces; the fused
+   beside the unfused torch composition (with SDPA) it replaces, and at
+   vit_base b256 its attention stage's device time beside SDPA; the fused
    Swin v1 attention half at swin_t stages 3 and 4 and swin_b stage 2
    (b128), a ragged map whose windows hold padding tokens and a head 300
    log-units down, beside the unfused composition (with SDPA) it replaces.
@@ -78,7 +82,12 @@ F32_BOUND = 1e-4
 # f32 sums in another order on two devices, through 12 blocks whose dot
 # products run over up to 3072 terms.
 LOGIT_BOUND = 1e-3
-QKV_CASES = [(1, 197, 12, 64), (8, 197, 12, 64), (256, 197, 12, 64), (4, 50, 3, 64)]
+# Fused-qkv attention (B, L, heads, head dim): vit_base at b1, b8 and b256; a
+# ragged L; vit_base at 384 px (577 tokens: two passes, K and V resident); a
+# ragged L above 256 (two blocks of keys); L = 1024 at head dim 128 (K and V
+# loaded block by block).
+QKV_CASES = [(1, 197, 12, 64), (8, 197, 12, 64), (256, 197, 12, 64), (4, 50, 3, 64), (2, 577, 12, 64),
+             (2, 257, 6, 64), (1, 1024, 2, 128)]
 SWIN = {  # name: (image size, window, embed dim, heads per stage)
     "swin_t": (224, 7, 96, (3, 6, 12, 24)),
     "swin_v2_t": (256, 8, 96, (3, 6, 12, 24)),
@@ -106,8 +115,8 @@ MLP_CASES = {
 # LayerNorm + MLP + residual chain.
 MLP_BF16_BOUND = 0.05
 # Fused ViT attention half (B, L, D, heads): vit_base b256; a ragged L above
-# 256 (five 64-key tiles); vit_base at 384 px (577 tokens: K and V staged in
-# two chunks).
+# 256 (two blocks of 256 keys: the stage's two passes); vit_base at 384 px
+# (577 tokens: two passes, K and V resident).
 ATTN_HALF_CASES = {"vit_base b256": (256, 197, 768, 12), "ragged": (8, 257, 384, 6),
                    "vit_base 384 px b4": (4, 577, 768, 12)}
 # bf16: the whole-block v1 bound, two products around an attention.
@@ -196,9 +205,55 @@ def _report(name, shape, dtype, err, bound, ms, plain_ms, turns, extra=""):
     )
 
 
-def check_fused_qkv(attention):
-    """fused_qkv_attention kernel vs its plain version; returns the b256
+def _ptxas_report(log, pattern, name):
+    """(kernel, registers, spill bytes) of each kernel in ptxas's report
+    whose mangled name matches ``pattern``, named by ``name(match)``."""
+    found, kernel, spills = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(pattern, line)
+            kernel = None if m is None else name(m)
+        elif kernel and "spill stores" in line:
+            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif kernel and "registers" in line:
+            found.append((kernel, int(re.search(r"Used (\d+) registers", line).group(1)), spills))
+            kernel = None
+    return found
+
+
+def _flag(digit):
+    return "true" if digit == "1" else "false"
+
+
+def _stage_build_report(log):
+    """The attention-stage kernels (csrc/attention_stage.cuh), named by their
+    template arguments: the wgmma stage's head dim and one pass, the
+    CUDA-core stage's type and output columns a lane."""
+    return _ptxas_report(
+        log, r"attention_stage_(wgmma|fma)I(?:Li(\d+)ELb([01])E|(f|13__nv_bfloat16)Li(\d)E)",
+        lambda m: f"attention_stage_wgmma<{m.group(2)}, {_flag(m.group(3))}>" if m.group(1) == "wgmma"
+        else f"attention_stage_fma<{'float' if m.group(4) == 'f' else 'bf16'}, {m.group(5)}>")
+
+
+def check_fused_qkv(attention, lib, log):
+    """The attention stage (csrc/attention_stage.cuh) through K1's entry:
+    each instantiation's registers and spills from ptxas (a spill in a bf16
+    wgmma instantiation fails the run) and the bf16 design at the cases'
+    shapes; then fused_qkv_attention vs its plain version. Returns the b256
     bf16 numbers (the shape of vit_base's calls)."""
+    report = sorted(set(_stage_build_report(log)))  # K1's source and the attention half's each build a copy
+    _check(len({k for k, _, _ in report if k.startswith("attention_stage_wgmma")}) == 16,
+           f"attention-stage kernels in the build log: {report}")
+    for kernel, regs, spills in report:
+        print(f"{kernel}: {regs} registers, {spills} bytes of spill stores and loads (ptxas -v)")
+    _check(all(spills == 0 for k, _, spills in report if k.startswith("attention_stage_wgmma")),
+           "a bf16 attention-stage kernel spills")
+    for l, dh in sorted({(l, dh) for _, l, _, dh in QKV_CASES}):
+        cfg = (ctypes.c_int * 5)()
+        _check(lib.eqx_fused_qkv_attention_config(l, dh, cfg) == 0, f"attention stage config at L {l}, Dh {dh}")
+        print(f"attention stage bf16 at L {l}, head dim {dh}: {cfg[0]} blocks an SM, {cfg[1]} bytes of shared "
+              f"memory a block, {cfg[2]} key rows of K and V, {'one pass' if cfg[3] else 'two passes'}, "
+              f"K and V {'resident' if cfg[4] else 'loaded block by block'}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     main = None
     for b, l, h, dh in QKV_CASES:
@@ -340,21 +395,11 @@ def _map_block_inputs(c, h, side, win, v2, dtype, gen):
 
 
 def _block_build_report(log):
-    """(kernel, registers, spill bytes) of each whole-block kernel in
-    ptxas's report, the bf16 kernels named by their template arguments
-    (proj width, cosine attention)."""
-    found, name, spills = [], None, 0
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"swin_block_(bf16|f32)_kernel(ILi(\d+)ELb([01])E)?", line)
-            name = None if m is None else f"swin_block_{m.group(1)}_kernel" + (
-                f"<{m.group(3)}, {'true' if m.group(4) == '1' else 'false'}>" if m.group(2) else "")
-        elif name and "spill stores" in line:
-            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
-        elif name and "registers" in line:
-            found.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spills))
-            name = None
-    return found
+    """The whole-block kernels, the bf16 ones named by their template
+    arguments (proj width, cosine attention)."""
+    return _ptxas_report(log, r"swin_block_(bf16|f32)_kernel(ILi(\d+)ELb([01])E)?",
+                         lambda m: f"swin_block_{m.group(1)}_kernel"
+                         + (f"<{m.group(3)}, {_flag(m.group(4))}>" if m.group(2) else ""))
 
 
 def check_block(W, log):
@@ -611,6 +656,8 @@ def check_attention_half(AH):
     vit_base b256, SDPA on the same qkv (the attention stage's yardstick).
     The f32 kernel is held against the plain version in f64, the bf16 one
     against the plain version in f32. Returns vit_base b256 bf16's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
     gen = torch.Generator(device="cuda").manual_seed(8)
     main = None
     cases = [(name, case, 0.0, True) for name, case in ATTN_HALF_CASES.items()]
@@ -644,9 +691,17 @@ def check_attention_half(AH):
                 with torch.inference_mode():
                     q, k, v = _attn_half_qkv(x, *params[:4], heads)
                     sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(iters):
+                            AH.fused_attention_half(x, *params, heads)
+                        torch.cuda.synchronize()
+                stage_ms = sum(e.device_time_total for e in prof.key_averages()
+                               if "attention_stage" in e.key) / 1e3 / iters
+                _check(stage_ms > 0, "fused_attention_half: no attention-stage kernel in the profile")
                 main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None)
-                extra = f"; SDPA alone on the same qkv {sdpa_ms:.4f} ms"
+                extra = (f"; its attention stage {stage_ms:.4f} ms of device time (torch.profiler), SDPA alone on "
+                         f"the same qkv {sdpa_ms:.4f} ms")
             _report(f"fused_attention_half {name}", (b, l, d, heads), dtype, err, bound, ms, plain_ms, turns,
                     f"; reference: unfused torch composition with SDPA {composition_ms:.4f} ms; "
                     f"bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB){extra}")
@@ -736,22 +791,9 @@ def check_window_attention_half(W, WH):
 
 
 def _gemm_build_report(log):
-    """(instantiation, registers, spill bytes) of each bf16 GEMM kernel in
-    ptxas's report; the mangled name's template arguments, decoded."""
-    found, name = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S*gemm_bf16_kernel\S*)'", line)
-        if m or "Compiling entry function" in line:
-            name = m.group(1) if m else None
-        elif name and "spill stores" in line:
-            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
-        elif name and "registers" in line:
-            regs = int(re.search(r"Used (\d+) registers", line).group(1))
-            args = re.search(r"ILb(\d)ELi(\d)ELb(\d)ELi(\d+)E", name).groups()
-            found.append((f"<{'true' if args[0] == '1' else 'false'}, {args[1]}, "
-                          f"{'true' if args[2] == '1' else 'false'}, {args[3]}>", regs, spills))
-            name = None
-    return found
+    """The bf16 GEMM kernels, named by their template arguments."""
+    return _ptxas_report(log, r"gemm_bf16_kernelILb(\d)ELi(\d)ELb(\d)ELi(\d+)E",
+                         lambda m: f"<{_flag(m.group(1))}, {m.group(2)}, {_flag(m.group(3))}, {m.group(4)}>")
 
 
 def check_gemm(M, AH, W, WH, log):
@@ -1068,7 +1110,7 @@ def main():
     print(_native.build_log().strip())
 
     check_gemm(M, AH, W, WH, _native.build_log())
-    qkv_main = check_fused_qkv(attention)
+    qkv_main = check_fused_qkv(attention, _native.library(), _native.build_log())
     window_main = check_window_attention(attention)
     block_main = check_block(W, _native.build_log())
     check_ragged(W)
@@ -1098,7 +1140,7 @@ def main():
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": "fused_qkv_attention", "route": "cuda", "source": src + "fused_qkv_attention.cu",
+        {"name": "fused_qkv_attention", "route": "cuda", "source": src + "attention_stage.cuh",
          "replaces": ["eqxvision_tpu/ops/attention.py:245", "eqxvision_tpu/ops/attention.py:276"],
          "launches": train_counts["fused_qkv_attention"], **qkv_main},
         {"name": "window_qkv_attention", "route": "cuda", "source": src + "window_attention.cu",

@@ -103,6 +103,8 @@ def library() -> ctypes.CDLL:
     lib.eqx_fused_qkv_attention.restype = c_int
     lib.eqx_fused_qkv_attention_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_fused_qkv_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_fused_qkv_attention_config.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
+    lib.eqx_fused_qkv_attention_config.restype = c_int
     lib.eqx_window_attention.argtypes = [
         c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int, c_int, ctypes.c_float, c_int, c_ptr,
     ]

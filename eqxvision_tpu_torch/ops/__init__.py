@@ -2,6 +2,7 @@
 from .attention import (
     attention,
     attention_reference,
+    attention_stage_reference,
     fused_qkv_attention,
     fused_qkv_attention_reference,
     window_qkv_attention,
@@ -24,6 +25,7 @@ __all__ = [
     "attention",
     "attention_half_reference",
     "attention_reference",
+    "attention_stage_reference",
     "fused_attention_half",
     "fused_mlp_half",
     "fused_qkv_attention",

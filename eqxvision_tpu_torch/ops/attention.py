@@ -5,8 +5,9 @@ on a fused qkv projection, in training with dropout or drop path; inference
 takes ``ops.fused_attention_half``), ``window_qkv_attention``/
 ``packed_window_attention`` (Swin's windows) and the public ``attention``
 (any lead dims, a compact additive bias). A CUDA tensor goes through a
-hand-written Hopper kernel (``csrc/fused_qkv_attention.cu``,
-``csrc/window_attention.cu``, ``csrc/attention.cu``); a CPU tensor goes
+hand-written Hopper kernel (``csrc/fused_qkv_attention.cu``, whose
+attention stage ``csrc/attention_stage.cuh`` the fused attention half runs
+too, ``csrc/window_attention.cu``, ``csrc/attention.cu``); a CPU tensor goes
 through the op's plain version, a few lines of torch that mirror the JAX
 package's references. No other device is accepted, and on CUDA nothing
 falls back to the plain version. Gradients recompute through the plain
@@ -25,20 +26,32 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 
 
-def fused_qkv_attention_reference(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v per head, scores and softmax in f32.
+def attention_stage_reference(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v per head, scores and softmax in f32: the
+    plain version of the attention stage that K1 and the fused attention
+    half share (``csrc/attention_stage.cuh``).
 
     qkv: (B, L, 3*D) as [q heads | k heads | v heads]; returns (B, L, D).
     The probabilities are rounded to the input type before p.V, and both
-    products accumulate in f32, as in the JAX reference."""
+    products accumulate in f32 (an f64 input computes in f64), as in the
+    JAX reference."""
+    wide = torch.promote_types(qkv.dtype, torch.float32)
     b, l, three_d = qkv.shape
     d = three_d // 3
-    head_dim = d // num_heads
-    q, k, v = (t.reshape(b, l, num_heads, head_dim).transpose(1, 2) for t in qkv.split(d, dim=-1))
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1).to(qkv.dtype)
-    o = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    q, k, v = (t.reshape(b, l, num_heads, d // num_heads).transpose(1, 2).to(wide) for t in qkv.split(d, dim=-1))
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1).to(qkv.dtype)
+    o = torch.matmul(p.to(wide), v).to(qkv.dtype)
     return o.transpose(1, 2).reshape(b, l, d)
+
+
+# K1's plain version is the stage's.
+fused_qkv_attention_reference = attention_stage_reference
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (a copy only if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch_kernel(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
@@ -46,6 +59,7 @@ def _launch_kernel(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Ten
         raise TypeError(f"fused_qkv_attention kernel takes float32 or bfloat16, got {qkv.dtype}")
     if not qkv.is_contiguous():
         raise ValueError("fused_qkv_attention kernel needs a contiguous qkv tensor")
+    qkv = _aligned(qkv)  # TMA reads it from a 16-byte aligned base
     b, l, three_d = qkv.shape
     d = three_d // 3
     head_dim = d // num_heads

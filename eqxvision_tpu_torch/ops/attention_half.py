@@ -28,9 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
-from .attention import _DTYPE_CODES, MAX_HEAD_DIM, recompute_grads
+from .attention import _DTYPE_CODES, MAX_HEAD_DIM, _aligned, attention_stage_reference, recompute_grads
 from .layernorm import layer_norm_reference
-from .mlp_half import _aligned
 
 
 def attention_half_reference(
@@ -47,14 +46,13 @@ def attention_half_reference(
 ) -> torch.Tensor:
     """Plain version: ``x + proj(attention(qkv(LN(x))))`` with the kernel's
     rounding points; products accumulate in f32 (an f64 input computes in
-    f64). Weights are (out, in); x is (B, L, D)."""
+    f64). Weights are (out, in); x is (B, L, D). The attention is the
+    stage's plain version, ``attention_stage_reference``, which K1's plain
+    version is too."""
     wide = torch.promote_types(x.dtype, torch.float32)
-    b, l, d = x.shape
     a = layer_norm_reference(x, ln_weight, ln_bias, eps)
     qkv = F.linear(a.to(wide), wqkv.to(wide), None if bqkv is None else bqkv.to(wide)).to(x.dtype)
-    q, k, v = (t.reshape(b, l, num_heads, d // num_heads).transpose(1, 2).to(wide) for t in qkv.split(d, dim=-1))
-    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1).to(x.dtype)
-    o = torch.matmul(p.to(wide), v).to(x.dtype).transpose(1, 2).reshape(b, l, d)
+    o = attention_stage_reference(qkv, num_heads, scale)
     return (x.to(wide) + F.linear(o.to(wide), wproj.to(wide), bproj.to(wide))).to(x.dtype)
 
 

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
-from .attention import _DTYPE_CODES, recompute_grads
+from .attention import _DTYPE_CODES, _aligned, recompute_grads
 from .layernorm import layer_norm_reference
 
 
@@ -51,12 +51,6 @@ def mlp_half_reference(
     if layer_scale is not None:
         y = y * layer_scale.to(wide)
     return (residual.to(wide) + y).to(x.dtype)
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (a copy only if not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch_kernel(x, residual, ln_weight, ln_bias, w1, b1, w2, b2, layer_scale, eps):

@@ -40,9 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
-from .attention import _DTYPE_CODES, recompute_grads
+from .attention import _DTYPE_CODES, _aligned, recompute_grads
 from .layernorm import layer_norm_reference
-from .mlp_half import _aligned
 from .window_attention import _Windows, _from_windows, _to_windows, _window_bias
 
 HALF_MAX_WINDOW_LEN = 64

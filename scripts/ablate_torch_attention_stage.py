@@ -1,0 +1,191 @@
+"""Where the ViT attention stage spends its time, by removing phases.
+
+Run from the root of the repository on a machine with a CUDA card:
+
+    python3 scripts/ablate_torch_attention_stage.py [--variants base no_exp ...] [--iters 20]
+
+The stage (``csrc/attention_stage.cuh``) is the one kernel that K1's entry
+``eqx_fused_qkv_attention`` and the fused attention half's third launch run.
+For each variant the script copies ``eqxvision_tpu_torch/csrc`` into
+``eqxvision_tpu_torch/_build/ablate_stage/<variant>/``, changes one phase
+or design choice of the bf16 wgmma stage in that copy's header (the
+outputs may then be wrong; only the time is read), compiles that copy's
+``fused_qkv_attention.cu`` alone into a small library with the package's
+nvcc flags (all variants at once, one nvcc each), then times K1's entry on
+a bf16 qkv of vit_base b256's shape, (256, 197, 3 x 768) with 12 heads,
+with CUDA events, in turns base-first. Each patch names one whole source
+line, which must occur exactly once, or the script stops before any build.
+It also prints each variant's registers and spills of the one-pass Dh = 64
+kernel from ptxas.
+
+Variants:
+  base        the stage as it is
+  no_exp      2^x replaced by x (the SFUs' share)
+  no_softmax  no scale, mask, max, exp or sum (p is the raw scores; the bf16 pack stays)
+  no_wgmma    no wgmma issued, neither Q K^T nor P V
+  no_kv_load  K and V not loaded (their buffers hold whatever they hold)
+  no_store    the output's global stores skipped
+  two_pass    the two-pass kernel at L <= 256 too: pass 1 max and sum, pass 2
+              recomputes Q K^T, as the stage's earlier mma.sync design did
+  per_tile    one block per (image, head, 64-query tile), each loading the
+              head's K and V itself, rather than one per (image, head) (at
+              b256 the stage's own choice gives one per (image, head))
+  no_mask     keys past L not masked (the mask's selects' share)
+  raw_max     the rows' max taken on the unscaled scores and the scale folded
+              into the exp's argument (right only for a positive scale)
+  skip_dead   warps whose 16 query rows all lie past L skip the softmax,
+              under a branch
+  guarded     the products of pieces and k16 steps wholly past L skipped,
+              under branches (a variant whose wgmma ptxas serialises is
+              marked C7520 in the register line)
+Imports nothing of JAX.
+"""
+import argparse
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "eqxvision_tpu_torch"
+COPY = PKG / "_build" / "ablate_stage"
+HEADER = "attention_stage.cuh"
+MASK = "          const float v = kStageTile * p + 8 * j + (e & 1) < lim ? s[p][4 * j + e] * c : -INFINITY;"
+ROW_MAX = ("    for (int r = 0; r < 2; ++r) mx[r] = quad_max(fmaxf(fmaxf(pm[0][r], pm[1][r]), "
+           "fmaxf(pm[2][r], pm[3][r])));")
+VARIANTS = {  # name: [(whole source line, replacement)]
+    "base": [],
+    "no_exp": [("          const float x = ex2(s[p][4 * j + e] - m[e >> 1]);",
+                "          const float x = s[p][4 * j + e] - m[e >> 1];")],
+    "no_softmax": [("        scale_mask(key0, s, mb);", "        mb[0] = mb[1] = 0.f;"),
+                   ("        exponentiate(s, mn, sum);", "        sum[0] = sum[1] = 1.f;"),
+                   ("      scale_mask(key0, s, mb);", "      mb[0] = mb[1] = 0.f;"),
+                   ("      exponentiate(s, m, sum);", "      sum[0] = sum[1] = 1.f;")],
+    "no_wgmma": [("        wgmma_m64n64k16(s[p], dq, dk, ks > 0);", "        ;"),
+                 ("        wgmma_pv<DP>(o, pa[p][kk], sw128_mn_desc(vb + (kStageTile * p + 16 * kk) * 128, kv_half));",
+                  "        ;")],
+    "no_kv_load": [("    if (resident) load_kv(0, true);", ""), ("    if (resident) mbar_wait(&bar[2], 0);", ""),
+                   ("      if (resident && blk == 0) mbar_wait(&bar[3], 0);", "")],
+    "no_store": [("        if (row < L && col < DH)", "        if (false)")],
+    "two_pass": [("  const bool one_pass = seq_len <= kStageBlock;", "  const bool one_pass = false;")],
+    "per_tile": [("  const int split = stage_split((long long)batch * num_heads, seq_len, sms);",
+                  "  const int split = (seq_len + kStageTile - 1) / kStageTile;")],
+    "no_mask": [(MASK, "          const float v = s[p][4 * j + e] * c;")],
+    "raw_max": [(MASK, MASK.replace(" * c : ", " : ")),
+                (ROW_MAX, ROW_MAX.replace("= quad_max(", "= c * quad_max(")),
+                ("          const float x = ex2(s[p][4 * j + e] - m[e >> 1]);",
+                 "          const float x = ex2(fmaf(s[p][4 * j + e], c, -m[e >> 1]));")],
+    "skip_dead": [("      scale_mask(key0, s, mb);",
+                   "      if (q0 + 16 * warp < L) scale_mask(key0, s, mb); else mb[0] = mb[1] = 0.f;"),
+                  ("      exponentiate(s, m, sum);",
+                   "      if (q0 + 16 * warp < L) exponentiate(s, m, sum); else sum[0] = sum[1] = 1.f;")],
+    "guarded": [("        wgmma_m64n64k16(s[p], dq, dk, ks > 0);",
+                 "        if (kStageTile * p < L) wgmma_m64n64k16(s[p], dq, dk, ks > 0);"),
+                ("        wgmma_pv<DP>(o, pa[p][kk], sw128_mn_desc(vb + (kStageTile * p + 16 * kk) * 128, kv_half));",
+                 "        if (kStageTile * p + 16 * kk < L) "
+                 "wgmma_pv<DP>(o, pa[p][kk], sw128_mn_desc(vb + (kStageTile * p + 16 * kk) * 128, kv_half));")],
+}
+SHAPE = (256, 197, 12, 64)  # vit_base b256: B, L, heads, head dim
+
+
+def patch(text, name):
+    lines = text.split("\n")
+    for old, new in VARIANTS[name]:
+        hits = [i for i, line in enumerate(lines) if line == old]
+        if len(hits) != 1:
+            raise SystemExit(f"{name}: the line to change occurs {len(hits)} times in {HEADER}: {old!r}")
+        lines[hits[0]] = new
+    return "\n".join(lines)
+
+
+def registers(log):
+    """'<n> registers, <m> bytes spilled' of attention_stage_wgmma<64, true> in ptxas's report."""
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line
+        elif name and "attention_stage_wgmmaILi64ELb1E" in name and "spill stores" in line:
+            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif name and "attention_stage_wgmmaILi64ELb1E" in name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            serialised = "; ptxas serialises its wgmma (C7520)" if "C7520" in log else ""
+            return f"{regs} registers, {spills} bytes spilled{serialised}"
+    return "not in the build log"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ablate_torch_attention_stage: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from eqxvision_tpu_torch import _native
+
+    header = (PKG / "csrc" / HEADER).read_text()
+    for name in args.variants:  # patch them all first: a stale patch stops the run before any build
+        patch(header, name)
+    builds = {}
+    for name in args.variants:
+        root = COPY / name
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(PKG / "csrc", root / "csrc")
+        (root / "csrc" / HEADER).write_text(patch(header, name))
+        lib = root / "libstage.so"
+        src = root / "csrc" / "fused_qkv_attention.cu"
+        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
+        builds[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib_path, proc) in builds.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"{name} failed to build:\n{log}")
+        lib = ctypes.CDLL(str(lib_path))
+        lib.eqx_fused_qkv_attention.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *([ctypes.c_int] * 4),
+                                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        libs[name] = lib
+        cfg = (ctypes.c_int * 5)()
+        lib.eqx_fused_qkv_attention_config(SHAPE[1], SHAPE[3], cfg)
+        print(f"{name:10s} attention_stage_wgmma<64, true>: {registers(log)}; {cfg[0]} blocks an SM, "
+              f"{cfg[1]} bytes of shared memory a block", flush=True)
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    b, l, h, dh = SHAPE
+    qkv = torch.randn(b, l, 3 * h * dh, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    qkv = qkv.bfloat16()
+    out = torch.empty(b, l, h * dh, dtype=torch.bfloat16, device="cuda")
+
+    def call(lib):
+        err = lib.eqx_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), b, l, h, dh, dh**-0.5, 1,
+                                          torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"launch failed: CUDA error {err}")
+
+    def time_ms(lib):
+        call(lib)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(args.iters):
+            call(lib)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / args.iters
+
+    times = {name: [] for name in libs}
+    for turn in range(2):  # two turns: base and every variant, then the reverse
+        for name in (list(libs) if turn == 0 else list(libs)[::-1]):
+            times[name].append(time_ms(libs[name]))
+    for name, ms in times.items():
+        print(f"{name:10s} K1 entry at vit_base b256 {SHAPE}: {ms[0]:.4f}, {ms[1]:.4f} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,12 +10,16 @@ It builds (or loads) that tree's kernels and, for each case of its
 the inputs as chip_smoke does (seeded), calls the op once, then times
 ``--iters`` calls with CUDA events and prints the mean ms a call, beside the
 device time of the op's kernels a call by torch.profiler (at small shapes
-the host's launch cost, not the kernels, sets the first). To compare two
+the host's launch cost, not the kernels, sets the first). For the ViT
+attention half it also prints its attention stage's device time alone (the
+kernels named ``attention_stage*``), and it times the fused-qkv attention
+(K1) on a bf16 qkv of vit_base b256's shape the same way. To compare two
 trees on one card, copy the script into the other tree and run the two in
 one command in turns (parent, change, change, parent). Imports nothing of
 JAX.
 """
 import argparse
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +43,8 @@ def main():
     from eqxvision_tpu_torch.ops import window_attention as W
     from eqxvision_tpu_torch.ops import window_attention_half as WH
 
+    A = importlib.import_module("eqxvision_tpu_torch.ops.attention")  # ops.attention is the public op
+
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -52,6 +58,9 @@ def main():
         x, params = cs._attn_half_inputs(b, l, d, bf16, gen)
         calls.append((f"fused_attention_half {name} {(b, l, d, heads)}",
                       lambda x=x, params=params, heads=heads: AH.fused_attention_half(x, *params, heads)))
+    qkv = torch.randn(256, 197, 3 * 768, device="cuda", generator=gen).to(bf16)
+    calls.append(("fused_qkv_attention vit_base b256 (256, 197, 12, 64)",
+                  lambda: A.fused_qkv_attention(qkv, 12)))
     for name, (b, side, c, heads) in cs.WINDOW_HALF_CASES.items():
         x, params, bias, valid = cs._window_half_inputs(b, side, c, heads, bf16, gen, W, WH)
         calls.append((f"fused_window_attention_half {name} {tuple(x.shape) + (heads,)}",
@@ -66,9 +75,13 @@ def main():
                 for _ in range(args.iters):
                     fn()
                 torch.cuda.synchronize()
-        device_ms = sum(e.device_time_total for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / args.iters
-        print(f"{name}: {events_ms:.4f} ms by CUDA events, {device_ms:.4f} ms of kernels", flush=True)
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.device_time_total for e in kernels) / 1e3 / args.iters
+        stage = ""
+        if name.startswith("fused_attention_half"):
+            stage_ms = sum(e.device_time_total for e in kernels if "attention_stage" in e.key) / 1e3 / args.iters
+            stage = f" (its attention stage {stage_ms:.4f} ms)"
+        print(f"{name}: {events_ms:.4f} ms by CUDA events, {device_ms:.4f} ms of kernels{stage}", flush=True)
     return 0
 
 

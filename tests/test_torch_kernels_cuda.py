@@ -65,13 +65,76 @@ def test_fused_qkv_kernel_gradient_recomputes_plain(cuda):
     [
         ((1, 8, 3 * 64), 1, torch.float16, TypeError),
         ((1, 8, 3 * 2 * 160), 2, torch.float32, ValueError),
-        ((1, 4096, 3 * 64), 1, torch.bfloat16, RuntimeError),
     ],
-    ids=["float16", "head_dim-160", "too-long-for-shared-memory"],
+    ids=["float16", "head_dim-160"],
 )
 def test_fused_qkv_kernel_refuses(cuda, shape, heads, dtype, error):
     with pytest.raises(error):
         A.fused_qkv_attention(torch.zeros(shape, device=cuda, dtype=dtype), heads)
+
+
+def test_fused_qkv_kernel_takes_any_length(cuda):
+    """L = 4096 at head dim 64: K and V no longer fit in shared memory, and
+    the stage loads them per block of 256 keys."""
+    qkv = torch.randn(1, 4096, 3 * 64, device=cuda, generator=torch.Generator(cuda).manual_seed(3)).bfloat16()
+    out = A.fused_qkv_attention(qkv, 1)
+    ref = A.fused_qkv_attention_reference(qkv.float(), 1, 64**-0.5)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref).abs().max()) < 0.02
+
+
+# The attention stage (csrc/attention_stage.cuh) at the lengths where it
+# changes branch: one key; a piece of 64 keys, less one, more one; vit_base's
+# 197 (four pieces, one pass); 200 and 256; 257 (two blocks of 256: two
+# passes); 577 (K and V resident in two passes); 1024 (K and V loaded per
+# block at head dim 128). Head dims 16, 64 and 128 (two column halves).
+STAGE_SHAPES = [(2, 1, 3, 64), (2, 63, 2, 64), (2, 64, 2, 16), (2, 65, 2, 128), (2, 197, 12, 64), (2, 200, 2, 16),
+                (1, 256, 2, 128), (2, 257, 2, 64), (1, 577, 2, 64), (1, 577, 1, 128), (1, 1024, 2, 128),
+                (1, 1024, 2, 16)]
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_stage_through_both_entries(cuda, shape, dtype, bound):
+    """K1's entry against the stage's plain version, and the fused attention
+    half, which runs the same stage, against its own plain version (bound of
+    the half: 0.05 in bf16, as test_attention_half_kernel_matches_plain)."""
+    b, l, h, dh = shape
+    qkv = torch.randn(b, l, 3 * h * dh, device=cuda, generator=torch.Generator(cuda).manual_seed(l)).to(dtype)
+    out = A.fused_qkv_attention(qkv, h)
+    ref = A.attention_stage_reference(qkv.float(), h, dh**-0.5)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref).abs().max()) < bound
+    x, params = _ah_inputs(cuda, b, l, h * dh, dtype)
+    half = AH.fused_attention_half(x, *params, h)
+    half_bound = 0.05 if dtype == torch.bfloat16 else 1e-4
+    assert float((half.double() - _ah_plain(x, params, h).double()).abs().max()) < half_bound
+
+
+@pytest.mark.parametrize("shape", [(8, 197, 12, 64), (2, 257, 6, 64), (2, 100, 2, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_and_the_half_stage_agree_bit_for_bit(cuda, shape):
+    """The half's C entry point writes its qkv and attention workspaces into
+    buffers the test owns; K1 on that qkv gives the same bits as the half's
+    stage."""
+    from eqxvision_tpu_torch import _native
+
+    b, l, h, dh = shape
+    d = h * dh
+    x, (lnw, lnb, wqkv, bqkv, wproj, bproj) = _ah_inputs(cuda, b, l, d, torch.bfloat16)
+    qkv = torch.empty(b, l, 3 * d, dtype=torch.bfloat16, device=cuda)
+    attn = torch.empty(b, l, d, dtype=torch.bfloat16, device=cuda)
+    stats = torch.empty(b * l, 2, dtype=torch.float32, device=cuda)
+    out = torch.empty_like(x)
+    err = _native.library().eqx_attention_half(
+        x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+        bproj.data_ptr(), qkv.data_ptr(), attn.data_ptr(), stats.data_ptr(), out.data_ptr(), b, l, d, h, dh**-0.5,
+        1e-6, 1, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    k1 = A.fused_qkv_attention(qkv, h, dh**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, attn)
+    assert torch.equal(out, AH.fused_attention_half(x, lnw, lnb, wqkv, bqkv, wproj, bproj, h))
 
 
 # Window attention: (B, nW, nW of the bias, L, H, Dh, v2). swin_t's stage-3
