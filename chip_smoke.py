@@ -16,8 +16,9 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
 3. Holds each kernel against its plain torch version on the card at the
    shapes its paths give it, and times both with CUDA events in turns
    (plain, kernel, kernel, plain): the fused-qkv attention (the attention
-   stage of ``csrc/attention_stage.cuh``, whose instantiations' registers
-   and spills it prints first, and its design at each case) at ViT-B/16's
+   stage of ``csrc/attention_stage.cuh``, whose 32 wgmma instantiations'
+   registers and spills it prints first, failing on a spill or on wgmma
+   serialised by ptxas (C7520), and its design at each case) at ViT-B/16's
    shapes, at 384 px, a ragged L above 256 and L = 1024 with head dim 128;
    the window attention at every stage shape of ``swin_t``
    (224 px) and ``swin_v2_t`` (256 px) at b128 and the whole Swin block at
@@ -26,7 +27,11 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    wider than the padded side) through the NHWC entry points; the
    LayerNorm at vit_base b256's and convnext_tiny b128's shapes, rows
    shifted by 1e3 and no affine; the public attention at swin_t stage 1's
-   and vit_base b256's shapes, a ragged one and a head 300 log-units down;
+   shape, vit_base b256's without and with a (12, 197, 197) bias,
+   vit_base 384 px b32's (577 tokens) with and without a bias, a ragged
+   one, a head 300 log-units down and a -inf bias over a row's first 256
+   keys, with the kernel each case takes and, for the bf16 cases on the
+   stage's wgmma kernel, the kernel name the profiler saw;
    the fused MLP half at every convnext_tiny b128 stage and vit_base b256,
    convnext_large's C = 1536, rows shifted by 1e3 and a ragged row count,
    beside the unfused torch composition it replaces; the fused ViT
@@ -227,27 +232,33 @@ def _flag(digit):
 
 def _stage_build_report(log):
     """The attention-stage kernels (csrc/attention_stage.cuh), named by their
-    template arguments: the wgmma stage's head dim and one pass, the
+    template arguments: the wgmma stage's head dim, one pass and bias, the
     CUDA-core stage's type and output columns a lane."""
     return _ptxas_report(
-        log, r"attention_stage_(wgmma|fma)I(?:Li(\d+)ELb([01])E|(f|13__nv_bfloat16)Li(\d)E)",
-        lambda m: f"attention_stage_wgmma<{m.group(2)}, {_flag(m.group(3))}>" if m.group(1) == "wgmma"
-        else f"attention_stage_fma<{'float' if m.group(4) == 'f' else 'bf16'}, {m.group(5)}>")
+        log, r"attention_stage_(wgmma|fma)I(?:Li(\d+)ELb([01])ELb([01])E|(f|13__nv_bfloat16)Li(\d)E)",
+        lambda m: f"attention_stage_wgmma<{m.group(2)}, {_flag(m.group(3))}, {_flag(m.group(4))}>"
+        if m.group(1) == "wgmma" else f"attention_stage_fma<{'float' if m.group(5) == 'f' else 'bf16'}, {m.group(6)}>")
 
 
 def check_fused_qkv(attention, lib, log):
     """The attention stage (csrc/attention_stage.cuh) through K1's entry:
     each instantiation's registers and spills from ptxas (a spill in a bf16
-    wgmma instantiation fails the run) and the bf16 design at the cases'
-    shapes; then fused_qkv_attention vs its plain version. Returns the b256
-    bf16 numbers (the shape of vit_base's calls)."""
-    report = sorted(set(_stage_build_report(log)))  # K1's source and the attention half's each build a copy
-    _check(len({k for k, _, _ in report if k.startswith("attention_stage_wgmma")}) == 16,
+    wgmma instantiation, or wgmma serialised by ptxas (C7520) in one, fails
+    the run) and the bf16 design at the cases' shapes; then
+    fused_qkv_attention vs its plain version. Returns the b256 bf16 numbers
+    (the shape of vit_base's calls)."""
+    # K1's source and the attention half's each build the 16 without the bias, the public attention's all 32
+    report = sorted(set(_stage_build_report(log)))
+    _check(len({k for k, _, _ in report if k.startswith("attention_stage_wgmma")}) == 32,
            f"attention-stage kernels in the build log: {report}")
     for kernel, regs, spills in report:
         print(f"{kernel}: {regs} registers, {spills} bytes of spill stores and loads (ptxas -v)")
     _check(all(spills == 0 for k, _, spills in report if k.startswith("attention_stage_wgmma")),
            "a bf16 attention-stage kernel spills")
+    serialised = [line for line in log.splitlines() if "C7520" in line]
+    print(f"ptxas C7520 (wgmma serialised) lines: {len(serialised)}")
+    _check(not any("attention_stage_wgmma" in line for line in serialised),
+           f"ptxas serialises a bf16 attention-stage kernel's wgmma: {serialised}")
     for l, dh in sorted({(l, dh) for _, l, _, dh in QKV_CASES}):
         cfg = (ctypes.c_int * 5)()
         _check(lib.eqx_fused_qkv_attention_config(l, dh, cfg) == 0, f"attention stage config at L {l}, Dh {dh}")
@@ -912,24 +923,57 @@ def _attn_inputs(lead, n, dh, bias_lead, dtype, gen):
 
 # Public attention: (q lead dims, N, Dh, bias lead dims or None). swin_t
 # stage 1 through the op, B = 128 * 64 * 3 with the (192, 49, 49) window and
-# head bias shared over the batch; vit_base b256 with no bias; a ragged one.
+# head bias shared over the batch (the short-row kernel); vit_base b256 with
+# no bias and with a BEiT-style (12, 197, 197) relative-position bias (the
+# attention stage, one pass); vit_base at 384 px b32 (577 tokens: two
+# passes, K and V resident) with and without a (12, 577, 577) bias; a
+# ragged one (head dim 8: the stage's CUDA-core kernel).
 ATTN_CASES = {"swin_t stage 1": ((128, 192), 49, 32, (1, 192)), "vit_base b256": ((256, 12), 197, 64, None),
-              "ragged": ((2, 2), 17, 8, (2,))}
+              "vit_base b256 rel-pos bias": ((256, 12), 197, 64, (12,)),
+              "vit_base 384 px b32": ((32, 12), 577, 64, (12,)),
+              "vit_base 384 px b32, no bias": ((32, 12), 577, 64, None), "ragged": ((2, 2), 17, 8, (2,))}
+ATTN_KERNELS = {0: "the attention stage's CUDA-core kernel", 1: "the short-row mma.sync kernel",
+                2: "the attention stage's wgmma kernel"}
 
 
-def check_attention(A):
-    """The public attention kernel vs its plain version; returns swin_t
-    stage 1 bf16's numbers."""
+def _device_kernels(fn):
+    """Names of the CUDA kernels one call of fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def check_attention(A, lib):
+    """The public attention kernel vs its plain version, with the kernel it
+    takes at each case (eqx_attention_config), and for the bf16 cases on the
+    wgmma stage the kernel the profiler saw; returns swin_t stage 1 bf16's
+    numbers with vit_base b256's, without and with the bias, beside them."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    main = None
+    main, extra = None, {}
     for name, (lead, n, dh, bias_lead) in ATTN_CASES.items():
         for dtype, bound in ((torch.bfloat16, QKV_BF16_BOUND), (torch.float32, F32_BOUND)):
             q, k, v, bias = _attn_inputs(lead, n, dh, bias_lead, dtype, gen)
             scale = dh**-0.5
+            cfg = (ctypes.c_int * 6)()
+            _check(lib.eqx_attention_config(n, dh, int(dtype == torch.bfloat16), int(bias is not None), cfg) == 0,
+                   f"attention config {name}")
+            design = ATTN_KERNELS[cfg[0]]
+            if cfg[0] == 2:
+                design += (f" ({cfg[1]} blocks an SM, {cfg[2]} bytes of shared memory, {cfg[3]} key rows, "
+                           f"{'one pass' if cfg[4] else 'two passes'}, K and V "
+                           f"{'resident' if cfg[5] else 'loaded block by block'})")
             with torch.no_grad():
                 out = A.attention(q, k, v, bias, scale)
                 ref = A.attention_reference(q.float(), k.float(), v.float(), bias, scale)
             err = _compare(out, ref, bound, f"attention {name} {dtype}")
+            if cfg[0] == 2:
+                seen = _device_kernels(lambda: A.attention(q, k, v, bias, scale))
+                _check(any("attention_stage_wgmma" in k for k in seen) and not any("_fma" in k for k in seen),
+                       f"attention {name} {dtype}: kernels {seen}, expected the stage's wgmma kernel")
+                design += f"; profiler: {[k for k in seen if 'attention_stage' in k]}"
             ms, plain_ms, turns = _turns(
                 lambda: A.attention_reference(q, k, v, bias, scale), lambda: A.attention(q, k, v, bias, scale), 10,
             )
@@ -939,12 +983,15 @@ def check_attention(A):
             e, batch = q.element_size(), q.numel() // (n * dh)
             n_bytes = 4 * q.numel() * e + (0 if bias is None else bias.numel() * 4)
             bound_ms, bound_by = _bound_ms(n_bytes, 4 * batch * n * n * dh, dtype)
+            numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
             if (name, dtype) == ("swin_t stage 1", torch.bfloat16):
-                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms)
+                main = numbers
+            elif dtype == torch.bfloat16 and name.startswith("vit_base b256"):
+                extra[name.replace(" ", "_").replace("-", "_")] = numbers
+            how = "no mask" if bias is None else "expanded float mask laid out before the call"
             _report(f"attention {name}", tuple(q.shape), dtype, err, bound, ms, plain_ms, turns,
-                    f"; library (SDPA, expanded float mask laid out before the call) {library_ms:.4f} ms; "
-                    f"bound {bound_ms:.4f} ms ({bound_by})")
+                    f"; library (SDPA, {how}) {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); {design}")
 
     # one head biased 300 log-units below the others: finite, and equal to the plain version
     for dtype, bound in ((torch.bfloat16, QKV_BF16_BOUND), (torch.float32, F32_BOUND)):
@@ -956,7 +1003,18 @@ def check_attention(A):
                            f"attention, head 300 below, {dtype}")
         print(f"attention {str(dtype)[6:]} with one head 300 log-units below the others: finite, "
               f"max|diff| {err:.3e} (bound {bound})")
-    return main
+
+    # a bias of -inf on keys 0-255 of some rows (the two-pass kernel's first block) and finite after them
+    for dtype, bound in ((torch.bfloat16, QKV_BF16_BOUND), (torch.float32, F32_BOUND)):
+        q, k, v, bias = _attn_inputs((2, 3), 300, 64, (3,), dtype, gen)
+        bias[1, :40, :256] = float("-inf")
+        with torch.no_grad():
+            out = A.attention(q, k, v, bias)
+            err = _compare(out, A.attention_reference(q.float(), k.float(), v.float(), bias), bound,
+                           f"attention, -inf bias over the first 256 keys, {dtype}")
+        print(f"attention {str(dtype)[6:]} {tuple(q.shape)}, rows with a -inf bias over keys 0-255: finite, "
+              f"max|diff| {err:.3e} (bound {bound})")
+    return {**main, **extra}
 
 
 def check_ragged(W):
@@ -1064,11 +1122,12 @@ def train_vit(create_model, counters, expected, batch=8):
 
 
 def serve_attention(A, counters):
-    """The public attention as a user calls it, on the swin_t stage 1 and
-    vit_base b256 bf16 shapes; one launch each, and no other kernel."""
+    """The public attention as a user calls it, on the swin_t stage 1,
+    vit_base b256 (without and with the relative-position bias) and vit_base
+    384 px b32 bf16 shapes; one launch each, and no other kernel."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     calls = [_attn_inputs(ATTN_CASES[name][0], *ATTN_CASES[name][1:], torch.bfloat16, gen)
-             for name in ("swin_t stage 1", "vit_base b256")]
+             for name in ("swin_t stage 1", "vit_base b256", "vit_base b256 rel-pos bias", "vit_base 384 px b32")]
     _reset(counters)
     for q, k, v, bias in calls:
         with torch.inference_mode():
@@ -1115,7 +1174,7 @@ def main():
     block_main = check_block(W, _native.build_log())
     check_ragged(W)
     ln_main = check_layer_norm(LN)
-    attn_main = check_attention(attention)
+    attn_main = check_attention(attention, _native.library())
     mlp_main = check_mlp_half(M)
     attn_half_main = check_attention_half(AH)
     window_half_main = check_window_attention_half(W, WH)
@@ -1153,7 +1212,7 @@ def main():
         {"name": "layer_norm", "route": "cuda", "source": src + "layer_norm.cu",
          "replaces": ["eqxvision_tpu/ops/layernorm.py:44"],
          "launches": convnext_counts["layer_norm"], **ln_main},
-        {"name": "attention", "route": "cuda", "source": src + "attention.cu",
+        {"name": "attention", "route": "cuda", "source": [src + "attention.cu", src + "attention_stage.cuh"],
          "replaces": ["eqxvision_tpu/ops/attention.py:121", "eqxvision_tpu/ops/attention.py:193"],
          "launches": attn_counts["attention"], **attn_main},
         {"name": "fused_mlp_half", "route": "cuda", "source": src + "mlp_half.cu",

@@ -122,11 +122,15 @@ def library() -> ctypes.CDLL:
     lib.eqx_layer_norm.argtypes = [c_ptr, c_ptr, c_ptr, c_ptr, ctypes.c_longlong, c_int, ctypes.c_float, c_int, c_int, c_ptr]
     lib.eqx_layer_norm.restype = c_int
     lib.eqx_attention.argtypes = [
-        c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, ctypes.c_float, c_int, c_ptr,
+        c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int, c_int, c_int, c_int, ctypes.c_float, c_int, c_ptr,
     ]
     lib.eqx_attention.restype = c_int
     lib.eqx_attention_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_attention_config.argtypes = [c_int, c_int, c_int, c_int, ctypes.POINTER(c_int)]
+    lib.eqx_attention_config.restype = c_int
+    lib.eqx_attention_bias_layout.argtypes = [c_int, c_int, c_int, ctypes.POINTER(c_int)]
+    lib.eqx_attention_bias_layout.restype = None
     lib.eqx_mlp_half.argtypes = [
         *([c_ptr] * 12), ctypes.c_longlong, c_int, c_int, ctypes.c_float, c_int, c_int, c_ptr,
     ]

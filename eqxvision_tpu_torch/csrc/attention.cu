@@ -15,227 +15,50 @@
 // and mask the padded keys; here the ragged tail is masked in the kernel
 // and nothing is padded in device memory.
 //
-// Design. Two paths, chosen from dtype and shape:
+// Design. Two kernels, chosen from dtype and shape:
 // - bf16 with N <= 64 and a head dim that is a multiple of 16 (at most 64):
 //   one block of 8 warps per row b on the tensor cores. The block stages
 //   q|k|v of row b in shared memory (rows past N zero) and runs the head
 //   attention of tensor_core_attention.cuh, the one the window-attention
 //   and whole-block kernels use (S = Q K^T and O = P V with mma.sync, the
-//   softmax by one warp per row between them).
-// - otherwise (f32, longer rows, other head dims): the CUDA-core design of
-//   the fused-qkv kernel. One block of 8 warps per (row b, tile of 32
-//   queries) stages K and V of row b in shared memory in the input type
-//   and its q rows in f32; each lane keeps a 4 x 4 register tile of scores
-//   (4 query rows x 4 keys of a 128-key chunk), the softmax runs per row
-//   with warp shuffles, and each lane accumulates output columns lane,
-//   lane + 32, ... K's row stride is an odd number of 32-bit words, so 32
-//   lanes reading 32 rows hit 32 banks.
+//   softmax by one warp per row between them). At swin_t's 49-token rows
+//   this beats the attention stage, whose 256-key blocks would waste three
+//   quarters of their products.
+// - otherwise: the attention stage of attention_stage.cuh, the one K1 and
+//   the ViT attention half run, on separate q, k, v maps with one head a
+//   row (H = 1, D = Dh) and the compact bias: bf16 with Dh a multiple of
+//   16 on TMA-fed wgmma (one pass at N <= 256, two beyond, K and V resident
+//   where they fit, else loaded block by block); f32, and bf16 with other
+//   head dims, on its CUDA-core stage in two passes over 64-key chunks.
+//   Both take any N.
 //
 // What bounds it. It must read q, k, v and the compact bias once and write
 // the output once. At swin_t stage 1 through this op (B = 24,576, N = 49,
 // Dh = 32, bf16, Bb = 192) that is 0.31 GB, 0.093 ms at 3.35 TB/s, against
 // 9.4 GFLOP (0.01 ms on the tensor cores); at vit_base b256 (B = 3,072,
-// N = 197, Dh = 64, bf16, no bias) 0.31 GB and 0.093 ms against 30.5
-// GFLOP (0.03 ms). Both are bound by device memory. The CUDA-core path
-// runs its products on the f32 CUDA cores and is bound by those and by
-// its shared-memory reads (the fused-qkv kernel runs 39x its bound this
-// way). Limits: head_dim <= 128, and one row's K and V must fit in shared
-// memory (N up to about 570 at Dh = 64 in bf16); the entry point returns
-// cudaErrorInvalidValue outside them.
+// N = 197, Dh = 64, bf16) 0.31 GB and 0.093 ms against 30.5 GFLOP (0.03
+// ms), and its (12, 197, 197) relative-position bias adds 1.9 MB. All are
+// bound by device memory; the stage's note says what holds it back.
+// Limits: head_dim <= 128, and in bf16 q, k, v and out 16-byte aligned (the
+// wrapper copies them there); the entry point returns cudaErrorInvalidValue
+// otherwise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "tensor_core_attention.cuh"
+#include "attention_stage.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kTileRows = kWarps * kRowsPerWarp;
-constexpr int kKeysPerLane = 4;
-constexpr int kMaxHeadDim = 128;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-
-__host__ __device__ __forceinline__ int padded_len(int seq_len) { return (seq_len + 3) & ~3; }
-
-// Row stride of the staged K and V, in elements: at least head_dim, and an
-// odd number of 32-bit words.
-__host__ __device__ __forceinline__ int kv_stride(int head_dim, int elem_bytes) {
-  int words = (head_dim * elem_bytes + 3) / 4;
-  if (words % 2 == 0) words += 1;
-  return words * 4 / elem_bytes;
-}
-
-size_t smem_bytes(int seq_len, int head_dim, int elem_bytes) {
-  const size_t lp = padded_len(seq_len);
-  return kTileRows * lp * sizeof(float)                      // scores / probabilities
-         + kTileRows * (size_t)head_dim * sizeof(float)       // q rows
-         + 2 * lp * kv_stride(head_dim, elem_bytes) * elem_bytes;  // K and V
-}
-
-// NI: output columns per lane, ceil(head_dim / 32).
-template <typename T, int NI>
-__global__ void __launch_bounds__(kWarps * 32, 2)
-    attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ bias, T* __restrict__ out, int n_bias, int seq_len, int head_dim,
-                     float scale, int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int L = seq_len, Dh = head_dim;
-  const int lp = padded_len(L);
-  const int ks = kv_stride(Dh, sizeof(T));
-  float* s_all = reinterpret_cast<float*>(smem);
-  float* q_all = s_all + kTileRows * lp;
-  T* k_s = reinterpret_cast<T*>(q_all + kTileRows * Dh);
-  T* v_s = k_s + lp * ks;
-
-  const int tile = blockIdx.x % n_tiles;
-  const long long b = blockIdx.x / n_tiles;
-  const long long base = b * L * Dh;
-  const int row0 = tile * kTileRows;
-  const float* bias_b = bias == nullptr ? nullptr : bias + (b % n_bias) * L * L;
-
-  const T zero = from_f32<T>(0.f);
-  for (int idx = threadIdx.x; idx < lp * Dh; idx += blockDim.x) {
-    const int j = idx / Dh, d = idx - j * Dh;
-    const bool in = j < L;
-    k_s[j * ks + d] = in ? k[base + idx] : zero;
-    v_s[j * ks + d] = in ? v[base + idx] : zero;
-  }
-  for (int idx = threadIdx.x; idx < kTileRows * Dh; idx += blockDim.x) {
-    const int i = row0 + idx / Dh;
-    q_all[idx] = i < L ? to_f32(q[base + (long long)row0 * Dh + idx]) : 0.f;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* s_w = s_all + warp * kRowsPerWarp * lp;
-  const float* q_w = q_all + warp * kRowsPerWarp * Dh;
-  const int wrow0 = row0 + warp * kRowsPerWarp;
-
-  // Scores, scaled after the dot and then biased, as the reference does.
-  for (int j0 = 0; j0 < L; j0 += 32 * kKeysPerLane) {
-    float acc[kRowsPerWarp][kKeysPerLane] = {};
-    int k_off[kKeysPerLane];
-#pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) k_off[c] = min(j0 + lane + 32 * c, lp - 1) * ks;
-    for (int d = 0; d < Dh; ++d) {
-      float kf[kKeysPerLane];
-#pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) kf[c] = to_f32(k_s[k_off[c] + d]);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float qv = q_w[r * Dh + d];
-#pragma unroll
-        for (int c = 0; c < kKeysPerLane; ++c) acc[r][c] = fmaf(qv, kf[c], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kKeysPerLane; ++c) {
-      const int j = j0 + lane + 32 * c;
-      if (j < L) {
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const int i = min(wrow0 + r, L - 1);  // rows past L are computed and not stored
-          s_w[r * lp + j] = acc[r][c] * scale + (bias_b ? bias_b[(long long)i * L + j] : 0.f);
-        }
-      }
-    }
-  }
-  __syncwarp();
-
-  // Softmax per row; probabilities rounded to T as the reference rounds
-  // them before p.V. Columns L..lp-1 get probability 0.
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    float* s = s_w + r * lp;
-    float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, s[j]);
-    m = eqx_tc::warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(s[j] - m);
-      s[j] = e;
-      sum += e;
-    }
-    sum = eqx_tc::warp_sum(sum);
-    for (int j = lane; j < lp; j += 32) s[j] = j < L ? to_f32(from_f32<T>(s[j] / sum)) : 0.f;
-  }
-  __syncwarp();
-
-  float o[kRowsPerWarp][NI] = {};
-  for (int j = 0; j < lp; j += 4) {
-    float4 p[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) p[r] = *reinterpret_cast<const float4*>(s_w + r * lp + j);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const T* v_row = v_s + (j + jj) * ks;
-#pragma unroll
-      for (int n = 0; n < NI; ++n) {
-        const int d = lane + 32 * n;
-        const float vv = d < Dh ? to_f32(v_row[d]) : 0.f;
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float pr = jj == 0 ? p[r].x : jj == 1 ? p[r].y : jj == 2 ? p[r].z : p[r].w;
-          o[r][n] = fmaf(pr, vv, o[r][n]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int i = wrow0 + r;
-    if (i >= L) continue;
-    T* dst = out + base + (long long)i * Dh;
-#pragma unroll
-    for (int n = 0; n < NI; ++n) {
-      const int d = lane + 32 * n;
-      if (d < Dh) dst[d] = from_f32<T>(o[r][n]);
-    }
-  }
-}
-
-template <typename T, int NI>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out, int batch, int n_bias,
-                   int seq_len, int head_dim, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(seq_len, head_dim, sizeof(T));
-  int device = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  const int n_tiles = (seq_len + kTileRows - 1) / kTileRows;
-  const long long blocks = (long long)batch * n_tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = attention_kernel<T, NI>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kWarps * 32, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                                            static_cast<const T*>(v), bias, static_cast<T*>(out),
-                                                            n_bias, seq_len, head_dim, scale, n_tiles);
-  return cudaGetLastError();
-}
-
 // bf16 rows of at most 64 tokens with a head dim that is a multiple of 16,
-// and q, k, v on 4-byte boundaries: the tensor cores.
-bool takes_tensor_cores(int dtype, int seq_len, int head_dim, const void* q, const void* k, const void* v) {
-  const bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v)) % 4 == 0;
-  return dtype == 1 && seq_len <= eqx_tc::kRows && head_dim % 16 == 0 && head_dim <= 64 && aligned;
+// at most 64: the short-row mma.sync kernel.
+bool short_rows(int dtype, int seq_len, int head_dim) {
+  return dtype == 1 && seq_len <= eqx_tc::kRows && head_dim % 16 == 0 && head_dim <= 64;
+}
+
+// The kernel eqx_attention takes (at a scale other than 0): 1 the short-row
+// kernel, 2 the attention stage's wgmma kernel, 0 its CUDA-core kernel.
+enum Path { kStageFma = 0, kShortRows = 1, kStageWgmma = 2 };
+Path attention_path(int dtype, int seq_len, int head_dim) {
+  if (short_rows(dtype, seq_len, head_dim)) return kShortRows;
+  return stage_uses_wgmma(dtype == 1, head_dim) ? kStageWgmma : kStageFma;
 }
 
 // Row stride of the staged q|k|v: 3 * Dh + 2 elements, an odd number of
@@ -291,31 +114,60 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v and out (batch, seq_len,
-// head_dim); bias (n_bias, seq_len, seq_len) f32 with batch % n_bias == 0,
-// or null; all contiguous on the current device. Launches on `stream` and
-// returns the cudaError_t of the launch.
-int eqx_attention(const void* q, const void* k, const void* v, const void* bias, void* out, int batch, int n_bias,
-                  int seq_len, int head_dim, float scale, int dtype, void* stream) {
-  if (batch <= 0 || n_bias <= 0 || batch % n_bias != 0 || seq_len <= 0 || head_dim <= 0 ||
-      head_dim > kMaxHeadDim)
+// head_dim), in bf16 16-byte aligned; bias (n_bias, seq_len, bias_ld) f32
+// with batch % n_bias == 0 and the row stride and room after it that
+// eqx_attention_bias_layout gives, or null; all contiguous on the current
+// device. Launches on `stream` and returns the cudaError_t of the launch.
+int eqx_attention(const void* q, const void* k, const void* v, const void* bias, int bias_ld, void* out, int batch,
+                  int n_bias, int seq_len, int head_dim, float scale, int dtype, void* stream) {
+  if (q == nullptr || k == nullptr || v == nullptr || out == nullptr || batch <= 0 || n_bias <= 0 ||
+      batch % n_bias != 0 || seq_len <= 0 || head_dim <= 0 || head_dim > kStageMaxHeadDim)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  const bool narrow = head_dim <= 64;
   if (dtype == 0)
-    return narrow ? launch<float, 2>(q, k, v, b, out, batch, n_bias, seq_len, head_dim, scale, s)
-                  : launch<float, 4>(q, k, v, b, out, batch, n_bias, seq_len, head_dim, scale, s);
+    return launch_attention_stage_qkv<float>(q, k, v, b, n_bias, bias_ld, out, batch, seq_len, head_dim, scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if (takes_tensor_cores(dtype, seq_len, head_dim, q, k, v))
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out)) return cudaErrorInvalidValue;
+  if (attention_path(dtype, seq_len, head_dim) == kShortRows) {
+    if (b != nullptr && bias_ld != seq_len) return cudaErrorInvalidValue;
     return launch_mma(q, k, v, b, out, batch, n_bias, seq_len, head_dim, scale, s);
-  return narrow ? launch<__nv_bfloat16, 2>(q, k, v, b, out, batch, n_bias, seq_len, head_dim, scale, s)
-                : launch<__nv_bfloat16, 4>(q, k, v, b, out, batch, n_bias, seq_len, head_dim, scale, s);
+  }
+  return launch_attention_stage_qkv<bf16>(q, k, v, b, n_bias, bias_ld, out, batch, seq_len, head_dim, scale, s);
 }
 
-// Dynamic shared memory one block of the CUDA-core path needs (the
-// tensor-core path needs about 30 KB at any size it takes); for error messages.
+// The kernel eqx_attention takes at (seq_len, head_dim, dtype), with or
+// without a bias: out[0] its Path; for the wgmma stage out[1..5] as
+// eqx_fused_qkv_attention_config's out[0..4] (blocks an SM, shared memory
+// a block, key rows of K and V, one pass, K and V resident), else zeros.
+// Returns a cudaError_t.
+int eqx_attention_config(int seq_len, int head_dim, int dtype, int with_bias, int* out) {
+  if (seq_len <= 0 || head_dim <= 0 || head_dim > kStageMaxHeadDim || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < 6; ++i) out[i] = 0;
+  out[0] = attention_path(dtype, seq_len, head_dim);
+  if (out[0] != kStageWgmma) return cudaSuccess;
+  return with_bias ? attention_stage_config<true>(seq_len, head_dim, out + 1)
+                   : attention_stage_config<false>(seq_len, head_dim, out + 1);
+}
+
+// The bias layout eqx_attention takes at (seq_len, head_dim, dtype):
+// out[0] the row stride in floats, out[1] the floats past the bias's end
+// that it may read (and then masks). The wgmma stage reads a row's keys in
+// pairs, as float2, and on past its end: seq_len rounded up to even, 256;
+// the other kernels read the compact bias inside its bounds: seq_len, 0.
+void eqx_attention_bias_layout(int seq_len, int head_dim, int dtype, int* out) {
+  const bool wgmma = attention_path(dtype, seq_len, head_dim) == kStageWgmma;
+  out[0] = wgmma ? (seq_len + 1) / 2 * 2 : seq_len;
+  out[1] = wgmma ? kStageBiasSlack : 0;
+}
+
+// Dynamic shared memory one block of the kernel eqx_attention takes needs;
+// for error messages.
 long long eqx_attention_smem_bytes(int seq_len, int head_dim, int elem_bytes) {
-  return (long long)smem_bytes(seq_len, head_dim, elem_bytes);
+  if (attention_path(elem_bytes == 2 ? 1 : 0, seq_len, head_dim) == kShortRows)
+    return (long long)smem_bytes_mma(head_dim);
+  return attention_stage_smem_bytes(seq_len, head_dim, elem_bytes == 2);
 }
 
 }  // extern "C"

@@ -1,17 +1,23 @@
-// The attention stage of the ViT path, shared by fused_qkv_attention.cu
-// (K1/K1p, ViT's attention in training) and attention_half.cu (the third
-// launch of the fused attention half, P2/P4):
+// The attention stage, shared by fused_qkv_attention.cu (K1/K1p, ViT's
+// attention in training), attention_half.cu (the third launch of the fused
+// attention half, P2/P4) and attention.cu (the public attention, K2, on
+// rows longer than 64 tokens and wherever its tensor-core path for short
+// rows does not apply):
 //
 //   qkv (B, L, 3D) laid out [q heads | k heads | v heads], D = H * Dh
-//   out[b, i, h*Dh:(h+1)*Dh] = softmax(q_i . K^T * scale) . V
+//   out[b, i, h*Dh:(h+1)*Dh] = softmax(q_i . K^T * scale + bias[b % Bb, i]) . V
 //
+// or, for K2, separate q, k, v (B, L, Dh) with H = 1 and D = Dh. The bias
+// (Bb, L, L) in f32 is K2's compact one; K1 and the half have none.
 // Replaces the Pallas TPU kernels _qkv_attn_kernel and
-// _qkv_attn_kernel_pair (eqxvision_tpu/ops/attention.py) and the attention
+// _qkv_attn_kernel_pair (eqxvision_tpu/ops/attention.py), the attention
 // of the prototypes _attn_kernel of scripts/ablate_vit2.py and
-// scripts/ablate_vit4.py, which compute the same function. Rounding points
-// (attention_stage_reference in ops/attention.py): s = (q . k) * scale in
-// f32; p = e / sum(e), e = exp(s - max), in f32, rounded to the input type
-// before p . V; p . V accumulated in f32 and rounded once.
+// scripts/ablate_vit4.py, which compute the same function, and, behind
+// K2, _attn_kernel and kernel4 (_attention_pallas there). Rounding points
+// (attention_stage_reference and attention_reference in ops/attention.py):
+// s = (q . k) * scale + bias in f32; p = e / sum(e), e = exp(s - max), in
+// f32, rounded to the input type before p . V; p . V accumulated in f32 and
+// rounded once.
 //
 // bf16 with Dh a multiple of 16 runs on Hopper's tensor cores
 // (attention_stage_wgmma, sm_90a):
@@ -19,10 +25,14 @@
 //     all its query tiles of 64 rows (where B H blocks would leave an SM
 //     with fewer than two, as at small batch, the tiles are shared among a
 //     few blocks of the head). Its thread 0 loads the head's K and V into
-//     shared memory once, by TMA (cp.async.bulk.tensor over a 3-D map
-//     of qkv, (3D, L, B), in boxes of 64 columns x 64 rows with the
-//     128-byte swizzle: a Dh = 64 bf16 row is one 128-byte swizzle row;
-//     Dh > 64 takes two column halves). Rows past L read as zeros, not as
+//     shared memory once, by TMA (cp.async.bulk.tensor over 3-D maps of
+//     q, k and v, in boxes of 64 columns x 64 rows with the 128-byte
+//     swizzle: a Dh = 64 bf16 row is one 128-byte swizzle row; Dh > 64
+//     takes two column halves). K1 and the half pass one map of qkv, (3D,
+//     L, B), three times, at columns h Dh, D + h Dh and 2D + h Dh; K2 passes
+//     three maps (Dh, L, B) at column 0, whose boxes are wider than a row
+//     where Dh < 64: TMA fills the columns past Dh with zeros, and the
+//     products read only the first Dh. Rows past L read as zeros, not as
 //     the next image's rows. The q tiles come the same way into two
 //     buffers, the next one loading while this one is used.
 //   - S = Q K^T by wgmma m64n64k16 over blocks of 256 keys (four pieces of
@@ -42,8 +52,33 @@
 //     P and the softmax by piece, tile and warp made ptxas serialise every
 //     wgmma of the kernel, C7520 in the build log, and took twice the
 //     time; PERF.md §6.)
+//   - The bias (kBias, K2 only): before each block's Q K^T, each thread
+//     loads its own scores' bias values (f32, from L2: the compact bias is
+//     reused by every row b that shares b % Bb) into the accumulators,
+//     times 1 / scale, and the products accumulate onto them (scale-d = 1
+//     from the first k16 step): s = (bias / scale + q . k) scale. The bias
+//     thus takes no registers beyond the scores' own, where reading it
+//     beside the 128 live scores (inside the scale and mask pass) spilled.
+//     It moves the f32 rounding: bias / scale is rounded once and added
+//     before the products rather than after the scale, a few units in the
+//     last place of the larger term. A bias whose magnitude over |scale|
+//     exceeds the f32 range reads as +-inf, and a scale of 0, or one whose
+//     reciprocal is not finite, takes the CUDA-core stage. Query rows past
+//     L read row L - 1. Keys past L are read on past the row's end (into
+//     the next row, and after the bias's last row into the room of at
+//     least 255 floats that the caller leaves there; never guarded) and
+//     then masked to -inf, so that every load is a base register plus a
+//     constant offset: clamping each key's index cost 254 registers and
+//     spills at Dh >= 96. A thread's two keys 2 t, 2 t + 1 of an 8-key
+//     group are one float2 load: the caller lays the bias out with an even
+//     row stride (bias_ld, L rounded up to even), which halves the loads
+//     and the L1 wavefronts of scalar ones.
 //   - Where L > 256: two passes over the blocks, pass 1 the rows' max and
-//     sum (a running max, the sum rescaled), pass 2 p and P V. K and V stay
+//     sum (a running max, the sum rescaled), pass 2 p and P V. A row whose
+//     keys so far are all -inf (only a bias makes them so) is exponentiated
+//     against 0 rather than -inf, so its sum stays 0 instead of NaN, and a
+//     later finite block takes over; a row that is -inf everywhere gives
+//     NaN, as the reference does. K and V stay
 //     resident where all of L, rounded up to 256, fits in shared memory
 //     (up to 768 keys at Dh <= 64, 256 at Dh > 64); beyond that each
 //     block's K (pass 1) or K and V (pass 2) are loaded in turn. Any L.
@@ -56,19 +91,21 @@
 //     load, so the block needs no setmaxnreg.
 // What bounds it: each of qkv's bytes is read once and out written once,
 // 4 B L D itemsize bytes (at vit_base b256 310 MB, 0.093 ms at 3.35 TB/s),
-// against 4 B H L^2 Dh operations (30.5 GFLOP, 0.031 ms at 989 TFLOP/s).
-// What holds it back in practice is the softmax's work on the CUDA cores
+// against 4 B H L^2 Dh operations (30.5 GFLOP, 0.031 ms at 989 TFLOP/s);
+// K2's compact bias adds Bb L^2 4 bytes (1.9 MB at 12 heads of 197). What
+// holds it back in practice is the softmax's work on the CUDA cores
 // (scale, mask, max, exp, sum, the bf16 pack: about ten instructions a
-// score) beside the products (PERF.md §6).
+// score) beside the products (PERF.md §6); the bias adds half a load and a
+// multiply a score, and its reads from L2 through L1.
 //
 // f32, and bf16 with Dh % 16 != 0, run a CUDA-core stage in true f32 (no
 // TF32; attention_stage_fma): blocks of 8 warps, 4 query rows a warp, keys
 // in chunks of 64 staged in f32 in shared memory, two passes (a running
-// max and sum, then p and P V). Any L.
+// max and sum, then p and P V), the same bias and -inf handling. Any L.
 //
-// Limits: Dh <= 128; the wgmma stage needs qkv and out 16-byte aligned and
-// D a multiple of 8 (true when Dh % 16 == 0), and L below 2^31; the
-// launcher returns cudaErrorInvalidValue otherwise.
+// Limits: Dh <= 128; the wgmma stage needs q, k, v and out 16-byte aligned
+// and D a multiple of 8 (true when Dh % 16 == 0), and L below 2^31; the
+// launchers return cudaErrorInvalidValue otherwise.
 #pragma once
 
 #include "gemm_bf16.cuh"
@@ -113,43 +150,64 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
+// Operands of the CUDA-core stage. q, k and v point at image 0, head 0, row
+// 0: image b, head h, row i is at (b L + i) ld + h Dh.
+template <typename T>
+struct FmaArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;             // (B, L, H Dh)
+  const float* bias;  // (n_bias, L, bias_ld) f32, image b reads bias[b % n_bias]; or null
+  long long ld;       // row stride of q, k and v in elements: 3 D for qkv, Dh for K2's separate tensors
+  int n_bias, bias_ld, seq_len, num_heads, head_dim, n_qtiles;
+  float scale;
+};
+
 // NI: output columns per lane, ceil(Dh / 32).
 template <typename T, int NI>
-__global__ void __launch_bounds__(kFmaThreads)
-    attention_stage_fma(const T* __restrict__ qkv, T* __restrict__ out, int seq_len, int num_heads, int head_dim,
-                        float scale, int n_qtiles) {
+__global__ void __launch_bounds__(kFmaThreads) attention_stage_fma(const FmaArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = seq_len, Dh = head_dim, ks = fma_k_stride(Dh);
+  const int L = a.seq_len, Dh = a.head_dim, ks = fma_k_stride(Dh), n_qtiles = a.n_qtiles;
+  const float scale = a.scale;
   float* sQ = reinterpret_cast<float*>(smem);  // kFmaQTile x Dh
   float* sK = sQ + kFmaQTile * Dh;              // kFmaKeys x ks
   float* sV = sK + kFmaKeys * ks;               // kFmaKeys x Dh
   float* sP = sV + kFmaKeys * Dh;               // kFmaQTile x kFmaKeys
 
   const int qt = blockIdx.x % n_qtiles;
-  const int h = (blockIdx.x / n_qtiles) % num_heads;
-  const long long b = blockIdx.x / ((unsigned)n_qtiles * num_heads);
-  const int D = num_heads * Dh;
-  const long long ld = 3LL * D;
-  const T* base = qkv + b * L * ld + h * Dh;
+  const int h = (blockIdx.x / n_qtiles) % a.num_heads;
+  const long long b = blockIdx.x / ((unsigned)n_qtiles * a.num_heads);
+  const int D = a.num_heads * Dh;
+  const long long ld = a.ld, off = b * L * ld + h * Dh;
+  const T* qb = a.q + off;
+  const T* kb = a.k + off;
+  const T* vb = a.v + off;
   const int q0 = qt * kFmaQTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // this warp's rows of the bias; rows past L read row L - 1 and are not stored
+  const float* bias_b = a.bias == nullptr ? nullptr : a.bias + (b % a.n_bias) * L * a.bias_ld;
+  const float* brow[kFmaRows];
+#pragma unroll
+  for (int r = 0; r < kFmaRows; ++r)
+    brow[r] = bias_b == nullptr ? nullptr : bias_b + (long long)min(q0 + warp * kFmaRows + r, L - 1) * a.bias_ld;
 
   for (int idx = threadIdx.x; idx < kFmaQTile * Dh; idx += kFmaThreads) {
     const int r = idx / Dh, d = idx - r * Dh;
-    sQ[idx] = q0 + r < L ? to_f32(base[(q0 + r) * ld + d]) : 0.f;
+    sQ[idx] = q0 + r < L ? to_f32(qb[(q0 + r) * ld + d]) : 0.f;
   }
   // keys j0 .. j0 + kFmaKeys of K (and V) into shared memory in f32; rows past L zero
   auto stage = [&](int j0, bool with_v) {
     for (int idx = threadIdx.x; idx < kFmaKeys * Dh; idx += kFmaThreads) {
       const int j = idx / Dh, d = idx - j * Dh;
       const bool ok = j0 + j < L;
-      const T* row = base + (ok ? j0 + j : 0) * ld + d;
-      sK[j * ks + d] = ok ? to_f32(row[D]) : 0.f;
-      if (with_v) sV[j * Dh + d] = ok ? to_f32(row[2 * D]) : 0.f;
+      const long long at = (ok ? j0 + j : 0) * ld + d;
+      sK[j * ks + d] = ok ? to_f32(kb[at]) : 0.f;
+      if (with_v) sV[j * Dh + d] = ok ? to_f32(vb[at]) : 0.f;
     }
   };
   const float* q_w = sQ + warp * kFmaRows * Dh;
-  // s[r][c] = (q_r . k_{lane + 32 c}) * scale, -inf past L
+  // s[r][c] = (q_r . k_{lane + 32 c}) * scale (+ bias), -inf past L
   auto scores = [&](int j0, float (&s)[kFmaRows][2]) {
     float acc[kFmaRows][2] = {};
     for (int d = 0; d < Dh; ++d) {
@@ -164,7 +222,12 @@ __global__ void __launch_bounds__(kFmaThreads)
 #pragma unroll
     for (int r = 0; r < kFmaRows; ++r)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) s[r][c] = j0 + lane + 32 * c < L ? acc[r][c] * scale : -INFINITY;
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + lane + 32 * c;
+        float x = acc[r][c] * scale;
+        if (bias_b != nullptr) x += brow[r][min(j, L - 1)];
+        s[r][c] = j < L ? x : -INFINITY;
+      }
   };
 
   // pass 1: each row's max and sum of exp(s - max), running over chunks
@@ -179,9 +242,11 @@ __global__ void __launch_bounds__(kFmaThreads)
     scores(j0, s);
 #pragma unroll
     for (int r = 0; r < kFmaRows; ++r) {
-      // every chunk holds a key below L, so the new max is finite
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
-      l[r] = l[r] * expf(m[r] - m_new) + warp_sum(expf(s[r][0] - m_new) + expf(s[r][1] - m_new));
+      // a row whose keys so far are all -inf (a -inf bias) is exponentiated
+      // against 0, so that its sum stays 0 rather than NaN
+      const float m_ref = m_new == -INFINITY ? 0.f : m_new;
+      l[r] = l[r] * expf(m[r] - m_ref) + warp_sum(expf(s[r][0] - m_ref) + expf(s[r][1] - m_ref));
       m[r] = m_new;
     }
   }
@@ -217,7 +282,7 @@ __global__ void __launch_bounds__(kFmaThreads)
   for (int r = 0; r < kFmaRows; ++r) {
     const int row = q0 + warp * kFmaRows + r;
     if (row >= L) continue;
-    T* dst = out + (b * L + row) * D + h * Dh;
+    T* dst = a.out + (b * L + row) * D + h * Dh;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int d = lane + 32 * i;
@@ -227,18 +292,29 @@ __global__ void __launch_bounds__(kFmaThreads)
 }
 
 template <typename T, int NI>
-cudaError_t launch_fma(const void* qkv, void* out, int batch, int seq_len, int num_heads, int head_dim, float scale,
-                       cudaStream_t stream) {
-  const int n_qtiles = (seq_len + kFmaQTile - 1) / kFmaQTile;
-  const long long blocks = (long long)batch * num_heads * n_qtiles;
+cudaError_t launch_fma(FmaArgs<T> a, int batch, cudaStream_t stream) {
+  a.n_qtiles = (a.seq_len + kFmaQTile - 1) / kFmaQTile;
+  const long long blocks = (long long)batch * a.num_heads * a.n_qtiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const size_t smem = fma_smem_bytes(head_dim);
+  const size_t smem = fma_smem_bytes(a.head_dim);
   auto kernel = attention_stage_fma<T, NI>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kFmaThreads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out), seq_len,
-                                                           num_heads, head_dim, scale, n_qtiles);
+  kernel<<<(unsigned)blocks, kFmaThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The CUDA-core stage on `a` (operands, bias and shape filled in) over
+// batch images.
+template <typename T>
+cudaError_t launch_fma_stage(const FmaArgs<T>& a, int batch, cudaStream_t stream) {
+  switch ((a.head_dim + 31) / 32) {
+    case 1: return launch_fma<T, 1>(a, batch, stream);
+    case 2: return launch_fma<T, 2>(a, batch, stream);
+    case 3: return launch_fma<T, 3>(a, batch, stream);
+    case 4: return launch_fma<T, 4>(a, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---- tensor-core stage (bf16, Dh % 16 == 0): TMA and wgmma ----
@@ -338,13 +414,19 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+constexpr int kStageBiasSlack = kStageBlock;  // floats read past the bias's last row, at most 255
+
 struct StageArgs {
-  CUtensorMap map;  // qkv (B, L, 3D) as (3D, L, B): boxes of 64 columns x 64 rows x 1, 128-byte swizzle
-  bf16* out;        // (B, L, D)
+  CUtensorMap map[3];  // q, k, v as (columns, L, B): boxes of 64 columns x 64 rows x 1, 128-byte swizzle
+  bf16* out;           // (B, L, D)
+  const float* bias;   // kBias: (n_bias, L, bias_ld) f32, bias_ld even; image b reads bias[b % n_bias]
+  int col[3];          // column of head 0's q, k, v in their maps; head h adds h Dh
   int seq_len, num_heads;
-  int kv_rows;      // key rows of the K and V buffers, a multiple of 256 (stage_kv_rows)
-  int split;        // blocks sharing an (image, head); block j takes its query tiles j, j + split, ...
+  int n_bias, bias_ld;
+  int kv_rows;         // key rows of the K and V buffers, a multiple of 256 (stage_kv_rows)
+  int split;           // blocks sharing an (image, head); block j takes its query tiles j, j + split, ...
   float scale_log2e;
+  float inv_scale;     // kBias: 1 / scale
 };
 
 // kOnePass: L <= 256, one block of keys whose scores stay in registers.
@@ -353,8 +435,9 @@ struct StageArgs {
 // at keys 8 j + 2 t + e % 2 (register 4 j + e). The products run over whole
 // blocks of 256 keys, whose rows past L are zeros, and keys past L are
 // masked by selects, so no write to a wgmma operand register sits under a
-// branch (see the note at the top).
-template <int DH, bool kOnePass>
+// branch (see the note at the top). kBias: the scores take the compact
+// bias of the image, read in the same layout.
+template <int DH, bool kOnePass, bool kBias>
 __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const __grid_constant__ StageArgs a) {
   constexpr int NH = stage_halves(DH);
   constexpr int DP = 64 * NH;  // P V's width; columns >= DH are not stored
@@ -397,25 +480,26 @@ __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const 
   }
   __syncthreads();
 
-  // (thread 0) rows r0 .. r0 + n - 1 below L of the q, k or v columns at col,
-  // in boxes of 64 rows into dst, the column halves `half` bytes apart
-  auto load = [&](unsigned char* dst, uint32_t half, int col, int r0, int n, uint64_t* done) {
+  // (thread 0) rows r0 .. r0 + n - 1 below L of this head's q (x = 0), k (1)
+  // or v (2), in boxes of 64 rows into dst, the column halves `half` bytes apart
+  auto load = [&](unsigned char* dst, uint32_t half, int x, int r0, int n, uint64_t* done) {
     const int boxes = min(n / kStageTile, (L - r0 + kStageTile - 1) / kStageTile);
     mbar_arrive_expect_tx(done, boxes * NH * kStageBox);
     for (int hf = 0; hf < NH; ++hf)
       for (int i = 0; i < boxes; ++i)
-        tma_load_3d(dst + hf * half + i * kStageBox, &a.map, done, col + 64 * hf, r0 + kStageTile * i, b);
+        tma_load_3d(dst + hf * half + i * kStageBox, &a.map[x], done, a.col[x] + h * DH + 64 * hf,
+                    r0 + kStageTile * i, b);
   };
   auto load_q = [&](int it) {
-    load(sq + (it & 1) * NH * kStageBox, kStageBox, h * DH, kStageTile * (first + it * a.split), kStageTile,
-         &bar[it & 1]);
+    load(sq + (it & 1) * NH * kStageBox, kStageBox, 0, kStageTile * (first + it * a.split), kStageTile, &bar[it & 1]);
   };
   auto load_kv = [&](int key0, bool with_v) {
-    load(sk, kv_half, D + h * DH, key0, kv_rows, &bar[2]);
-    if (with_v) load(sv, kv_half, 2 * D + h * DH, key0, kv_rows, &bar[3]);
+    load(sk, kv_half, 1, key0, kv_rows, &bar[2]);
+    if (with_v) load(sv, kv_half, 2, key0, kv_rows, &bar[3]);
   };
   if (tid == 0 && n_it > 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&a.map)) : "memory");
+    for (int x = 0; x < 3; ++x)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&a.map[x])) : "memory");
     load_q(0);
     if (resident) load_kv(0, true);
     if (n_it > 1) load_q(1);
@@ -435,8 +519,34 @@ __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const 
     }
   };
 
-  // S = Q K^T (unscaled) for the block's 256 keys, K's rows from kb
-  auto scores = [&](const unsigned char* qtile, const unsigned char* kb, float (&s)[P][32]) {
+  // kBias: this thread's slot in its warp's staging rows, which hold, while
+  // a tile's scores are computed (store() uses the rows only after them),
+  // the address of its bias at key 2 t of its first query row, 16 w + g,
+  // and the step to its second, 16 w + g + 8 (query rows past L read row
+  // L - 1). Kept there rather than in registers, where beside the scores
+  // and O the two-pass kernel at Dh = 128 spilled.
+  auto bias_slot = [&]() { return so + warp * NH * 2048 + lane * 16; };
+
+  // S = Q K^T (unscaled) for the block of 256 keys at key0, K's rows from
+  // kb. kBias: the accumulators start at the bias over the scale, and the
+  // products accumulate onto it (the scale then gives s scale + bias).
+  auto scores = [&](int key0, const unsigned char* qtile, const unsigned char* kb, float (&s)[P][32]) {
+    if constexpr (kBias) {
+      const float* bp = *reinterpret_cast<const float* const*>(bias_slot()) + key0;
+      const int bias_step = *reinterpret_cast<const int*>(bias_slot() + 8);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 v = __ldg(reinterpret_cast<const float2*>(bp + kStageTile * p + 8 * j));
+            s[p][4 * j + 2 * hr] = v.x * a.inv_scale;
+            s[p][4 * j + 2 * hr + 1] = v.y * a.inv_scale;
+          }
+        bp += bias_step;
+      }
+    }
 #pragma unroll
     for (int p = 0; p < P; ++p) fence_accumulator(s[p]);
     wgmma_fence();
@@ -446,7 +556,7 @@ __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const 
       for (int ks = 0; ks < KS; ++ks) {
         const uint64_t dq = sw128_desc(qtile + ks / 4 * kStageBox) + 2 * (ks % 4);
         const uint64_t dk = sw128_desc(kb + ks / 4 * kv_half + p * kStageBox) + 2 * (ks % 4);
-        wgmma_m64n64k16(s[p], dq, dk, ks > 0);
+        wgmma_m64n64k16(s[p], dq, dk, kBias || ks > 0);
       }
     wgmma_commit();
     wgmma_wait<0>();
@@ -555,6 +665,11 @@ __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const 
   for (int it = 0; it < n_it; ++it) {
     const int q0 = kStageTile * (first + it * a.split);
     const unsigned char* qtile = sq + (it & 1) * NH * kStageBox;
+    if constexpr (kBias) {
+      const int r0 = min(q0 + 16 * warp + lane / 4, L - 1), r1 = min(q0 + 16 * warp + lane / 4 + 8, L - 1);
+      *reinterpret_cast<const float**>(bias_slot()) = a.bias + ((long long)(b % a.n_bias) * L + r0) * a.bias_ld + 2 * t;
+      *reinterpret_cast<int*>(bias_slot() + 8) = (r1 - r0) * a.bias_ld;
+    }
     mbar_wait(&bar[it & 1], (it >> 1) & 1);
     if (resident) mbar_wait(&bar[2], 0);
 
@@ -563,14 +678,17 @@ __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const 
       for (int blk = 0; blk < n_blocks; ++blk) {
         const int key0 = blk * kStageBlock;
         if (!resident) stream_kv(key0, false);
-        scores(qtile, sk + (resident ? key0 * 128 : 0), s);
+        scores(key0, qtile, sk + (resident ? key0 * 128 : 0), s);
         float mb[2], sum[2];
         scale_mask(key0, s, mb);
         const float mn[2] = {fmaxf(m[0], mb[0]), fmaxf(m[1], mb[1])};
-        exponentiate(s, mn, sum);
+        // kBias: a row whose keys so far are all -inf is exponentiated against
+        // 0, so that its sum stays 0 rather than NaN
+        const float mr[2] = {kBias && mn[0] == -INFINITY ? 0.f : mn[0], kBias && mn[1] == -INFINITY ? 0.f : mn[1]};
+        exponentiate(s, mr, sum);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          l[r] = l[r] * ex2(m[r] - mn[r]) + sum[r];
+          l[r] = l[r] * ex2(m[r] - mr[r]) + sum[r];
           m[r] = mn[r];
         }
       }
@@ -581,7 +699,7 @@ __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const 
     for (int blk = 0; blk < n_blocks; ++blk) {  // p and P V: the one pass where L <= 256
       const int key0 = blk * kStageBlock;
       if (!kOnePass && !resident) stream_kv(key0, true);
-      scores(qtile, sk + (resident ? key0 * 128 : 0), s);
+      scores(key0, qtile, sk + (resident ? key0 * 128 : 0), s);
       if (blk == n_blocks - 1) {  // every warp is done with this q buffer: load the tile after next into it
         named_barrier(1, kStageThreads);
         if (tid == 0 && it + 2 < n_it) load_q(it + 2);
@@ -605,27 +723,28 @@ __global__ void __launch_bounds__(kStageThreads, 1) attention_stage_wgmma(const 
   }
 }
 
-// TMA map of qkv (batch, seq_len, 3 dim) in bf16 as (3 dim, seq_len, batch),
+// TMA map of a bf16 tensor (batch, seq_len, cols) as (cols, seq_len, batch),
 // read in boxes of 64 columns x 64 rows x 1 with the 128-byte swizzle; rows
-// past seq_len and columns past 3 dim read as zeros.
-cudaError_t encode_qkv_map(CUtensorMap* map, const void* qkv, int batch, int seq_len, int dim) {
+// past seq_len and columns past cols read as zeros (a box is wider than a
+// row where cols < 64).
+cudaError_t encode_stage_map(CUtensorMap* map, const void* base, int batch, int seq_len, int cols) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = 3ull * dim * sizeof(bf16);
-  const cuuint64_t dims[3] = {3ull * dim, (cuuint64_t)seq_len, (cuuint64_t)batch};
+  const cuuint64_t row = (cuuint64_t)cols * sizeof(bf16);
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)seq_len, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {row, row * seq_len};
   const cuuint32_t box[3] = {64, (cuuint32_t)kStageTile, 1};
   const cuuint32_t element_strides[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims, strides, box,
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
                             element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int DH, bool kOnePass>
+template <int DH, bool kOnePass, bool kBias>
 cudaError_t launch_stage_kernel(const StageArgs& a, int blocks, cudaStream_t stream) {
   const int smem = stage_wgmma_smem_bytes(a.kv_rows, DH);
-  auto kernel = attention_stage_wgmma<DH, kOnePass>;
+  auto kernel = attention_stage_wgmma<DH, kOnePass, kBias>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kStageThreads, smem, stream>>>(a);
@@ -641,74 +760,146 @@ inline int stage_split(long long heads, int seq_len, int sms) {
   return (int)(want < 1 ? 1 : want < n_qt ? want : n_qt);
 }
 
-template <int DH>
-cudaError_t launch_stage_wgmma(const void* qkv, void* out, int batch, int seq_len, int num_heads, float scale,
-                               cudaStream_t stream) {
+// The wgmma stage over batch x num_heads (image, head) pairs; the caller has
+// filled in a's maps, columns, output and bias.
+template <int DH, bool kBias>
+cudaError_t launch_stage_wgmma(StageArgs& a, int batch, int seq_len, int num_heads, float scale, cudaStream_t stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int split = stage_split((long long)batch * num_heads, seq_len, sms);
   const bool one_pass = seq_len <= kStageBlock;
-  StageArgs a;
-  err = encode_qkv_map(&a.map, qkv, batch, seq_len, num_heads * DH);
-  if (err != cudaSuccess) return err;
-  a.out = static_cast<bf16*>(out);
   a.seq_len = seq_len;
   a.num_heads = num_heads;
   a.kv_rows = stage_kv_rows(seq_len, DH);
   a.split = split;
   a.scale_log2e = scale * 1.4426950408889634f;
+  a.inv_scale = 1.f / scale;
   const long long blocks = (long long)batch * num_heads * split;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  return one_pass ? launch_stage_kernel<DH, true>(a, (int)blocks, stream)
-                  : launch_stage_kernel<DH, false>(a, (int)blocks, stream);
+  return one_pass ? launch_stage_kernel<DH, true, kBias>(a, (int)blocks, stream)
+                  : launch_stage_kernel<DH, false, kBias>(a, (int)blocks, stream);
+}
+
+template <bool kBias>
+cudaError_t launch_stage_wgmma_dh(StageArgs& a, int batch, int seq_len, int num_heads, int head_dim, float scale,
+                                  cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch_stage_wgmma<16, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    case 32: return launch_stage_wgmma<32, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    case 48: return launch_stage_wgmma<48, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    case 64: return launch_stage_wgmma<64, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    case 80: return launch_stage_wgmma<80, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    case 96: return launch_stage_wgmma<96, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    case 112: return launch_stage_wgmma<112, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    case 128: return launch_stage_wgmma<128, kBias>(a, batch, seq_len, num_heads, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool stage_uses_wgmma(bool is_bf16, int head_dim) { return is_bf16 && head_dim % 16 == 0; }
 
 // The stage on qkv (batch, seq_len, 3 num_heads head_dim) into out (batch,
-// seq_len, num_heads head_dim), in T, on `stream`.
+// seq_len, num_heads head_dim), in T, on `stream`: K1's and the half's.
 template <typename T>
 cudaError_t launch_attention_stage(const void* qkv, void* out, int batch, int seq_len, int num_heads, int head_dim,
                                    float scale, cudaStream_t stream) {
   if (batch <= 0 || seq_len <= 0 || num_heads <= 0 || head_dim <= 0 || head_dim > kStageMaxHeadDim)
     return cudaErrorInvalidValue;
+  const int D = num_heads * head_dim;
   if constexpr (std::is_same<T, bf16>::value) {
     if (stage_uses_wgmma(true, head_dim)) {
       if (!aligned16(qkv) || !aligned16(out)) return cudaErrorInvalidValue;
-      switch (head_dim) {
-        case 16: return launch_stage_wgmma<16>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        case 32: return launch_stage_wgmma<32>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        case 48: return launch_stage_wgmma<48>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        case 64: return launch_stage_wgmma<64>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        case 80: return launch_stage_wgmma<80>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        case 96: return launch_stage_wgmma<96>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        case 112: return launch_stage_wgmma<112>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        case 128: return launch_stage_wgmma<128>(qkv, out, batch, seq_len, num_heads, scale, stream);
-        default: return cudaErrorInvalidValue;
-      }
+      StageArgs a = {};
+      const cudaError_t err = encode_stage_map(&a.map[0], qkv, batch, seq_len, 3 * D);
+      if (err != cudaSuccess) return err;
+      a.map[1] = a.map[2] = a.map[0];
+      a.col[0] = 0;
+      a.col[1] = D;
+      a.col[2] = 2 * D;
+      a.out = static_cast<bf16*>(out);
+      return launch_stage_wgmma_dh<false>(a, batch, seq_len, num_heads, head_dim, scale, stream);
     }
   }
-  switch ((head_dim + 31) / 32) {
-    case 1: return launch_fma<T, 1>(qkv, out, batch, seq_len, num_heads, head_dim, scale, stream);
-    case 2: return launch_fma<T, 2>(qkv, out, batch, seq_len, num_heads, head_dim, scale, stream);
-    case 3: return launch_fma<T, 3>(qkv, out, batch, seq_len, num_heads, head_dim, scale, stream);
-    case 4: return launch_fma<T, 4>(qkv, out, batch, seq_len, num_heads, head_dim, scale, stream);
-    default: return cudaErrorInvalidValue;
+  const T* base = static_cast<const T*>(qkv);
+  FmaArgs<T> f = {};
+  f.q = base;
+  f.k = base + D;
+  f.v = base + 2 * D;
+  f.out = static_cast<T*>(out);
+  f.ld = 3LL * D;
+  f.n_bias = 1;
+  f.bias_ld = seq_len;
+  f.seq_len = seq_len;
+  f.num_heads = num_heads;
+  f.head_dim = head_dim;
+  f.scale = scale;
+  return launch_fma_stage<T>(f, batch, stream);
+}
+
+// The stage on separate q, k, v (batch, seq_len, head_dim) into out of the
+// same shape, in T, with an optional compact f32 bias (n_bias, seq_len,
+// bias_ld), bias_ld >= seq_len, batch % n_bias == 0, of which row b reads
+// bias[b % n_bias]: K2's. For the wgmma stage bias_ld must be even, the bias
+// 8-byte aligned and readable for kStageBiasSlack floats past its end (it
+// reads on past a row into masked keys).
+template <typename T>
+cudaError_t launch_attention_stage_qkv(const void* q, const void* k, const void* v, const float* bias, int n_bias,
+                                       int bias_ld, void* out, int batch, int seq_len, int head_dim, float scale,
+                                       cudaStream_t stream) {
+  if (batch <= 0 || seq_len <= 0 || head_dim <= 0 || head_dim > kStageMaxHeadDim || n_bias <= 0 ||
+      batch % n_bias != 0 || bias_ld < seq_len)
+    return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, bf16>::value) {
+    // the wgmma stage takes the bias as bias / scale (see attention_stage_wgmma)
+    const bool bias_over_scale = bias == nullptr || (isfinite(scale) && isfinite(1.f / scale));
+    if (stage_uses_wgmma(true, head_dim) && bias_over_scale) {
+      if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out)) return cudaErrorInvalidValue;
+      if (bias != nullptr && (bias_ld % 2 != 0 || reinterpret_cast<uintptr_t>(bias) % 8 != 0))
+        return cudaErrorInvalidValue;  // its rows are read as float2
+      StageArgs a = {};
+      const void* src[3] = {q, k, v};
+      for (int x = 0; x < 3; ++x) {
+        const cudaError_t err = encode_stage_map(&a.map[x], src[x], batch, seq_len, head_dim);
+        if (err != cudaSuccess) return err;
+      }
+      a.out = static_cast<bf16*>(out);
+      a.bias = bias;
+      a.n_bias = n_bias;
+      a.bias_ld = bias_ld;
+      return bias == nullptr ? launch_stage_wgmma_dh<false>(a, batch, seq_len, 1, head_dim, scale, stream)
+                             : launch_stage_wgmma_dh<true>(a, batch, seq_len, 1, head_dim, scale, stream);
+    }
   }
+  FmaArgs<T> f = {};
+  f.q = static_cast<const T*>(q);
+  f.k = static_cast<const T*>(k);
+  f.v = static_cast<const T*>(v);
+  f.out = static_cast<T*>(out);
+  f.bias = bias;
+  f.ld = head_dim;
+  f.n_bias = n_bias;
+  f.bias_ld = bias_ld;
+  f.seq_len = seq_len;
+  f.num_heads = 1;
+  f.head_dim = head_dim;
+  f.scale = scale;
+  return launch_fma_stage<T>(f, batch, stream);
 }
 
-template <int DH>
+template <int DH, bool kBias>
 const void* stage_kernel(bool one_pass) {
-  return one_pass ? (const void*)attention_stage_wgmma<DH, true> : (const void*)attention_stage_wgmma<DH, false>;
+  return one_pass ? (const void*)attention_stage_wgmma<DH, true, kBias>
+                  : (const void*)attention_stage_wgmma<DH, false, kBias>;
 }
 
-// The bf16 wgmma stage's design at (seq_len, head_dim): out[0] blocks an
-// SM can hold, out[1] dynamic shared memory a block, out[2] key rows of the
-// K and V buffers, out[3] 1 where one pass, out[4] 1 where K and V are
-// resident. Returns a cudaError_t; cudaErrorInvalidValue where the stage
-// is not the wgmma one.
+// The bf16 wgmma stage's design at (seq_len, head_dim), with or without the
+// bias: out[0] blocks an SM can hold, out[1] dynamic shared memory a block,
+// out[2] key rows of the K and V buffers, out[3] 1 where one pass, out[4] 1
+// where K and V are resident. Returns a cudaError_t; cudaErrorInvalidValue
+// where the stage is not the wgmma one.
+template <bool kBias>
 int attention_stage_config(int seq_len, int head_dim, int* out) {
   if (seq_len <= 0 || head_dim <= 0 || head_dim > kStageMaxHeadDim || !stage_uses_wgmma(true, head_dim))
     return cudaErrorInvalidValue;
@@ -716,14 +907,14 @@ int attention_stage_config(int seq_len, int head_dim, int* out) {
   const bool one_pass = seq_len <= kStageBlock;  // as launch_stage_wgmma chooses
   const void* kernel = nullptr;
   switch (head_dim) {
-    case 16: kernel = stage_kernel<16>(one_pass); break;
-    case 32: kernel = stage_kernel<32>(one_pass); break;
-    case 48: kernel = stage_kernel<48>(one_pass); break;
-    case 64: kernel = stage_kernel<64>(one_pass); break;
-    case 80: kernel = stage_kernel<80>(one_pass); break;
-    case 96: kernel = stage_kernel<96>(one_pass); break;
-    case 112: kernel = stage_kernel<112>(one_pass); break;
-    case 128: kernel = stage_kernel<128>(one_pass); break;
+    case 16: kernel = stage_kernel<16, kBias>(one_pass); break;
+    case 32: kernel = stage_kernel<32, kBias>(one_pass); break;
+    case 48: kernel = stage_kernel<48, kBias>(one_pass); break;
+    case 64: kernel = stage_kernel<64, kBias>(one_pass); break;
+    case 80: kernel = stage_kernel<80, kBias>(one_pass); break;
+    case 96: kernel = stage_kernel<96, kBias>(one_pass); break;
+    case 112: kernel = stage_kernel<112, kBias>(one_pass); break;
+    case 128: kernel = stage_kernel<128, kBias>(one_pass); break;
     default: return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -14,10 +14,11 @@
 // per program are layout devices of that chip and are not carried over.
 //
 // The kernel is attention_stage.cuh's, the one the fused attention half
-// (attention_half.cu) runs on its qkv workspace: bf16 with Dh a multiple of
-// 16 on TMA-fed wgmma, one block per (image, head) that loads the head's K
-// and V once, one pass where L <= 256; f32 and other head dims on a
-// true-f32 CUDA-core stage. Any L. The note there says what bounds it.
+// (attention_half.cu) runs on its qkv workspace and the public attention
+// (attention.cu) on its long rows: bf16 with Dh a multiple of 16 on
+// TMA-fed wgmma, one block per (image, head) that loads the head's K and V
+// once, one pass where L <= 256; f32 and other head dims on a true-f32
+// CUDA-core stage. Any L. The note there says what bounds it.
 // Limits: head_dim <= 128; in bf16 with head_dim % 16 == 0, qkv and out
 // 16-byte aligned; the entry point returns cudaErrorInvalidValue otherwise.
 
@@ -45,7 +46,7 @@ long long eqx_fused_qkv_attention_smem_bytes(int seq_len, int head_dim, int elem
 // The bf16 stage's blocks per SM, shared memory, key rows, one pass and
 // residency at (seq_len, head_dim) into out[0..4]; see attention_stage_config.
 int eqx_fused_qkv_attention_config(int seq_len, int head_dim, int* out) {
-  return attention_stage_config(seq_len, head_dim, out);
+  return attention_stage_config<false>(seq_len, head_dim, out);
 }
 
 const char* eqx_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -15,6 +15,7 @@ versions, as the JAX package's custom VJPs do.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -311,23 +312,30 @@ def _launch_attention_kernel(q, k, v, bias, scale):
     b, n, dh = q.shape
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {dh}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if bias is not None:
-        bias = bias.to(device=q.device, dtype=torch.float32).contiguous()  # compact: (Bb, N, N)
-    out = torch.empty_like(q)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)  # the kernels read them from 16-byte aligned bases
     lib = _native.library()
+    n_bias, ld = 1, n
+    if bias is not None:  # compact (Bb, N, N), laid out with the kernel's row stride and room after it
+        layout = (ctypes.c_int * 2)()
+        lib.eqx_attention_bias_layout(n, dh, _DTYPE_CODES[q.dtype], layout)
+        n_bias, (ld, slack) = bias.shape[0], layout
+        if (ld, slack) == (n, 0):
+            bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+        else:  # the row padding and the room are read only at masked keys
+            padded = torch.empty(n_bias * n * ld + slack, dtype=torch.float32, device=q.device)
+            padded[: n_bias * n * ld].view(n_bias, n, ld)[:, :, :n].copy_(bias)
+            bias = padded
+    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.eqx_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, 1 if bias is None else bias.shape[0], n, dh, scale, _DTYPE_CODES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), ld, out.data_ptr(),
+            b, n_bias, n, dh, scale, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
         smem = lib.eqx_attention_smem_bytes(n, dh, q.element_size())
         _native.check(
-            err,
-            f"attention kernel on q {tuple(q.shape)} {q.dtype} (one block of the CUDA-core path needs {smem} "
-            f"bytes of shared memory)",
+            err, f"attention kernel on q {tuple(q.shape)} {q.dtype} (one block needs {smem} bytes of shared memory)"
         )
     attention.launches += 1
     return out
@@ -365,9 +373,11 @@ def attention(
     (Bb, N, N), and row b reads ``bias[b % Bb]``: the kernel never copies it
     over the batch. Any other bias is expanded to (B, N, N), as in the JAX
     package. Counterpart of its ``attention`` and of the Pallas kernels
-    ``_attn_kernel``/``kernel4`` behind it (``csrc/attention.cu``); the
+    ``_attn_kernel``/``kernel4`` behind it (``csrc/attention.cu``: bf16 rows
+    of at most 64 tokens on a short-row tensor-core kernel, any other N and
+    f32 on the attention stage of ``csrc/attention_stage.cuh``); the
     padding of N there is the TPU's and has no counterpart: the kernel masks
-    the ragged tail. ``attention.launches`` counts kernel launches.
+    the ragged tail. Any N. ``attention.launches`` counts kernel launches.
     """
     if q.ndim < 2 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(

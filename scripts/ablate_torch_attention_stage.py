@@ -2,21 +2,25 @@
 
 Run from the root of the repository on a machine with a CUDA card:
 
-    python3 scripts/ablate_torch_attention_stage.py [--variants base no_exp ...] [--iters 20]
+    python3 scripts/ablate_torch_attention_stage.py [--entry k1|k2_bias] [--variants base no_exp ...] [--iters 20]
 
 The stage (``csrc/attention_stage.cuh``) is the one kernel that K1's entry
-``eqx_fused_qkv_attention`` and the fused attention half's third launch run.
+``eqx_fused_qkv_attention``, the fused attention half's third launch and
+the public attention's (K2) rows longer than 64 tokens run.
 For each variant the script copies ``eqxvision_tpu_torch/csrc`` into
-``eqxvision_tpu_torch/_build/ablate_stage/<variant>/``, changes one phase
-or design choice of the bf16 wgmma stage in that copy's header (the
+``eqxvision_tpu_torch/_build/ablate_stage/<entry>/<variant>/``, changes one
+phase or design choice of the bf16 wgmma stage in that copy's header (the
 outputs may then be wrong; only the time is read), compiles that copy's
-``fused_qkv_attention.cu`` alone into a small library with the package's
-nvcc flags (all variants at once, one nvcc each), then times K1's entry on
-a bf16 qkv of vit_base b256's shape, (256, 197, 3 x 768) with 12 heads,
-with CUDA events, in turns base-first. Each patch names one whole source
-line, which must occur exactly once, or the script stops before any build.
-It also prints each variant's registers and spills of the one-pass Dh = 64
-kernel from ptxas.
+entry source alone into a small library with the package's nvcc flags (all
+variants at once, one nvcc each), then times the entry with CUDA events, in
+turns base-first: ``--entry k1`` (the default) K1's
+``fused_qkv_attention.cu`` on a bf16 qkv of vit_base b256's shape, (256,
+197, 3 x 768) with 12 heads; ``--entry k2_bias`` K2's ``attention.cu`` on
+bf16 q, k, v of (256 x 12, 197, 64) with a compact (12, 197, 197) f32 bias,
+vit_base b256 with a BEiT-style relative-position bias. Each patch names
+one whole source line, which must occur exactly once, or the script stops
+before any build. It also prints each variant's registers and spills of the
+one-pass Dh = 64 kernel (with the bias for k2_bias) from ptxas.
 
 Variants:
   base        the stage as it is
@@ -38,6 +42,14 @@ Variants:
   guarded     the products of pieces and k16 steps wholly past L skipped,
               under branches (a variant whose wgmma ptxas serialises is
               marked C7520 in the register line)
+  no_bias_load  (k2_bias) the accumulators start at 0 instead of the bias
+              read from L2 (the loads' share)
+  bias_row0   (k2_bias) every query row reads row 0 of its image's bias:
+              the same loads and instructions, an eighth of the cache lines
+              a warp's load touches (the bias's L1 and L2 traffic share)
+  bias_evict_last  (k2_bias) the bias loads ask L2 to keep their lines
+              (an evict_last policy), against the q, k and v streams
+  bias_no_l1  (k2_bias) the bias loads do not allocate in L1
 Imports nothing of JAX.
 """
 import argparse
@@ -53,6 +65,9 @@ PKG = ROOT / "eqxvision_tpu_torch"
 COPY = PKG / "_build" / "ablate_stage"
 HEADER = "attention_stage.cuh"
 MASK = "          const float v = kStageTile * p + 8 * j + (e & 1) < lim ? s[p][4 * j + e] * c : -INFINITY;"
+BIAS_LOAD = "            const float2 v = __ldg(reinterpret_cast<const float2*>(bp + kStageTile * p + 8 * j));"
+BIAS_ROWS = ("      const int r0 = min(q0 + 16 * warp + lane / 4, L - 1), "
+             "r1 = min(q0 + 16 * warp + lane / 4 + 8, L - 1);")
 ROW_MAX = ("    for (int r = 0; r < 2; ++r) mx[r] = quad_max(fmaxf(fmaxf(pm[0][r], pm[1][r]), "
            "fmaxf(pm[2][r], pm[3][r])));")
 VARIANTS = {  # name: [(whole source line, replacement)]
@@ -60,10 +75,10 @@ VARIANTS = {  # name: [(whole source line, replacement)]
     "no_exp": [("          const float x = ex2(s[p][4 * j + e] - m[e >> 1]);",
                 "          const float x = s[p][4 * j + e] - m[e >> 1];")],
     "no_softmax": [("        scale_mask(key0, s, mb);", "        mb[0] = mb[1] = 0.f;"),
-                   ("        exponentiate(s, mn, sum);", "        sum[0] = sum[1] = 1.f;"),
+                   ("        exponentiate(s, mr, sum);", "        sum[0] = sum[1] = 1.f;"),
                    ("      scale_mask(key0, s, mb);", "      mb[0] = mb[1] = 0.f;"),
                    ("      exponentiate(s, m, sum);", "      sum[0] = sum[1] = 1.f;")],
-    "no_wgmma": [("        wgmma_m64n64k16(s[p], dq, dk, ks > 0);", "        ;"),
+    "no_wgmma": [("        wgmma_m64n64k16(s[p], dq, dk, kBias || ks > 0);", "        ;"),
                  ("        wgmma_pv<DP>(o, pa[p][kk], sw128_mn_desc(vb + (kStageTile * p + 16 * kk) * 128, kv_half));",
                   "        ;")],
     "no_kv_load": [("    if (resident) load_kv(0, true);", ""), ("    if (resident) mbar_wait(&bar[2], 0);", ""),
@@ -81,13 +96,25 @@ VARIANTS = {  # name: [(whole source line, replacement)]
                    "      if (q0 + 16 * warp < L) scale_mask(key0, s, mb); else mb[0] = mb[1] = 0.f;"),
                   ("      exponentiate(s, m, sum);",
                    "      if (q0 + 16 * warp < L) exponentiate(s, m, sum); else sum[0] = sum[1] = 1.f;")],
-    "guarded": [("        wgmma_m64n64k16(s[p], dq, dk, ks > 0);",
-                 "        if (kStageTile * p < L) wgmma_m64n64k16(s[p], dq, dk, ks > 0);"),
+    "guarded": [("        wgmma_m64n64k16(s[p], dq, dk, kBias || ks > 0);",
+                 "        if (kStageTile * p < L) wgmma_m64n64k16(s[p], dq, dk, kBias || ks > 0);"),
                 ("        wgmma_pv<DP>(o, pa[p][kk], sw128_mn_desc(vb + (kStageTile * p + 16 * kk) * 128, kv_half));",
                  "        if (kStageTile * p + 16 * kk < L) "
                  "wgmma_pv<DP>(o, pa[p][kk], sw128_mn_desc(vb + (kStageTile * p + 16 * kk) * 128, kv_half));")],
+    "no_bias_load": [(BIAS_LOAD, "            const float2 v = make_float2(0.f, 0.f);")],
+    "bias_evict_last": [(BIAS_LOAD, "            float2 v; { uint64_t pol; asm(\"createpolicy.fractional."
+                         "L2::evict_last.b64 %0, 1.0;\" : \"=l\"(pol)); asm(\"ld.global.nc.L2::cache_hint.v2.f32 "
+                         "{%0, %1}, [%2], %3;\" : \"=f\"(v.x), \"=f\"(v.y) : \"l\"(bp + kStageTile * p + 8 * j), "
+                         "\"l\"(pol)); }")],
+    "bias_no_l1": [(BIAS_LOAD, "            float2 v; asm(\"ld.global.nc.L1::no_allocate.v2.f32 {%0, %1}, [%2];\" : "
+                               "\"=f\"(v.x), \"=f\"(v.y) : \"l\"(bp + kStageTile * p + 8 * j));")],
+    "bias_row0": [(BIAS_ROWS, "      const int r0 = 0, r1 = 0;")],
 }
+BIAS_VARIANTS = ("no_bias_load", "bias_row0", "bias_evict_last", "bias_no_l1")
 SHAPE = (256, 197, 12, 64)  # vit_base b256: B, L, heads, head dim
+# entry: (source, C entry point, mangled name of its one-pass Dh = 64 kernel)
+ENTRIES = {"k1": ("fused_qkv_attention.cu", "eqx_fused_qkv_attention", "attention_stage_wgmmaILi64ELb1ELb0E"),
+           "k2_bias": ("attention.cu", "eqx_attention", "attention_stage_wgmmaILi64ELb1ELb1E")}
 
 
 def patch(text, name):
@@ -100,15 +127,15 @@ def patch(text, name):
     return "\n".join(lines)
 
 
-def registers(log):
-    """'<n> registers, <m> bytes spilled' of attention_stage_wgmma<64, true> in ptxas's report."""
+def registers(log, kernel):
+    """'<n> registers, <m> bytes spilled' of the kernel whose mangled name holds ``kernel`` in ptxas's report."""
     name = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line
-        elif name and "attention_stage_wgmmaILi64ELb1E" in name and "spill stores" in line:
+        elif name and kernel in name and "spill stores" in line:
             spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
-        elif name and "attention_stage_wgmmaILi64ELb1E" in name and "Used" in line:
+        elif name and kernel in name and "Used" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             serialised = "; ptxas serialises its wgmma (C7520)" if "C7520" in log else ""
             return f"{regs} registers, {spills} bytes spilled{serialised}"
@@ -117,9 +144,12 @@ def registers(log):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    ap.add_argument("--entry", choices=list(ENTRIES), default="k1")
+    ap.add_argument("--variants", nargs="+", default=None, choices=list(VARIANTS),
+                    help="default: every variant that applies to the entry")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
+    variants = args.variants or [v for v in VARIANTS if args.entry == "k2_bias" or v not in BIAS_VARIANTS]
     import torch
 
     if not torch.cuda.is_available():
@@ -128,43 +158,65 @@ def main():
     sys.path.insert(0, str(ROOT))
     from eqxvision_tpu_torch import _native
 
+    source, entry, kernel = ENTRIES[args.entry]
     header = (PKG / "csrc" / HEADER).read_text()
-    for name in args.variants:  # patch them all first: a stale patch stops the run before any build
+    for name in variants:  # patch them all first: a stale patch stops the run before any build
         patch(header, name)
     builds = {}
-    for name in args.variants:
-        root = COPY / name
+    for name in variants:
+        root = COPY / args.entry / name
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(PKG / "csrc", root / "csrc")
         (root / "csrc" / HEADER).write_text(patch(header, name))
         lib = root / "libstage.so"
-        src = root / "csrc" / "fused_qkv_attention.cu"
-        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
+        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(lib), str(root / "csrc" / source)]
         builds[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
+    b, l, h, dh = SHAPE
     for name, (lib_path, proc) in builds.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"{name} failed to build:\n{log}")
         lib = ctypes.CDLL(str(lib_path))
-        lib.eqx_fused_qkv_attention.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *([ctypes.c_int] * 4),
-                                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        if args.entry == "k1":
+            lib.eqx_fused_qkv_attention.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *([ctypes.c_int] * 4),
+                                                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            cfg = (ctypes.c_int * 5)()
+            lib.eqx_fused_qkv_attention_config(l, dh, cfg)
+            design = f"{cfg[0]} blocks an SM, {cfg[1]} bytes of shared memory a block"
+        else:
+            lib.eqx_attention.argtypes = [*([ctypes.c_void_p] * 4), ctypes.c_int, ctypes.c_void_p,
+                                          *([ctypes.c_int] * 4), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            cfg = (ctypes.c_int * 6)()
+            lib.eqx_attention_config(l, dh, 1, 1, cfg)
+            design = f"kernel {cfg[0]} (2: wgmma), {cfg[1]} blocks an SM, {cfg[2]} bytes of shared memory a block"
         libs[name] = lib
-        cfg = (ctypes.c_int * 5)()
-        lib.eqx_fused_qkv_attention_config(SHAPE[1], SHAPE[3], cfg)
-        print(f"{name:10s} attention_stage_wgmma<64, true>: {registers(log)}; {cfg[0]} blocks an SM, "
-              f"{cfg[1]} bytes of shared memory a block", flush=True)
+        print(f"{name:12s} {entry}, attention_stage_wgmma<64, true>: {registers(log, kernel)}; {design}", flush=True)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    b, l, h, dh = SHAPE
-    qkv = torch.randn(b, l, 3 * h * dh, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
-    qkv = qkv.bfloat16()
-    out = torch.empty(b, l, h * dh, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    if args.entry == "k1":
+        qkv = torch.randn(b, l, 3 * h * dh, device="cuda", generator=gen).bfloat16()
+        out = torch.empty(b, l, h * dh, dtype=torch.bfloat16, device="cuda")
+
+        def launch(lib):
+            return lib.eqx_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), b, l, h, dh, dh**-0.5, 1, stream)
+    else:
+        q, k, v = (torch.randn(b * h, l, dh, device="cuda", generator=gen).bfloat16() for _ in range(3))
+        # the compact bias with an even row stride and the room after it that the kernel may read, as
+        # ops.attention lays it out
+        ld = (l + 1) // 2 * 2
+        bias = torch.randn(h * l * ld + 256, device="cuda", generator=gen)
+        out = torch.empty_like(q)
+
+        def launch(lib):
+            return lib.eqx_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), ld, out.data_ptr(),
+                                     b * h, h, l, dh, dh**-0.5, 1, stream)
 
     def call(lib):
-        err = lib.eqx_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), b, l, h, dh, dh**-0.5, 1,
-                                          torch.cuda.current_stream().cuda_stream)
+        err = launch(lib)
         if err:
             raise SystemExit(f"launch failed: CUDA error {err}")
 
@@ -182,8 +234,9 @@ def main():
     for turn in range(2):  # two turns: base and every variant, then the reverse
         for name in (list(libs) if turn == 0 else list(libs)[::-1]):
             times[name].append(time_ms(libs[name]))
+    what = "K1 entry at vit_base b256" if args.entry == "k1" else "K2 entry, vit_base b256 with a (12, 197, 197) bias,"
     for name, ms in times.items():
-        print(f"{name:10s} K1 entry at vit_base b256 {SHAPE}: {ms[0]:.4f}, {ms[1]:.4f} ms", flush=True)
+        print(f"{name:12s} {what} {SHAPE}: {ms[0]:.4f}, {ms[1]:.4f} ms", flush=True)
     return 0
 
 

@@ -13,7 +13,10 @@ device time of the op's kernels a call by torch.profiler (at small shapes
 the host's launch cost, not the kernels, sets the first). For the ViT
 attention half it also prints its attention stage's device time alone (the
 kernels named ``attention_stage*``), and it times the fused-qkv attention
-(K1) on a bf16 qkv of vit_base b256's shape the same way. To compare two
+(K1) on a bf16 qkv of vit_base b256's shape the same way, and the public
+attention (K2) on bf16 q, k, v of that shape, (256, 12, 197, 64), without
+and with a compact (12, 197, 197) relative-position bias, and at swin_t
+stage 1's (128, 192, 49, 32) with its (192, 49, 49) bias. To compare two
 trees on one card, copy the script into the other tree and run the two in
 one command in turns (parent, change, change, parent). Imports nothing of
 JAX.
@@ -28,6 +31,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+# K2's cases (q lead dims, N, Dh, bias lead dims or None), kept here so that
+# the script runs in trees whose chip_smoke.py lacks them
+K2_CASES = {"swin_t stage 1": ((128, 192), 49, 32, (1, 192)), "vit_base b256": ((256, 12), 197, 64, None),
+            "vit_base b256 rel-pos bias": ((256, 12), 197, 64, (12,))}
 
 
 def main():
@@ -61,6 +68,10 @@ def main():
     qkv = torch.randn(256, 197, 3 * 768, device="cuda", generator=gen).to(bf16)
     calls.append(("fused_qkv_attention vit_base b256 (256, 197, 12, 64)",
                   lambda: A.fused_qkv_attention(qkv, 12)))
+    for name, (lead, n, dh, bias_lead) in K2_CASES.items():
+        q, k, v, bias = cs._attn_inputs(lead, n, dh, bias_lead, bf16, gen)
+        calls.append((f"attention (K2) {name} {tuple(q.shape)}",
+                      lambda q=q, k=k, v=v, bias=bias: A.attention(q, k, v, bias)))
     for name, (b, side, c, heads) in cs.WINDOW_HALF_CASES.items():
         x, params, bias, valid = cs._window_half_inputs(b, side, c, heads, bf16, gen, W, WH)
         calls.append((f"fused_window_attention_half {name} {tuple(x.shape) + (heads,)}",

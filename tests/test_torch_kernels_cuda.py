@@ -429,10 +429,16 @@ def test_layer_norm_kernel_refuses(cuda, dtype, param_dtype):
 
 
 # Generic attention: (B, N, Dh, Bb or None). swin_t stage 1's shape through
-# the public op (tensor cores), ViT-B/16's (CUDA cores, no bias), a ragged
-# one with head dim 8, the tensor-core limits N = 64 and just past them,
-# and head dim 128.
-ATTN_SHAPES = [(24, 49, 32, 6), (6, 197, 64, None), (4, 17, 8, 2), (3, 64, 64, 1), (2, 65, 32, 2), (2, 33, 128, None)]
+# the public op (the short-row mma.sync kernel); ViT-B/16's without a bias
+# and with the per-head bias at ViT width (the attention stage's wgmma
+# kernel, one pass); a ragged one with head dim 8 (the stage's CUDA-core
+# kernel in both types); the short-row limit N = 64 and just past it; head
+# dim 128 at N = 33 (the wgmma stage); 577 tokens without and with a bias
+# (two passes, K and V resident; the shape the CUDA-core design of before
+# could not hold in shared memory); 1025 at head dim 128 (K and V loaded
+# block by block); 300 (two blocks of 256 keys).
+ATTN_SHAPES = [(24, 49, 32, 6), (6, 197, 64, None), (4, 17, 8, 2), (3, 64, 64, 1), (2, 65, 32, 2), (2, 33, 128, None),
+               (24, 197, 64, 12), (6, 577, 64, None), (6, 577, 64, 3), (4, 1025, 128, 2), (4, 300, 64, 2)]
 
 
 def _attn_inputs(cuda, shape, dtype):
@@ -470,6 +476,52 @@ def test_attention_kernel_row_far_below(cuda, dtype, bound):
     assert float((out.float() - ref).abs().max()) < bound
 
 
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_attention_kernel_minus_inf_bias_block(cuda, dtype, bound):
+    """A bias of -inf on keys 0-255 of some rows, finite after them: the
+    first block of the two-pass kernel holds no finite score for those rows,
+    and the output must still be finite and equal to the plain version's.
+    A row that is -inf everywhere is NaN in both."""
+    q, k, v, bias = _attn_inputs(cuda, (4, 300, 64, 2), dtype)
+    bias[1, :40, :256] = float("-inf")
+    bias[0, 7, :] = float("-inf")
+    out = A.attention(q, k, v, bias, 0.125).float()
+    ref = A.attention_reference(q.float(), k.float(), v.float(), bias, 0.125)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[:, 0, 7]).all()) and bool(torch.isnan(ref[:, 0, 7]).all())
+    out[:, 0, 7], ref[:, 0, 7] = 0.0, 0.0
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) < bound
+
+
+@pytest.mark.parametrize("shape", [(4, 197, 12, 64), (2, 577, 3, 64), (2, 300, 2, 32), (2, 100, 2, 128),
+                                   (2, 65, 3, 16)], ids=lambda s: "x".join(map(str, s)))
+def test_attention_k2_and_k1_agree_bit_for_bit(cuda, shape):
+    """K2 on (q, k, v) with no bias, K2 with an all-zero compact bias, and K1
+    on the same tensors packed as qkv with H heads run one stage and give the
+    same bits in bf16."""
+    b, n, h, dh = shape
+    qkv = torch.randn(b, n, 3 * h * dh, device=cuda, generator=torch.Generator(cuda).manual_seed(n)).bfloat16()
+    k1 = A.fused_qkv_attention(qkv, h, dh**-0.5)
+    q, k, v = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous() for t in qkv.split(h * dh, dim=-1))
+    k2 = A.attention(q, k, v, None, dh**-0.5)
+    k2_zero = A.attention(q, k, v, torch.zeros(h, n, n, device=cuda), dh**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(k2.transpose(1, 2).reshape(b, n, h * dh), k1)
+    assert torch.equal(k2_zero, k2)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_attention_kernel_takes_any_length(cuda, dtype, bound):
+    """N = 4096 at head dim 64, with a compact bias: the stage loads K and V
+    per block of 256 keys (bf16) or runs its CUDA-core kernel (f32)."""
+    q, k, v, bias = _attn_inputs(cuda, (2, 4096, 64, 1), dtype)
+    out = A.attention(q, k, v, bias)
+    ref = A.attention_reference(q.float(), k.float(), v.float(), bias)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref).abs().max()) < bound
+
+
 def test_attention_kernel_gradient_recomputes_plain(cuda):
     q, k, v, bias = _attn_inputs(cuda, ATTN_SHAPES[2], torch.float32)
     g = torch.randn_like(q)
@@ -483,9 +535,8 @@ def test_attention_kernel_gradient_recomputes_plain(cuda):
 
 @pytest.mark.parametrize(
     "shape,dtype,error",
-    [((1, 8, 160), torch.float32, ValueError), ((1, 8, 64), torch.float16, TypeError),
-     ((1, 4096, 64), torch.bfloat16, RuntimeError)],
-    ids=["head_dim-160", "float16", "too-long-for-shared-memory"],
+    [((1, 8, 160), torch.float32, ValueError), ((1, 8, 64), torch.float16, TypeError)],
+    ids=["head_dim-160", "float16"],
 )
 def test_attention_kernel_refuses(cuda, shape, dtype, error):
     q = torch.zeros(shape, device=cuda, dtype=dtype)

@@ -6,8 +6,15 @@ The same seeded numpy inputs go through the JAX reference
 in interpret mode, and the port's ``ops.attention``, which on a CPU tensor
 runs its plain torch version. f32 at atol 2e-5, the tolerance of the JAX
 kernel's own interpret-mode test (tests/test_ops.py). Also: gradients
-against ``jax.vjp`` of the reference, and the compact bias reaching the op
-uncopied. The CUDA kernel is compared with the plain version in
+against ``jax.vjp`` of the reference, the compact bias reaching the op
+uncopied, and long rows (N 65 to 577, the lengths where the CUDA kernel
+runs the attention stage in one pass or two) in f32 and bf16 with and
+without a bias, and a bias of -inf over the first 256 keys of some rows.
+bf16: atol 2^-9 and rtol 2^-7, as tests/test_torch_attention_stage.py
+states them: both sides round p and the output to bf16 at the same points
+but sum in another order, which can carry a value across a rounding
+midpoint (one bf16 step, 2^-7 relative), and outputs near zero move by far
+less. The CUDA kernel is compared with the plain version in
 tests/test_torch_kernels_cuda.py, on the card.
 """
 import contextlib
@@ -88,6 +95,63 @@ def test_lead_dims_match_jax(bias_shape, jax_path):
     out = ops.attention(*(torch.from_numpy(t) for t in (q, k, v)), None if bias is None else torch.from_numpy(bias), 0.3)
     assert out.shape == (2, 3, 17, 8)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+LONG_N = (65, 197, 256, 257, 577)
+LONG_HEAD_DIMS = (16, 64, 128)
+TOL = {"f32": dict(atol=2e-5, rtol=0.0), "bf16": dict(atol=2**-9, rtol=2**-7)}
+
+
+def _long_inputs(n, dh, with_bias, dtype, bias_rows=None):
+    """q, k, v (2, 3, n, dh) from seeded numpy, in dtype for both frameworks,
+    and a compact f32 bias (3, n, n) or None; bias_rows, if given, sets the
+    bias of those rows of head 1 to -inf over keys 0-255."""
+    q, k, v = (_rand(2, 3, n, dh, seed=n * 1000 + dh * 10 + s) for s in range(3))
+    bias = _rand(3, n, n, seed=n * 1000 + dh * 10 + 3) if with_bias else None
+    if bias_rows is not None:
+        bias[1, bias_rows, :256] = -np.inf
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jx = [jnp.asarray(t).astype(jdt) for t in (q, k, v)] + [None if bias is None else jnp.asarray(bias)]
+    tx = [torch.from_numpy(t).to(tdt) for t in (q, k, v)] + [None if bias is None else torch.from_numpy(bias)]
+    return jx, tx
+
+
+def _np(a):
+    return np.asarray(a.astype(jnp.float32)) if isinstance(a, jnp.ndarray) else a.float().numpy()
+
+
+def _jax_pallas(q, k, v, bias, scale):
+    """The JAX Pallas kernels behind ``attention`` on (B, N, Dh), in interpret mode."""
+    calls = []
+    with _jax_kernels(calls):
+        out = A._attention_pallas(*(t.reshape(6, *t.shape[2:]) for t in (q, k, v)), bias, scale)
+    assert len(calls) == 1
+    return out.reshape(q.shape)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["compact-bias", "no-bias"])
+@pytest.mark.parametrize("dh", LONG_HEAD_DIMS)
+@pytest.mark.parametrize("n", LONG_N)
+def test_long_rows_match_jax_reference_and_kernels(n, dh, with_bias, dtype):
+    """Lead dims (2, 3), so that a (3, N, N) bias reaches the op compact."""
+    (jq, jk, jv, jb), (tq, tk, tv, tb) = _long_inputs(n, dh, with_bias, dtype)
+    scale = dh**-0.5
+    out = _np(ops.attention(tq, tk, tv, tb, scale))
+    np.testing.assert_allclose(out, _np(A.attention_reference(jq, jk, jv, jb, scale)), **TOL[dtype])
+    np.testing.assert_allclose(out, _np(_jax_pallas(jq, jk, jv, jb, scale)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_minus_inf_bias_over_the_first_block(dtype):
+    """N = 300 with a bias of -inf on keys 0-255 of some rows and finite
+    after them: every such row still has finite scores, so the output is
+    finite and equals the reference's."""
+    (jq, jk, jv, jb), (tq, tk, tv, tb) = _long_inputs(300, 64, True, dtype, bias_rows=slice(0, 40))
+    out = _np(ops.attention(tq, tk, tv, tb, 0.125))
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, _np(A.attention_reference(jq, jk, jv, jb, 0.125)), **TOL[dtype])
+    np.testing.assert_allclose(out, _np(_jax_pallas(jq, jk, jv, jb, 0.125)), **TOL[dtype])
 
 
 def test_plain_matches_jax_reference_default_scale():
