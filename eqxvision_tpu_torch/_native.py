@@ -3,21 +3,23 @@
 The CUDA C++ sources under ``csrc/`` (with the headers they share) have a
 plain C interface. At first use
 each is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once in
-parallel, and the objects are linked into one shared library under
-``_build/`` beside this file, named by a hash of the sources and the flags,
-and loaded with ``ctypes``. A later process with the same
+parallel (the build log gives each source's seconds), and the objects are
+linked into one shared library under ``_build/`` beside this file, named by
+a hash of the sources and the flags, and loaded with ``ctypes``. A later process with the same
 sources loads the library that is there. Nothing is built when the package
 is imported, and there is no fallback: a missing ``nvcc`` or a failed build
 raises with the compiler's output.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -66,13 +68,19 @@ def _compile(lib_path: Path) -> None:
     stem = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}")
     objs = [Path(f"{stem}.{name}.o") for name in _SOURCES]
     steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / name)] for name, o in zip(_SOURCES, objs)]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in steps]
+
+    def run(cmd):  # (exit code, output, seconds), each source timed on its own
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc.returncode, proc.stdout, time.perf_counter() - start
+
+    with concurrent.futures.ThreadPoolExecutor(len(steps)) as pool:
+        results = list(pool.map(run, steps))
     log, failed = [], []
-    for cmd, proc in zip(steps, procs):
-        output = proc.communicate()[0]
-        log.append(" ".join(cmd) + "\n" + output)
-        if proc.returncode != 0:
-            failed.append(f"{cmd[-1]} (exit code {proc.returncode}):\n{output}")
+    for cmd, (code, output, seconds) in zip(steps, results):
+        log.append(" ".join(cmd) + f"\ncompiled in {seconds:.1f} s\n" + output)
+        if code != 0:
+            failed.append(f"{cmd[-1]} (exit code {code}):\n{output}")
     tmp = Path(f"{stem}.so.tmp")
     if not failed:
         link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]

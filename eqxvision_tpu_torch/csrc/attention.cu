@@ -28,9 +28,9 @@
 //   the ViT attention half run, on separate q, k, v maps with one head a
 //   row (H = 1, D = Dh) and the compact bias: bf16 with Dh a multiple of
 //   16 on TMA-fed wgmma (one pass at N <= 256, two beyond, K and V resident
-//   where they fit, else loaded block by block); f32, and bf16 with other
-//   head dims, on its CUDA-core stage in two passes over 64-key chunks.
-//   Both take any N.
+//   where they fit, else loaded block by block); bf16 with other head dims
+//   on its CUDA-core stage in two passes over 64-key chunks; f32 on its
+//   f32 stage, split TF32 on mma.sync in one pass. All take any N.
 //
 // What bounds it. It must read q, k, v and the compact bias once and write
 // the output once. At swin_t stage 1 through this op (B = 24,576, N = 49,
@@ -53,12 +53,14 @@ bool short_rows(int dtype, int seq_len, int head_dim) {
   return dtype == 1 && seq_len <= eqx_tc::kRows && head_dim % 16 == 0 && head_dim <= 64;
 }
 
-// The kernel eqx_attention takes (at a scale other than 0): 1 the short-row
-// kernel, 2 the attention stage's wgmma kernel, 0 its CUDA-core kernel.
-enum Path { kStageFma = 0, kShortRows = 1, kStageWgmma = 2 };
+// The kernel eqx_attention takes (in bf16 at a scale other than 0): 1 the
+// short-row kernel, 2 the attention stage's wgmma kernel, 0 its CUDA-core
+// kernel; 3 the stage's f32 kernel (split TF32 on mma.sync, one pass).
+enum Path { kStageFma = 0, kShortRows = 1, kStageWgmma = 2, kStageF32 = 3 };
 Path attention_path(int dtype, int seq_len, int head_dim) {
+  if (dtype == 0) return kStageF32;
   if (short_rows(dtype, seq_len, head_dim)) return kShortRows;
-  return stage_uses_wgmma(dtype == 1, head_dim) ? kStageWgmma : kStageFma;
+  return stage_uses_wgmma(true, head_dim) ? kStageWgmma : kStageFma;
 }
 
 // Row stride of the staged q|k|v: 3 * Dh + 2 elements, an odd number of

@@ -34,8 +34,9 @@
 //
 // The attention stage is attention_stage.cuh's, the one K1 runs too: bf16
 // with Dh a multiple of 16 on TMA-fed wgmma, one block per (image, head)
-// that loads the head's K and V once, one pass where L <= 256; f32 and
-// other head dims on a true-f32 CUDA-core stage.
+// that loads the head's K and V once, one pass where L <= 256; bf16 with
+// other head dims on a CUDA-core stage; f32 on its f32 stage (split TF32
+// on mma.sync, one pass). The GEMMs run in f32 by split TF32 too.
 //
 // What bounds it. 2 * rows * D * 4D GEMM operations and 4 * B * H * L^2 *
 // Dh attention operations against x, the weights and out read or written

@@ -98,10 +98,31 @@
 // score) beside the products (PERF.md §6); the bias adds half a load and a
 // multiply a score, and its reads from L2 through L1.
 //
-// f32, and bf16 with Dh % 16 != 0, run a CUDA-core stage in true f32 (no
-// TF32; attention_stage_fma): blocks of 8 warps, 4 query rows a warp, keys
-// in chunks of 64 staged in f32 in shared memory, two passes (a running
-// max and sum, then p and P V), the same bias and -inf handling. Any L.
+// bf16 with Dh % 16 != 0, and bf16 at a scale the wgmma stage cannot take,
+// run a CUDA-core stage in f32 (attention_stage_fma): blocks of 8 warps, 4
+// query rows a warp, keys in chunks of 64 staged in f32 in shared memory,
+// two passes (a running max and sum, then p rounded to bf16 and P V), the
+// same bias and -inf handling. Any L.
+//
+// f32 runs its own stage (attention_stage_f32): in f32 p's rounding before
+// P V is the identity, so one pass with an online softmax computes the same
+// function with the f32 sums in another order. Blocks of four warps own 64
+// query rows of an (image, head), 16 a warp, and stream K and V in chunks
+// of 32 keys double-buffered by cp.async; S = Q K^T and
+// P V run on the tensor cores by mma.sync m16n8k8 TF32 in split TF32 (each
+// operand hi + lo, three products: about 22 bits of each product kept, as
+// the f32 GEMM of gemm_bf16.cuh does), the softmax on the CUDA cores in
+// f32 with the bias added after the scaled product. The split TF32 error is
+// relative to |q| |k| and |p| |v|, not to a score's magnitude, since the
+// bias is not in the products. Head dims round up to 16 (zero columns).
+// What bounds it: 0.19 ms of f32 bytes at vit_base b256, against 30.5
+// GFLOP of products, 0.18 ms at split TF32's 165 TFLOP/s. What holds it
+// back (scripts/ablate_torch_attention_stage.py --dtype float32): the three
+// products on mma.sync (one alone takes half the time) and the splits of
+// K's and V's fragments, repeated by each of the block's four warps (the
+// check that keeps a NaN or an infinity in hi is 8-10% of the stage's
+// time). A register-tiled CUDA-core stage in true f32 took 1.1x its time
+// and the earlier two-pass one 3.2x (PERF.md §6).
 //
 // Limits: Dh <= 128; the wgmma stage needs q, k, v and out 16-byte aligned
 // and D a multiple of 8 (true when Dh % 16 == 0), and L below 2^31; the
@@ -127,7 +148,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// ---- CUDA-core stage (f32, or bf16 with Dh % 16 != 0) ----
+// ---- CUDA-core stage (bf16 with Dh % 16 != 0 or a scale the wgmma stage cannot take) ----
 constexpr int kFmaWarps = 8;
 constexpr int kFmaThreads = 32 * kFmaWarps;
 constexpr int kFmaRows = 4;  // query rows per warp
@@ -313,6 +334,289 @@ cudaError_t launch_fma_stage(const FmaArgs<T>& a, int batch, cudaStream_t stream
     case 2: return launch_fma<T, 2>(a, batch, stream);
     case 3: return launch_fma<T, 3>(a, batch, stream);
     case 4: return launch_fma<T, 4>(a, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- f32 stage: one pass, split TF32 on mma.sync ----
+constexpr int kF32StageThreads = 128;  // four warps of 16 query rows
+constexpr int kF32StageRows = 64;
+
+// Keys a staged chunk holds: 32, so that at head dims up to 64 three blocks
+// share an SM (69,632 bytes of shared memory a block at 64).
+constexpr int kF32StageKeys = 32;
+// Row stride in floats of Q, K and V in shared memory: with dhp a multiple of
+// 16, the fragment reads (8 rows x 4 columns for Q and K, 4 row pairs x 8
+// columns for V) each hit 32 distinct banks.
+__host__ __device__ constexpr int f32_stage_stride(int dhp) { return dhp + 4; }
+
+size_t f32_stage_smem_bytes(int dhp) {
+  // Q's hi and lo, then two buffers of K and V as loaded
+  return sizeof(float) * (size_t)f32_stage_stride(dhp) * (2 * kF32StageRows + 4 * kF32StageKeys);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+// d += a b on TF32 operands, m16n8k8: a (row g, col t), (g + 8, t), (g, t +
+// 4), (g + 8, t + 4); b (row t, col g), (t + 4, g); d (g, 2 t), (g, 2 t +
+// 1), (g + 8, 2 t), (g + 8, 2 t + 1), with g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// hi a hi b + hi a lo b + lo a hi b, the small products first.
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], uint32_t bh0,
+                                          uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// The f32 stage. A block of four warps owns 64 query rows of an (image,
+// head), each warp 16, and streams the head's K and V in chunks of 32 keys,
+// double-buffered by cp.async (16-byte pieces where rows allow, else 4-byte
+// ones; rows past L and columns past Dh zero-filled). Q is split once into
+// hi and lo in shared memory; K, V and P are split in registers as their
+// fragments are read. S = Q K^T and O += P V each take three mma.sync
+// m16n8k8 TF32 products. One pass with an online softmax: p is not rounded
+// in f32, so O is rescaled by exp(m_old - m_new) as the row max grows and
+// divided by the row sum at the end. P's accumulator registers serve as
+// P V's A operand unmoved: A's k index t stands for key 2 t of the 8-key
+// group and t + 4 for key 2 t + 1, and V's fragment is read with the same
+// permutation. Key groups of 8 wholly past L are skipped, as are warps
+// whose 16 rows are all past L.
+template <int DHP>
+__global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const FmaArgs<float> a) {
+  constexpr int KC = kF32StageKeys, S = f32_stage_stride(DHP), NB = KC / 8, ND = DHP / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQh = reinterpret_cast<float*>(smem);  // kF32StageRows x S
+  float* sQl = sQh + kF32StageRows * S;
+  float* sKV = sQl + kF32StageRows * S;  // [2][K KC x S, V KC x S]
+
+  const int L = a.seq_len, Dh = a.head_dim, n_qtiles = a.n_qtiles;
+  const int qt = blockIdx.x % n_qtiles;
+  const int h = (blockIdx.x / n_qtiles) % a.num_heads;
+  const long long b = blockIdx.x / ((unsigned)n_qtiles * a.num_heads);
+  const int D = a.num_heads * Dh;
+  const long long ld = a.ld, off = b * L * ld + h * Dh;
+  const float* qb = a.q + off;
+  const float* kb = a.k + off;
+  const float* vb = a.v + off;
+  const int q0 = qt * kF32StageRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const bool vec = Dh % 4 == 0 && ld % 4 == 0 && reinterpret_cast<uintptr_t>(kb) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(vb) % 16 == 0;
+
+  // keys j0 .. j0 + KC of K and V into buffer buf
+  auto load_kv = [&](int j0, int buf) {
+    float* sK = sKV + buf * 2 * KC * S;
+    float* sV = sK + KC * S;
+    if (vec) {
+      constexpr int P = DHP / 4;
+      for (int idx = threadIdx.x; idx < KC * P; idx += kF32StageThreads) {
+        const int j = idx / P, d = (idx % P) * 4;
+        const bool ok = j0 + j < L && d < Dh;
+        const long long at = ok ? (long long)(j0 + j) * ld + d : 0;
+        cp_async16(sK + j * S + d, kb + at, ok);
+        cp_async16(sV + j * S + d, vb + at, ok);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < KC * DHP; idx += kF32StageThreads) {
+        const int j = idx / DHP, d = idx % DHP;
+        const bool ok = j0 + j < L && d < Dh;
+        const long long at = ok ? (long long)(j0 + j) * ld + d : 0;
+        cp_async4(sK + j * S + d, kb + at, ok);
+        cp_async4(sV + j * S + d, vb + at, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  load_kv(0, 0);
+  // Q's tile, split once: every load of a thread issued before its stores
+  auto store_q = [&](int r, int d, float x) {
+    split_tf32(x, sQh[r * S + d], sQl[r * S + d]);
+  };
+  if (vec && reinterpret_cast<uintptr_t>(qb) % 16 == 0) {
+    constexpr int P = DHP / 4, N = kF32StageRows * P / kF32StageThreads;  // 16-byte pieces: a row's, a thread's
+    float4 x[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int idx = threadIdx.x + kF32StageThreads * i, r = idx / P, d = (idx % P) * 4;
+      x[i] = q0 + r < L && d < Dh ? *reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * ld + d)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int idx = threadIdx.x + kF32StageThreads * i, r = idx / P, d = (idx % P) * 4;
+      store_q(r, d, x[i].x);
+      store_q(r, d + 1, x[i].y);
+      store_q(r, d + 2, x[i].z);
+      store_q(r, d + 3, x[i].w);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kF32StageRows * DHP; idx += kF32StageThreads) {
+      const int r = idx / DHP, d = idx % DHP;
+      store_q(r, d, q0 + r < L && d < Dh ? qb[(long long)(q0 + r) * ld + d] : 0.f);
+    }
+  }
+
+  const int r0 = warp * 16;  // the warp's rows of the tile: r0 + g and r0 + g + 8
+  const bool active = q0 + r0 < L;
+  const float* bias_b = a.bias == nullptr ? nullptr : a.bias + (b % a.n_bias) * L * a.bias_ld;
+  const float* brow[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    brow[rr] = bias_b == nullptr ? nullptr : bias_b + (long long)min(q0 + r0 + g + 8 * rr, L - 1) * a.bias_ld;
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  const int n_chunks = (L + KC - 1) / KC;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int j0 = c * KC;
+    if (c + 1 < n_chunks) {
+      load_kv(j0 + KC, (c + 1) & 1);  // its buffer's readers finished at the previous chunk's barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c (and, at c = 0, Q) is in shared memory
+    if (active) {
+      const float* sK = sKV + (c & 1) * 2 * KC * S;
+      const float* sV = sK + KC * S;
+      const int groups = min(KC, L - j0);  // keys of this chunk below L
+      float sc[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < ND; ++ks) {
+        const float* qh = sQh + (r0 + g) * S + 8 * ks + t;
+        const float* ql = sQl + (r0 + g) * S + 8 * ks + t;
+        const uint32_t ah[4] = {__float_as_uint(qh[0]), __float_as_uint(qh[8 * S]), __float_as_uint(qh[4]),
+                                __float_as_uint(qh[8 * S + 4])};
+        const uint32_t al[4] = {__float_as_uint(ql[0]), __float_as_uint(ql[8 * S]), __float_as_uint(ql[4]),
+                                __float_as_uint(ql[8 * S + 4])};
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          if (8 * j < groups) {
+            const float* kr = sK + (8 * j + g) * S + 8 * ks + t;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32_bits(kr[0], bh0, bl0);
+            split_tf32_bits(kr[4], bh1, bl1);
+            mma_split(sc[j], ah, al, bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+      // s = (q . k) scale + bias, -inf past L; the rows' running max
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j0 + 8 * j + 2 * t + (e & 1), rr = e >> 1;
+          float x = sc[j][e] * a.scale;
+          if (bias_b != nullptr) x += brow[rr][min(key, L - 1)];
+          x = key < L ? x : -INFINITY;
+          sc[j][e] = x;
+          mx[rr] = fmaxf(mx[rr], x);
+        }
+      float m_ref[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float m_new = fmaxf(m[rr], quad_max(mx[rr]));
+        // a row whose keys so far are all -inf (a -inf bias) is exponentiated
+        // against 0, so that its sum and O stay 0 rather than NaN
+        m_ref[rr] = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f((m[rr] - m_ref[rr]) * kLog2e);
+        l[rr] *= alpha;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          o[n][2 * rr] *= alpha;
+          o[n][2 * rr + 1] *= alpha;
+        }
+        m[rr] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = exp2f((sc[j][e] - m_ref[e >> 1]) * kLog2e);
+          sc[j][e] = pe;
+          l[e >> 1] += pe;
+        }
+      // O += P V over the chunk's key groups
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (8 * j < groups) {
+          uint32_t ph[4], pl[4];
+          split_tf32_bits(sc[j][0], ph[0], pl[0]);  // row g, key 2 t: A (g, t)
+          split_tf32_bits(sc[j][2], ph[1], pl[1]);  // row g + 8, key 2 t: A (g + 8, t)
+          split_tf32_bits(sc[j][1], ph[2], pl[2]);  // row g, key 2 t + 1: A (g, t + 4)
+          split_tf32_bits(sc[j][3], ph[3], pl[3]);  // row g + 8, key 2 t + 1: A (g + 8, t + 4)
+          const float* vr = sV + (8 * j + 2 * t) * S + g;
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32_bits(vr[8 * n], bh0, bl0);      // key 2 t: B (t, g)
+            split_tf32_bits(vr[S + 8 * n], bh1, bl1);  // key 2 t + 1: B (t + 4, g)
+            mma_split(o[n], ph, pl, bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with buffer c & 1
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + r0 + g + 8 * rr;
+    const float inv = 1.f / quad_sum(l[rr]);  // a row that is -inf everywhere: 0 / 0, NaN, as the reference
+    if (row >= L) continue;
+    float* dst = a.out + ((long long)b * L + row) * D + h * Dh;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * n + 2 * t + e;
+        if (d < Dh) dst[d] = o[n][2 * rr + e] * inv;
+      }
+  }
+}
+
+template <int DHP>
+cudaError_t launch_f32(FmaArgs<float> a, int batch, cudaStream_t stream) {
+  a.n_qtiles = (a.seq_len + kF32StageRows - 1) / kF32StageRows;
+  const long long blocks = (long long)batch * a.num_heads * a.n_qtiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const size_t smem = f32_stage_smem_bytes(DHP);
+  auto kernel = attention_stage_f32<DHP>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, kF32StageThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The f32 stage on `a` (operands, bias and shape filled in) over batch
+// images, at the head dim rounded up to 16.
+cudaError_t launch_f32_stage(const FmaArgs<float>& a, int batch, cudaStream_t stream) {
+  switch ((a.head_dim + 15) / 16) {
+    case 1: return launch_f32<16>(a, batch, stream);
+    case 2: return launch_f32<32>(a, batch, stream);
+    case 3: return launch_f32<48>(a, batch, stream);
+    case 4: return launch_f32<64>(a, batch, stream);
+    case 5: return launch_f32<80>(a, batch, stream);
+    case 6: return launch_f32<96>(a, batch, stream);
+    case 7: return launch_f32<112>(a, batch, stream);
+    case 8: return launch_f32<128>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -835,7 +1139,11 @@ cudaError_t launch_attention_stage(const void* qkv, void* out, int batch, int se
   f.num_heads = num_heads;
   f.head_dim = head_dim;
   f.scale = scale;
-  return launch_fma_stage<T>(f, batch, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_f32_stage(f, batch, stream);
+  } else {
+    return launch_fma_stage<T>(f, batch, stream);
+  }
 }
 
 // The stage on separate q, k, v (batch, seq_len, head_dim) into out of the
@@ -885,7 +1193,11 @@ cudaError_t launch_attention_stage_qkv(const void* q, const void* k, const void*
   f.num_heads = 1;
   f.head_dim = head_dim;
   f.scale = scale;
-  return launch_fma_stage<T>(f, batch, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_f32_stage(f, batch, stream);
+  } else {
+    return launch_fma_stage<T>(f, batch, stream);
+  }
 }
 
 template <int DH, bool kBias>
@@ -929,8 +1241,8 @@ int attention_stage_config(int seq_len, int head_dim, int* out) {
 // Dynamic shared memory one block of the stage needs; for error messages and reports.
 long long attention_stage_smem_bytes(int seq_len, int head_dim, bool is_bf16) {
   if (seq_len <= 0 || head_dim <= 0 || head_dim > kStageMaxHeadDim) return 0;
-  return stage_uses_wgmma(is_bf16, head_dim) ? stage_wgmma_smem_bytes(stage_kv_rows(seq_len, head_dim), head_dim)
-                                             : (long long)fma_smem_bytes(head_dim);
+  if (stage_uses_wgmma(is_bf16, head_dim)) return stage_wgmma_smem_bytes(stage_kv_rows(seq_len, head_dim), head_dim);
+  return is_bf16 ? (long long)fma_smem_bytes(head_dim) : (long long)f32_stage_smem_bytes((head_dim + 15) / 16 * 16);
 }
 
 }  // namespace

@@ -17,8 +17,9 @@
 // (attention_half.cu) runs on its qkv workspace and the public attention
 // (attention.cu) on its long rows: bf16 with Dh a multiple of 16 on
 // TMA-fed wgmma, one block per (image, head) that loads the head's K and V
-// once, one pass where L <= 256; f32 and other head dims on a true-f32
-// CUDA-core stage. Any L. The note there says what bounds it.
+// once, one pass where L <= 256; bf16 with other head dims on a CUDA-core
+// stage; f32 on its f32 stage, split TF32 on mma.sync in one pass. Any L.
+// The note there says what bounds it.
 // Limits: head_dim <= 128; in bf16 with head_dim % 16 == 0, qkv and out
 // 16-byte aligned; the entry point returns cudaErrorInvalidValue otherwise.
 

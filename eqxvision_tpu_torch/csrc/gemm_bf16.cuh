@@ -69,11 +69,35 @@
 // run in the issuing warps, run beside no products. At vit_base b256 fc1
 // the products alone would take 0.36 ms with the pass and 0.25 without it;
 // the epilogue adds 0.36 (gelu 0.12 of it).
-// f32 runs true f32 FMAs on the CUDA cores (no TF32): 64 x 64 tiles, a 4 x 4
-// register tile per thread.
-// Limits: K and N multiples of 8, A, W and out 16-byte aligned (the callers
-// check them); in bf16 M below 2^31 and, with kNormA, K at most 12,344
-// (the LayerNorm vectors beside the narrowest tile's ring).
+// f32 runs on the same tensor cores by split TF32 (gemm_f32_kernel): each
+// operand x becomes hi = tf32(x) and lo = tf32(x - hi), rounded to nearest,
+// and each product hi hi + hi lo + lo hi (wgmma m64nBNk8 .tf32, f32
+// accumulators), which keeps about 22 of f32's 24 bits a product, where one
+// TF32 product keeps 11: three TF32 products at 495 TFLOP/s bound it at
+// 165 TFLOP/s, against 67 for f32 FMAs on the CUDA cores. Both GEMMs run
+// one skeleton, gemm_body (producer warp, two consumer warpgroups of 64
+// rows, a persistent grid, the epilogue through shared memory, in f32 as
+// 16-byte pieces of four floats); only the consumers' k-loop differs. A
+// stage holds 128 x 32 floats of A and BN x 32 of
+// W (a 32-float k-tile is one 128-byte swizzle row; three stages, BN 128,
+// or 96 where that pads N less), as TMA wrote them, plus A's and W's lo
+// halves: once a stage lands, each consumer warpgroup normalises its 64 A
+// rows in place (the LayerNorm in f32, gamma and beta read from L1, masked
+// rows zeroed) and splits them, hi in place and lo beside, splits half of
+// W's rows the same way, and a barrier of both warpgroups hands the stage
+// to wgmma. Splitting W in the kernel costs the consumers a pass over W's
+// tile per k-tile, beside the products of the stage before, and needs no
+// scratch copy of the weights. The tensor cores add each product into their
+// accumulator rounding toward zero, so each k-tile's products start from
+// zero and are added to the tile's sum in f32; the next stage's split runs
+// while they do. At vit_base b256 it reaches 69-85 TFLOP/s of f32 products
+// (fc1 with its LayerNorm pass the least; 71-91 before the split kept
+// non-finite values), where a register-tiled CUDA-core SGEMM took 47
+// (scripts/ablate_torch_gemm_f32.py) and F.linear 52.
+// Limits: K and N multiples of 8 for bf16, of 4 for f32, A, W and out
+// 16-byte aligned (the callers check them); M below 2^31; in bf16 with
+// kNormA, K at most 12,344 (the LayerNorm vectors beside the narrowest
+// tile's ring).
 //
 // Everything here has internal linkage: each source that includes the
 // header gets its own copy of the kernels it instantiates.
@@ -95,7 +119,7 @@ namespace {
 
 using eqx_tc::warp_sum;
 
-constexpr int kGemmThreads = 256;  // row statistics and the f32 GEMM
+constexpr int kGemmThreads = 256;  // row statistics
 constexpr int kGemmWarps = kGemmThreads / 32;
 // bf16 wgmma GEMM: a producer warpgroup, then two consumer warpgroups
 constexpr int kWarpgroup = 128;
@@ -104,8 +128,10 @@ constexpr int kBM = 128, kBK = 64, kStages = 4;
 constexpr int kATileBytes = kBM * kBK * 2;
 constexpr int kEpiCols = 32;            // accumulator columns a warpgroup stages at a time
 constexpr int kMaxSmemBytes = 232448;   // shared memory one block may opt into (227 KB)
-// f32 CUDA-core GEMM
-constexpr int kFM = 64, kFN = 64, kFK = 16;
+// f32 split-TF32 GEMM: k-tiles of 32 floats (one 128-byte swizzle row),
+// three stages of A, A's lo, W and W's lo
+constexpr int kFK = 32, kF32Stages = 3;
+constexpr int kF32ATileBytes = kBM * kFK * 4;
 
 __host__ __device__ constexpr int gemm_stage_bytes(int bn) { return kATileBytes + bn * kBK * 2; }
 
@@ -116,6 +142,15 @@ __host__ __device__ constexpr int gemm_smem_bytes(int bn) {
   return 1024 + kStages * gemm_stage_bytes(bn) + 2 * 64 * kEpiCols * 4 + 2 * 2 * bn * 4 + 2 * kStages * 8;
 }
 constexpr int kGemmSmemBytes = gemm_smem_bytes(256);  // the widest tile's
+
+__host__ __device__ constexpr int gemm_f32_stage_bytes(int bn) { return 2 * kF32ATileBytes + 2 * bn * kFK * 4; }
+
+// Dynamic shared memory of one f32 block: alignment slack, the ring, two
+// epilogue buffers, bias and scale per warpgroup, barriers (at BN = 128,
+// 216,112 bytes).
+__host__ __device__ constexpr int gemm_f32_smem_bytes(int bn) {
+  return 1024 + kF32Stages * gemm_f32_stage_bytes(bn) + 2 * 64 * kEpiCols * 4 + 2 * 2 * bn * 4 + 2 * kF32Stages * 8;
+}
 
 enum Epilogue { kBias = 0, kBiasGelu = 1, kBiasResidual = 2, kRoundedBias = 3 };
 
@@ -165,15 +200,6 @@ struct GemmArgs {
   long long valid_period;
 };
 
-template <bool kMaskRows>
-__device__ __forceinline__ bool row_reads_a(const GemmArgs& p, long long r) {
-  if constexpr (kMaskRows) {
-    return r < p.M && p.row_valid[r % p.valid_period] != 0;
-  } else {
-    return r < p.M;
-  }
-}
-
 // The epilogue's arithmetic on one f32 accumulator, with the column's bias
 // and scale (1 where there is none) and the row's residual in f32.
 template <typename T, int kEpi>
@@ -189,17 +215,6 @@ __device__ __forceinline__ float finish(float acc, float bias, float scale, floa
     } else {
       return y;
     }
-  }
-}
-
-template <typename T, int kEpi>
-__device__ __forceinline__ float epilogue(const GemmArgs& p, long long r, int n, float acc) {
-  const float bias = param(p.bias, p.param_bf16, n);
-  if constexpr (kEpi == kBiasResidual) {
-    const float scale = p.scale != nullptr ? param(p.scale, p.param_bf16, n) : 1.f;
-    return finish<T, kEpi>(acc, bias, scale, to_f32(static_cast<const T*>(p.residual)[r * p.N + n]));
-  } else {
-    return finish<T, kEpi>(acc, bias, 1.f, 0.f);
   }
 }
 
@@ -466,36 +481,144 @@ __device__ __forceinline__ int epi_index(int row, int col) {
   return row * kEpiCols + ((((col >> 2) ^ (((row & 3) << 1) | (row & 1)))) << 2) + (col & 3);
 }
 
-struct Bf16Gemm {
-  CUtensorMap a_map;  // A (M, K): boxes of kBM rows x kBK, 128-byte swizzle
-  CUtensorMap w_map;  // W (N, K): boxes of BN rows x kBK, 128-byte swizzle
+// ---- f32: split TF32 ("3xTF32") on wgmma ----
+// Each f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest (cvt.rna), so that x = hi + lo + r with |r| <= 2^-22
+// |x|; each product is hi_a hi_w + hi_a lo_w + lo_a hi_w (lo_a lo_w, below
+// 2^-22 of it, is dropped), accumulated in f32 by the tensor cores.
+
+// x rounded to TF32 (the low 13 of its 23 mantissa bits cleared) to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds, in two integer
+// operations on the full-rate pipe: half of the dropped unit added to the
+// magnitude bits carries into the kept ones exactly when the dropped bits
+// are at least half a unit. For a finite x only: in a NaN the carry runs on
+// through the exponent into the sign (the card's canonical NaN, 0x7FFFFFFF,
+// becomes -0).
+__device__ __forceinline__ uint32_t tf32_rna_bits(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
+// hi = tf32(x), lo = tf32(x - hi), as TF32 operand bits. A NaN or an
+// infinity is kept in hi as it is (one comparison and a select), so every
+// product with it is non-finite, whatever lo (then rounded from a NaN)
+// holds.
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi, uint32_t& lo) {
+  hi = fabsf(x) < INFINITY ? tf32_rna_bits(x) : __float_as_uint(x);
+  lo = tf32_rna_bits(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  uint32_t h, l;
+  split_tf32_bits(x, h, l);
+  hi = __uint_as_float(h);
+  lo = __uint_as_float(l);
+}
+
+// D (+)= A B^T on TF32 operands, k = 8 (32 bytes of a 128-byte swizzle row,
+// so the descriptors and their k-step of +2 are the bf16 ones).
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\nwgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n96k8(float (&d)[48], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\nwgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47}, "
+      "%48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32_tile(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  if constexpr (BN == 128) {
+    wgmma_tf32_m64n128k8(d, desc_a, desc_b, accumulate);
+  } else {
+    static_assert(BN == 96, "f32 column tiles are 128 or 96 wide");
+    wgmma_tf32_m64n96k8(d, desc_a, desc_b, accumulate);
+  }
+}
+
+// Eight f32 values of a row: a lane's piece of the f32 residual.
+struct F32x8 {
+  float4 h[2];
+};
+
+// The kernels' one argument: the operands' TMA maps and the GEMM.
+struct GemmMaps {
+  CUtensorMap a_map;  // A (M, K): boxes of kBM rows x one k-tile, 128-byte swizzle
+  CUtensorMap w_map;  // W (N, K): boxes of BN rows x one k-tile, 128-byte swizzle
   GemmArgs p;
 };
 
-// bf16 on the tensor cores; see the note at the top. Warpgroup 0 is the
+// k-tile depth of T's GEMM: 64 bf16 or 32 floats, one 128-byte swizzle row.
+template <typename T>
+constexpr int kDepth = std::is_same<T, float>::value ? kFK : kBK;
+
+// T's ring: stages, bytes a stage, W's offset in a stage, and the bytes TMA
+// writes into one. An f32 stage also holds A's and W's lo halves, which the
+// consumers write.
+template <typename T, int BN>
+struct GemmRing {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kStageCount = kF32 ? kF32Stages : kStages;
+  static constexpr int kStageBytes = kF32 ? gemm_f32_stage_bytes(BN) : gemm_stage_bytes(BN);
+  static constexpr int kWOffset = kF32 ? 2 * kF32ATileBytes : kATileBytes;
+  static constexpr int kLoadBytes = kF32 ? kF32ATileBytes + BN * kFK * 4 : kStageBytes;
+};
+
+// One skeleton for both GEMMs (see the note at the top): warpgroup 0 is the
 // producer (one thread issues the loads), warpgroups 1 and 2 the consumers
-// of rows 0 .. 63 and 64 .. 127 of each 128 x BN output tile.
-template <bool kNormA, int kEpi, bool kMaskRows, int BN>
-__global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid_constant__ Bf16Gemm g) {
+// of rows 0 .. 63 and 64 .. 127 of each 128 x BN output tile, a persistent
+// grid, the epilogue through shared memory. Only the consumers' k-loop
+// differs. bf16: the LayerNorm / mask pass in place, then wgmma m64nBNk16
+// into the tile's accumulator. f32: each warpgroup normalises and splits
+// its own 64 rows of A and half of W's rows (hi in place, lo beside), a
+// barrier of both warpgroups hands the stage to wgmma, and each k-tile's
+// products are summed into the accumulator in f32.
+template <typename T, bool kNormA, int kEpi, bool kMaskRows, int BN>
+__device__ __forceinline__ void gemm_body(const GemmMaps& g) {
   using bf16 = __nv_bfloat16;
-  constexpr int kStageBytes = gemm_stage_bytes(BN);
+  using Ring = GemmRing<T, BN>;
+  constexpr bool kF32 = Ring::kF32;
+  constexpr int kStageN = Ring::kStageCount, kStageBytes = Ring::kStageBytes;
   constexpr bool kTransformA = kNormA || kMaskRows;
   const GemmArgs& p = g.p;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;  // the swizzle's alignment
-  float* epi_buf = reinterpret_cast<float*>(smem + kStages * kStageBytes);  // [2][64 x kEpiCols]
+  float* epi_buf = reinterpret_cast<float*>(smem + kStageN * kStageBytes);  // [2][64 x kEpiCols]
   float* vec = epi_buf + 2 * 64 * kEpiCols;                                 // [2][bias BN, scale BN]
   uint64_t* full = reinterpret_cast<uint64_t*>(vec + 4 * BN);
-  uint64_t* empty = full + kStages;
-  float* ln = reinterpret_cast<float*>(empty + kStages);  // kNormA: gamma (K), beta (K)
+  uint64_t* empty = full + kStageN;
+  float* ln = reinterpret_cast<float*>(empty + kStageN);  // bf16 kNormA: gamma (K), beta (K)
 
   const int n_cols = (p.N + BN - 1) / BN;
   const long long n_tiles = (p.M + kBM - 1) / kBM * n_cols;
-  const int k_tiles = (p.K + kBK - 1) / kBK;
+  const int k_tiles = (p.K + kDepth<T> - 1) / kDepth<T>;
   const int wg = threadIdx.x / kWarpgroup;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kStageN; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
@@ -508,16 +631,16 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
     if (threadIdx.x == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&g.a_map)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&g.w_map)) : "memory");
-      uint32_t it = 0;  // stage uses so far: stage it % kStages, round it / kStages
+      uint32_t it = 0;  // stage uses so far: stage it % kStageN, round it / kStageN
       for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const int m0 = (int)(tile / n_cols) * kBM, n0 = (int)(tile % n_cols) * BN;
         for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-          const int s = it % kStages;
-          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);  // round 0 finds the stage free
+          const int s = it % kStageN;
+          mbar_wait(&empty[s], ((it / kStageN) & 1) ^ 1);  // round 0 finds the stage free
           unsigned char* stage = smem + s * kStageBytes;
-          mbar_arrive_expect_tx(&full[s], kStageBytes);
-          tma_load_2d(stage, &g.a_map, &full[s], kt * kBK, m0);
-          tma_load_2d(stage + kATileBytes, &g.w_map, &full[s], kt * kBK, n0);
+          mbar_arrive_expect_tx(&full[s], Ring::kLoadBytes);
+          tma_load_2d(stage, &g.a_map, &full[s], kt * kDepth<T>, m0);
+          tma_load_2d(stage + Ring::kWOffset, &g.w_map, &full[s], kt * kDepth<T>, n0);
         }
       }
     }
@@ -526,16 +649,17 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
     const int ct = threadIdx.x - kWarpgroup;  // consumer thread, 0 .. 255
     const int cw = wg - 1;                    // consumer warpgroup: rows 64 cw .. 64 cw + 63 of a tile
     const int wt = ct % kWarpgroup, warp = wt / 32, lane = wt % 32;
-    if constexpr (kNormA) {
+    if constexpr (kNormA && !kF32) {
       for (int k = ct; k < p.K; k += 2 * kWarpgroup) {
         ln[k] = param(p.ln_w, p.param_bf16, k);
         ln[p.K + k] = param(p.ln_b, p.param_bf16, k);
       }
       named_barrier(3, 2 * kWarpgroup);
     }
-    // The LayerNorm / mask pass: this thread's logical 16-byte piece of each
-    // k-tile, in rows tr0 + 16 i (i < 4) of the warpgroup's 64, with each
-    // row's statistics and flag loaded a tile ahead.
+    // The LayerNorm / mask pass (and in f32 the split): this thread's
+    // logical 16-byte piece of each k-tile, in rows tr0 + 16 i (i < 4) of
+    // the warpgroup's 64, with each row's statistics and flag loaded a tile
+    // ahead.
     const int piece = wt % 8, tr0 = wt / 8;
     float2 stat[4], next_stat[4];
     bool reads[4], next_reads[4];
@@ -554,11 +678,28 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
     constexpr int kVec = (BN + kWarpgroup - 1) / kWarpgroup;
     float* sv = vec + cw * 2 * BN;  // [bias BN, scale BN] of the tile, in f32
     float* buf = epi_buf + cw * 64 * kEpiCols;
-    bf16* out = static_cast<bf16*>(p.out);
-    const bf16* residual = static_cast<const bf16*>(p.residual);
+    T* out = static_cast<T*>(p.out);
+    const T* residual = static_cast<const T*>(p.residual);
+    // this warpgroup's residual rows into L2 from four k-tiles before the
+    // tile's end (earlier, the operand stream evicts them): one 128-byte
+    // line of kLine columns a request
+    constexpr int kLine = 128 / (int)sizeof(T);
+    auto prefetch_residual = [&](int kt, long long m0, int n0) {
+      if constexpr (kEpi == kBiasResidual) {
+        if (kt == (k_tiles > 4 ? k_tiles - 4 : 0)) {
+          for (int j = wt / 64; j * kLine < BN; j += 2) {
+            const long long r = m0 + 64 * cw + wt % 64;
+            const int n = n0 + kLine * j;
+            if (r < p.M && n < p.N) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(residual + r * p.N + n));
+          }
+        }
+      }
+    };
     float acc[BN / 2];
+    if constexpr (!kF32) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    }
     uint32_t it = 0;
     for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const long long m0 = tile / n_cols * kBM;
@@ -572,67 +713,151 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
         scale_c[j] = ok && kEpi == kBiasResidual && p.scale ? param(p.scale, p.param_bf16, n) : 1.f;
       }
 
-      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-        if constexpr (kEpi == kBiasResidual) {
-          // this warpgroup's residual rows into L2 while the last four
-          // k-tiles' products run (earlier, the operand stream evicts them)
-          if (kt == (k_tiles > 4 ? k_tiles - 4 : 0)) {
-            for (int j = wt / 64; j * 64 < BN; j += 2) {
-              const long long r = m0 + 64 * cw + wt % 64;
-              const int n = n0 + 64 * j;
-              if (r < p.M && n < p.N) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(residual + r * p.N + n));
-            }
-          }
-        }
-        const int s = it % kStages;
-        mbar_wait(&full[s], (it / kStages) & 1);
-        unsigned char* stage = smem + s * kStageBytes;
-        unsigned char* a_tile = stage + cw * 64 * 128;  // this warpgroup's 64 rows, 1024-byte aligned
-        if constexpr (kTransformA) {
-          // rows past M and k past K arrived as zeros and stay so; a masked
-          // row becomes zeros; the others are normalised in place
-          const int k = kt * kBK + 8 * piece;
-          float gam[8], bet[8];
-          if (kNormA && k < p.K) {
-            const float4* gp = reinterpret_cast<const float4*>(ln + k);
-            const float4* bp = reinterpret_cast<const float4*>(ln + p.K + k);
-            const float4 g0 = gp[0], g1 = gp[1], b0 = bp[0], b1 = bp[1];
-            gam[0] = g0.x, gam[1] = g0.y, gam[2] = g0.z, gam[3] = g0.w;
-            gam[4] = g1.x, gam[5] = g1.y, gam[6] = g1.z, gam[7] = g1.w;
-            bet[0] = b0.x, bet[1] = b0.y, bet[2] = b0.z, bet[3] = b0.w;
-            bet[4] = b1.x, bet[5] = b1.y, bet[6] = b1.z, bet[7] = b1.w;
+      if constexpr (kF32) {
+        constexpr int kWBytes = BN * kFK * 4;
+        // Stage use u (k-tile kt) made ready for wgmma: A rows past M and k
+        // past K arrived as zeros (their products meet zero rows of W or are
+        // not stored); a masked row becomes zeros; the others are normalised
+        // (gamma and beta read from L1); then every value of this
+        // warpgroup's A rows and half of W's rows is split, hi in place and
+        // lo `lo_at` bytes further. Ends with the fence that orders these
+        // writes before wgmma's reads; the caller then waits at barrier 3 for
+        // the other warpgroup's half of W.
+        auto split_piece = [](float4* at, int lo_at, float4 x) {
+          float4 hi, lo;
+          split_tf32(x.x, hi.x, lo.x);
+          split_tf32(x.y, hi.y, lo.y);
+          split_tf32(x.z, hi.z, lo.z);
+          split_tf32(x.w, hi.w, lo.w);
+          *at = hi;
+          *reinterpret_cast<float4*>(reinterpret_cast<unsigned char*>(at) + lo_at) = lo;
+        };
+        auto prepare = [&](uint32_t u, int kt) {
+          const int s = u % kStageN;
+          mbar_wait(&full[s], (u / kStageN) & 1);
+          unsigned char* stage = smem + s * kStageBytes;
+          unsigned char* a_tile = stage + cw * 64 * 128;  // this warpgroup's 64 rows, 1024-byte aligned
+          unsigned char* w_tile = stage + Ring::kWOffset;
+          const int k = kt * kFK + 4 * piece;
+          float4 gam = make_float4(1.f, 1.f, 1.f, 1.f), bet = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (kNormA && k < p.K) {  // K % 4 == 0: the piece is wholly in or out
+            gam = make_float4(param(p.ln_w, p.param_bf16, k), param(p.ln_w, p.param_bf16, k + 1),
+                              param(p.ln_w, p.param_bf16, k + 2), param(p.ln_w, p.param_bf16, k + 3));
+            bet = make_float4(param(p.ln_b, p.param_bf16, k), param(p.ln_b, p.param_bf16, k + 1),
+                              param(p.ln_b, p.param_bf16, k + 2), param(p.ln_b, p.param_bf16, k + 3));
           }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int tr = tr0 + 16 * i;
-            uint4* dst = reinterpret_cast<uint4*>(a_tile + tr * 128) + (piece ^ (tr % 8));
-            if (!reads[i]) {
-              if (m0 + 64 * cw + tr < p.M) *dst = make_uint4(0u, 0u, 0u, 0u);
-            } else if (kNormA && k < p.K) {
-              uint4 raw = *dst;
-              bf16* v = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                v[e] = __float2bfloat16((__bfloat162float(v[e]) - stat[i].x) * stat[i].y * gam[e] + bet[e]);
-              *dst = raw;
+            float4* at = reinterpret_cast<float4*>(a_tile + tr * 128) + (piece ^ (tr % 8));
+            float4 x = *at;
+            if (kMaskRows && !reads[i]) {
+              x = make_float4(0.f, 0.f, 0.f, 0.f);
+            } else if (kNormA) {
+              const float mean = stat[i].x, rstd = stat[i].y;
+              x = make_float4((x.x - mean) * rstd * gam.x + bet.x, (x.y - mean) * rstd * gam.y + bet.y,
+                              (x.z - mean) * rstd * gam.z + bet.z, (x.w - mean) * rstd * gam.w + bet.w);
             }
+            split_piece(at, kF32ATileBytes, x);
+          }
+#pragma unroll
+          for (int i = 0; i < BN / 32; ++i) {
+            const int tr = cw * (BN / 2) + tr0 + 16 * i;
+            float4* at = reinterpret_cast<float4*>(w_tile + tr * 128) + (piece ^ (tr % 8));
+            split_piece(at, kWBytes, *at);
           }
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes, then wgmma's reads
-          named_barrier(1 + cw, kWarpgroup);
-        }
-        const uint64_t da = sw128_desc(a_tile), db = sw128_desc(stage + kATileBytes);
-        fence_accumulator(acc);
-        wgmma_fence();
+        };
+        // One k-tile's products (part): the tensor cores add each product
+        // into their accumulator rounding toward zero, an error of up to a
+        // unit of the running sum each time, so each k-tile's products start
+        // from zero and are added to acc in f32 (round to nearest). Over K =
+        // 3072 in one accumulator that bias reached 1e-4.
+        float part[BN / 2];
 #pragma unroll
-        for (int ks = 0; ks < kBK / 16; ++ks) wgmma_tile<BN>(acc, da + 2 * ks, db + 2 * ks, kt > 0 || ks > 0);
-        wgmma_commit();
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        // k-tile kt's products run while the warpgroup prepares k-tile kt + 1
+        prepare(it, 0);
+        named_barrier(3, 2 * kWarpgroup);  // both halves of W are split
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          prefetch_residual(kt, m0, n0);
+          unsigned char* stage = smem + (it % kStageN) * kStageBytes;
+          unsigned char* a_tile = stage + cw * 64 * 128;
+          unsigned char* w_tile = stage + Ring::kWOffset;
+          const uint64_t da = sw128_desc(a_tile), da_lo = sw128_desc(a_tile + kF32ATileBytes);
+          const uint64_t dw = sw128_desc(w_tile), dw_lo = sw128_desc(w_tile + kWBytes);
+          fence_accumulator(part);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kFK / 8; ++ks) {
+            // the two small products first, then hi hi
+            wgmma_tf32_tile<BN>(part, da + 2 * ks, dw_lo + 2 * ks, ks > 0);
+            wgmma_tf32_tile<BN>(part, da_lo + 2 * ks, dw + 2 * ks, 1);
+            wgmma_tf32_tile<BN>(part, da + 2 * ks, dw + 2 * ks, 1);
+          }
+          wgmma_commit();
+          fence_accumulator(part);
+          if (kt + 1 < k_tiles) prepare(it + 1, kt + 1);
+          wgmma_wait<0>();
+          fence_accumulator(part);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+          if (lane == 0) mbar_arrive(&empty[it % kStageN]);  // this stage's products are done: release it
+          if (kt + 1 < k_tiles) named_barrier(3, 2 * kWarpgroup);
+        }
+      } else {
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          prefetch_residual(kt, m0, n0);
+          const int s = it % kStageN;
+          mbar_wait(&full[s], (it / kStageN) & 1);
+          unsigned char* stage = smem + s * kStageBytes;
+          unsigned char* a_tile = stage + cw * 64 * 128;  // this warpgroup's 64 rows, 1024-byte aligned
+          if constexpr (kTransformA) {
+            // rows past M and k past K arrived as zeros and stay so; a masked
+            // row becomes zeros; the others are normalised in place
+            const int k = kt * kBK + 8 * piece;
+            float gam[8], bet[8];
+            if (kNormA && k < p.K) {
+              const float4* gp = reinterpret_cast<const float4*>(ln + k);
+              const float4* bp = reinterpret_cast<const float4*>(ln + p.K + k);
+              const float4 g0 = gp[0], g1 = gp[1], b0 = bp[0], b1 = bp[1];
+              gam[0] = g0.x, gam[1] = g0.y, gam[2] = g0.z, gam[3] = g0.w;
+              gam[4] = g1.x, gam[5] = g1.y, gam[6] = g1.z, gam[7] = g1.w;
+              bet[0] = b0.x, bet[1] = b0.y, bet[2] = b0.z, bet[3] = b0.w;
+              bet[4] = b1.x, bet[5] = b1.y, bet[6] = b1.z, bet[7] = b1.w;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int tr = tr0 + 16 * i;
+              uint4* dst = reinterpret_cast<uint4*>(a_tile + tr * 128) + (piece ^ (tr % 8));
+              if (!reads[i]) {
+                if (m0 + 64 * cw + tr < p.M) *dst = make_uint4(0u, 0u, 0u, 0u);
+              } else if (kNormA && k < p.K) {
+                uint4 raw = *dst;
+                bf16* v = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                  v[e] = __float2bfloat16((__bfloat162float(v[e]) - stat[i].x) * stat[i].y * gam[e] + bet[e]);
+                *dst = raw;
+              }
+            }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes, then wgmma's reads
+            named_barrier(1 + cw, kWarpgroup);
+          }
+          const uint64_t da = sw128_desc(a_tile), db = sw128_desc(stage + kATileBytes);
+          fence_accumulator(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kBK / 16; ++ks) wgmma_tile<BN>(acc, da + 2 * ks, db + 2 * ks, kt > 0 || ks > 0);
+          wgmma_commit();
+          fence_accumulator(acc);
+          wgmma_wait<1>();  // the previous stage's products are done: release it
+          if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStageN]);
+        }
+        wgmma_wait<0>();
         fence_accumulator(acc);
-        wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % kStageN]);
       }
-      wgmma_wait<0>();
-      fence_accumulator(acc);
-      if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
       if constexpr (kTransformA) {
         if (tile + gridDim.x < n_tiles) load_rows(tile + gridDim.x, next_stat, next_reads);
       }
@@ -641,16 +866,24 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
       // past the previous tile's epilogue), then each warp passes its own 16
       // rows through the buffer 32 columns at a time: float2 writes in the
       // accumulator layout, then 8 consecutive columns of a row a lane,
-      // finished with 16-byte residual reads and output writes. The next
-      // chunk's residual is read while this one is finished.
+      // finished with 16-byte residual reads and output writes (one in bf16,
+      // two in f32). The next chunk's residual is read while this one is
+      // finished.
       const int cg = lane % 4;
-      uint4 res[2][2] = {};
-      auto load_residual = [&](int ch, uint4(&dst)[2]) {
+      using Residual8 = typename std::conditional<kF32, F32x8, uint4>::type;
+      Residual8 res[2][2] = {};
+      auto load_residual = [&](int ch, Residual8(&dst)[2]) {
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const long long r = m0 + 64 * cw + 16 * warp + lane / 4 + 8 * q;
           const int n = n0 + ch * kEpiCols + 8 * cg;
-          if (r < p.M && n < p.N) dst[q] = *reinterpret_cast<const uint4*>(residual + r * p.N + n);
+          if constexpr (kF32) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)  // N % 4 == 0: each half wholly in or out
+              if (r < p.M && n + 4 * h < p.N) dst[q].h[h] = *reinterpret_cast<const float4*>(residual + r * p.N + n + 4 * h);
+          } else {
+            if (r < p.M && n < p.N) dst[q] = *reinterpret_cast<const uint4*>(residual + r * p.N + n);
+          }
         }
       };
       if constexpr (kEpi == kBiasResidual) load_residual(0, res[0]);
@@ -683,7 +916,23 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
           const int br = 16 * warp + lane / 4 + 8 * q, c = ch * kEpiCols + 8 * cg;
           const long long r = m0 + 64 * cw + br;
           const int n = n0 + c;
-          if (r < p.M && n < p.N) {  // N % 8 == 0: the 8 columns are wholly in or out
+          if constexpr (kF32) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (r < p.M && n + 4 * h < p.N) {
+                const float4 a = *reinterpret_cast<const float4*>(buf + epi_index(br, 8 * cg + 4 * h));
+                const float4 b = *reinterpret_cast<const float4*>(sv + c + 4 * h);
+                float4 sc = make_float4(1.f, 1.f, 1.f, 1.f), rr = make_float4(0.f, 0.f, 0.f, 0.f);
+                if constexpr (kEpi == kBiasResidual) {
+                  sc = *reinterpret_cast<const float4*>(sv + BN + c + 4 * h);
+                  rr = res[ch % 2][q].h[h];
+                }
+                *reinterpret_cast<float4*>(out + r * p.N + n + 4 * h) =
+                    make_float4(finish<T, kEpi>(a.x, b.x, sc.x, rr.x), finish<T, kEpi>(a.y, b.y, sc.y, rr.y),
+                                finish<T, kEpi>(a.z, b.z, sc.z, rr.z), finish<T, kEpi>(a.w, b.w, sc.w, rr.w));
+              }
+            }
+          } else if (r < p.M && n < p.N) {  // N % 8 == 0: the 8 columns are wholly in or out
             const float4 a0 = *reinterpret_cast<const float4*>(buf + epi_index(br, 8 * cg));
             const float4 a1 = *reinterpret_cast<const float4*>(buf + epi_index(br, 8 * cg + 4));
             const float4 b0 = *reinterpret_cast<const float4*>(sv + c);
@@ -706,9 +955,9 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
             __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
             for (int u = 0; u < 4; ++u)
-              o[u] = __floats2bfloat162_rn(finish<bf16, kEpi>(a[2 * u], b[2 * u], sc[2 * u], rr[2 * u]),
-                                           finish<bf16, kEpi>(a[2 * u + 1], b[2 * u + 1], sc[2 * u + 1],
-                                                              rr[2 * u + 1]));
+              o[u] = __floats2bfloat162_rn(finish<T, kEpi>(a[2 * u], b[2 * u], sc[2 * u], rr[2 * u]),
+                                           finish<T, kEpi>(a[2 * u + 1], b[2 * u + 1], sc[2 * u + 1],
+                                                           rr[2 * u + 1]));
             *reinterpret_cast<uint4*>(out + r * p.N + n) = packed;
           }
         }
@@ -725,78 +974,15 @@ __global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid
   }
 }
 
-// f32 on the CUDA cores. Block tile kFM x kFN; thread (tx, ty) of 16 x 16
-// computes rows ty + 16 i and columns tx + 16 j. Each k-tile of A and W is
-// read as one float4 a thread (row lr, k piece lk) and stored k-major.
-template <bool kNormA, int kEpi, bool kMaskRows = false>
-__global__ void __launch_bounds__(kGemmThreads) gemm_f32_kernel(GemmArgs p) {
-  __shared__ float sA[kFK][kFM + 4];
-  __shared__ float sB[kFK][kFN + 4];
-  const int n_tiles = (p.N + kFN - 1) / kFN;
-  const long long m0 = (long long)(blockIdx.x / n_tiles) * kFM;
-  const int n0 = (blockIdx.x % n_tiles) * kFN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lr = threadIdx.x / 4, lk = (threadIdx.x % 4) * 4;
-  const long long ar = m0 + lr;
-  const bool a_ok = row_reads_a<kMaskRows>(p, ar), w_ok = n0 + lr < p.N;
-  const float* a_src = static_cast<const float*>(p.a) + (a_ok ? ar : 0) * p.K;
-  const float* w_src = static_cast<const float*>(p.w) + (long long)(w_ok ? n0 + lr : 0) * p.K;
-  float mean = 0.f, rstd = 0.f;
-  if constexpr (kNormA) {
-    if (a_ok) {
-      const float2 s = p.stats[ar];
-      mean = s.x;
-      rstd = s.y;
-    }
-  }
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < p.K; k0 += kFK) {
-    const int k = k0 + lk;
-    const bool k_ok = k < p.K;  // K % 4 == 0
-    float4 a = a_ok && k_ok ? *reinterpret_cast<const float4*>(a_src + k) : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 w = w_ok && k_ok ? *reinterpret_cast<const float4*>(w_src + k) : make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (kNormA) {
-      if (a_ok && k_ok) {
-        float* v = reinterpret_cast<float*>(&a);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = (v[e] - mean) * rstd * param(p.ln_w, p.param_bf16, k + e) + param(p.ln_b, p.param_bf16, k + e);
-      }
-    }
-    __syncthreads();  // the previous tile's readers are done
-    sA[lk + 0][lr] = a.x;
-    sA[lk + 1][lr] = a.y;
-    sA[lk + 2][lr] = a.z;
-    sA[lk + 3][lr] = a.w;
-    sB[lk + 0][lr] = w.x;
-    sB[lk + 1][lr] = w.y;
-    sB[lk + 2][lr] = w.z;
-    sB[lk + 3][lr] = w.w;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sA[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sB[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  float* out = static_cast<float*>(p.out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = m0 + ty + 16 * i;
-    if (r >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < p.N) out[r * p.N + n] = epilogue<float, kEpi>(p, r, n, acc[i][j]);
-    }
-  }
+// The two GEMMs, named apart for ptxas's report and the profiler.
+template <bool kNormA, int kEpi, bool kMaskRows, int BN>
+__global__ void __launch_bounds__(kBf16Threads, 1) gemm_bf16_kernel(const __grid_constant__ GemmMaps g) {
+  gemm_body<__nv_bfloat16, kNormA, kEpi, kMaskRows, BN>(g);
+}
+
+template <bool kNormA, int kEpi, bool kMaskRows, int BN>
+__global__ void __launch_bounds__(kBf16Threads, 1) gemm_f32_kernel(const __grid_constant__ GemmMaps g) {
+  gemm_body<float, kNormA, kEpi, kMaskRows, BN>(g);
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime once
@@ -814,18 +1000,21 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// TMA map of a (rows, K) bf16 matrix, k contiguous, read in boxes of
-// box_rows x kBK with the 128-byte swizzle; rows and k past the edges read
-// as zeros.
+// TMA map of a (rows, K) matrix of T, k contiguous, read in boxes of
+// box_rows x one k-tile (a 128-byte swizzle row); rows and k past the edges
+// read as zeros. swin_block.cu maps its bf16 weights with it.
+template <typename T = __nv_bfloat16>
 cudaError_t encode_operand(CUtensorMap* map, const void* base, long long rows, int K, int box_rows) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)kDepth<T>, (cuuint32_t)box_rows};
   const cuuint32_t element_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-                            element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type =
+      std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, element_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -848,15 +1037,21 @@ int gemm_tile_n(int N, int K, bool norm_a) {
   return best;
 }
 
-template <bool kNormA, int kEpi, bool kMaskRows, int BN>
-cudaError_t launch_gemm_bf16(const GemmArgs& p, cudaStream_t stream) {
-  Bf16Gemm g;
+template <typename T, bool kNormA, int kEpi, bool kMaskRows, int BN>
+cudaError_t launch_gemm_tiles(const GemmArgs& p, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  GemmMaps g;
   g.p = p;
-  cudaError_t err = encode_operand(&g.a_map, p.a, p.M, p.K, kBM);
-  if (err == cudaSuccess) err = encode_operand(&g.w_map, p.w, p.N, p.K, BN);
+  cudaError_t err = encode_operand<T>(&g.a_map, p.a, p.M, p.K, kBM);
+  if (err == cudaSuccess) err = encode_operand<T>(&g.w_map, p.w, p.N, p.K, BN);
   if (err != cudaSuccess) return err;
-  const int smem = gemm_smem_bytes(BN) + (kNormA ? 8 * p.K : 0);
-  auto kernel = gemm_bf16_kernel<kNormA, kEpi, kMaskRows, BN>;
+  const int smem = kF32 ? gemm_f32_smem_bytes(BN) : gemm_smem_bytes(BN) + (kNormA ? 8 * p.K : 0);
+  void (*kernel)(GemmMaps);
+  if constexpr (kF32) {
+    kernel = gemm_f32_kernel<kNormA, kEpi, kMaskRows, BN>;
+  } else {
+    kernel = gemm_bf16_kernel<kNormA, kEpi, kMaskRows, BN>;
+  }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
@@ -874,16 +1069,19 @@ cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (p.M > INT_MAX) return cudaErrorInvalidValue;  // TMA coordinates are 32-bit
     switch (gemm_tile_n(p.N, p.K, kNormA)) {
-      case 256: return launch_gemm_bf16<kNormA, kEpi, kMaskRows, 256>(p, stream);
-      case 128: return launch_gemm_bf16<kNormA, kEpi, kMaskRows, 128>(p, stream);
-      case 96: return launch_gemm_bf16<kNormA, kEpi, kMaskRows, 96>(p, stream);
+      case 256: return launch_gemm_tiles<T, kNormA, kEpi, kMaskRows, 256>(p, stream);
+      case 128: return launch_gemm_tiles<T, kNormA, kEpi, kMaskRows, 128>(p, stream);
+      case 96: return launch_gemm_tiles<T, kNormA, kEpi, kMaskRows, 96>(p, stream);
       default: return cudaErrorInvalidValue;  // kNormA with a K whose LayerNorm vectors do not fit
     }
   } else {
-    const long long blocks = ((p.M + kFM - 1) / kFM) * ((p.N + kFN - 1) / kFN);
-    if (blocks > INT_MAX) return cudaErrorInvalidValue;
-    gemm_f32_kernel<kNormA, kEpi, kMaskRows><<<(unsigned)blocks, kGemmThreads, 0, stream>>>(p);
-    return cudaGetLastError();
+    // TMA coordinates are 32-bit, and its rows 16-byte multiples; the
+    // epilogue writes 16-byte pieces
+    if (p.M > INT_MAX || p.K % 4 != 0 || p.N % 4 != 0) return cudaErrorInvalidValue;
+    // 96-wide tiles where they pad N less than 128-wide ones (N = 96, 192)
+    const bool narrow = (long long)(p.N + 95) / 96 * 96 < (long long)(p.N + 127) / 128 * 128;
+    return narrow ? launch_gemm_tiles<T, kNormA, kEpi, kMaskRows, 96>(p, stream)
+                  : launch_gemm_tiles<T, kNormA, kEpi, kMaskRows, 128>(p, stream);
   }
 }
 

@@ -42,8 +42,9 @@
 // producer warp and two consumer warpgroups issuing wgmma, the LayerNorm of
 // A in the consumers, the epilogue through shared memory with 16-byte
 // stores, a persistent grid; 256-wide column tiles for fc1 at 4C = 3072,
-// 96-wide ones for fc2 at C = 96 or 192. f32 runs on the CUDA cores (no
-// TF32).
+// 96-wide ones for fc2 at C = 96 or 192. f32 runs the same skeleton on
+// the tensor cores by split TF32 (three TF32 products a product, about 22
+// bits of it kept), with 128- or 96-wide column tiles.
 //
 // What bounds it. 4 * rows * C * 4C operations against reading x, the
 // residual and the weights and writing out once: in bf16 at C = 768

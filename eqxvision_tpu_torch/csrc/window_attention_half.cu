@@ -43,7 +43,7 @@
 // attention operations against x and out read or written once: at swin_t
 // stage 3 b128 in bf16 29.6 + 1.9 GFLOP, 0.032 ms at 989 TFLOP/s, against
 // 0.011 ms of device memory. The GEMMs are gemm_bf16.cuh's TMA-fed wgmma
-// ones; the window attention runs mma.sync, a fraction of the card's wgmma
+// ones (in f32 by split TF32); the window attention runs mma.sync, a fraction of the card's wgmma
 // rate; the roll and partition stay outside the kernels.
 // Limits: C a multiple of 8, C divisible by H, Dh <= 64, in bf16 C at most
 // 12,344 (the qkv GEMM's LayerNorm vectors), 16-byte aligned tensors; the
@@ -152,7 +152,7 @@ int eqx_window_attention_half(const void* x, const void* ln_w, const void* ln_b,
 long long eqx_window_attention_half_smem_bytes(int seq_len, int head_dim, int dtype) {
   if (seq_len <= 0 || head_dim <= 0 || head_dim > kMaxHeadDim) return 0;
   const long long stage = eqx_window_attention_smem_bytes(seq_len, head_dim, dtype == 1 ? 2 : 4);
-  const long long gemm = dtype == 1 ? kGemmSmemBytes : 0;
+  const long long gemm = dtype == 1 ? kGemmSmemBytes : gemm_f32_smem_bytes(128);
   return stage > gemm ? stage : gemm;
 }
 

@@ -11,6 +11,12 @@ ported yet. The bias is added, in its stored type, to the f32 accumulator,
 which is rounded once: one call where the bias has the input's type, else
 (f32 parameters and a bf16 input) the convolution runs in f32 on the upcast
 operands, which holds every product exactly, and is rounded after the bias.
+A bf16 input with bf16 parameters takes that one call, and on the card
+cuDNN rounds the convolution's output before it adds the bias, so such an
+output is rounded twice (a step or so off the JAX layer's on 8-21% of
+outputs). Widening those convolutions too would cost convnext_tiny's bf16
+forward most of its depthwise convolutions' speed; ROADMAP C.9 records the
+choice and its measurements.
 """
 from __future__ import annotations
 

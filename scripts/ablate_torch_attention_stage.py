@@ -2,15 +2,16 @@
 
 Run from the root of the repository on a machine with a CUDA card:
 
-    python3 scripts/ablate_torch_attention_stage.py [--entry k1|k2_bias] [--variants base no_exp ...] [--iters 20]
+    python3 scripts/ablate_torch_attention_stage.py [--entry k1|k2_bias] [--dtype float32] [--variants base no_exp ...] [--iters 20]
 
 The stage (``csrc/attention_stage.cuh``) is the one kernel that K1's entry
 ``eqx_fused_qkv_attention``, the fused attention half's third launch and
 the public attention's (K2) rows longer than 64 tokens run.
 For each variant the script copies ``eqxvision_tpu_torch/csrc`` into
 ``eqxvision_tpu_torch/_build/ablate_stage/<entry>/<variant>/``, changes one
-phase or design choice of the bf16 wgmma stage in that copy's header (the
-outputs may then be wrong; only the time is read), compiles that copy's
+phase or design choice of the bf16 wgmma stage (or, with ``--dtype
+float32``, of the f32 stage) in that copy's header (the outputs may then
+be wrong; only the time is read), compiles that copy's
 entry source alone into a small library with the package's nvcc flags (all
 variants at once, one nvcc each), then times the entry with CUDA events, in
 turns base-first: ``--entry k1`` (the default) K1's
@@ -20,7 +21,8 @@ bf16 q, k, v of (256 x 12, 197, 64) with a compact (12, 197, 197) f32 bias,
 vit_base b256 with a BEiT-style relative-position bias. Each patch names
 one whole source line, which must occur exactly once, or the script stops
 before any build. It also prints each variant's registers and spills of the
-one-pass Dh = 64 kernel (with the bias for k2_bias) from ptxas.
+one-pass Dh = 64 kernel (with the bias for k2_bias; in f32 the f32 stage at
+head dim 64) from ptxas. In f32 the inputs are f32 of the same shapes.
 
 Variants:
   base        the stage as it is
@@ -50,6 +52,25 @@ Variants:
   bias_evict_last  (k2_bias) the bias loads ask L2 to keep their lines
               (an evict_last policy), against the q, k and v streams
   bias_no_l1  (k2_bias) the bias loads do not allocate in L1
+f32 variants (``--dtype float32``; base is the f32 stage as it is):
+  f32_cvt     Q's, K's, V's and P's TF32 split by cvt.rna.tf32.f32 rather
+              than by integer operations (split_tf32_bits in gemm_bf16.cuh)
+  f32_cvt_hi  hi by cvt.rna.tf32.f32 (which keeps a NaN), lo by integer
+              operations
+  f32_unchecked  hi rounded without the non-finite check (a NaN may become
+              -0: the check's cost, not a kernel to keep)
+  f32_keys64  K and V staged in chunks of 64 keys rather than 32 (two
+              blocks an SM at head dim 64 rather than three)
+  f32_tf32    one TF32 product (hi hi) where split TF32 takes three: the
+              split's cost (not f32-accurate)
+  f32_fma     the CUDA-core two-pass stage the f32 path took before
+              (attention_stage_fma<float>), true f32 FMAs
+  f32_no_split  Q's, K's, V's and P's values passed as they are, hi = lo = x (the
+              split's integer work; the three products stay)
+  f32_no_exp  2^x replaced by x
+  f32_no_pv   no P V products
+  f32_no_s    no Q K^T products
+  f32_no_kv_load  K and V not loaded (16-byte path)
 Imports nothing of JAX.
 """
 import argparse
@@ -64,6 +85,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "eqxvision_tpu_torch"
 COPY = PKG / "_build" / "ablate_stage"
 HEADER = "attention_stage.cuh"
+SPLIT_HEADER = "gemm_bf16.cuh"  # split_tf32_bits, which the f32_cvt and f32_no_split lines change
 MASK = "          const float v = kStageTile * p + 8 * j + (e & 1) < lim ? s[p][4 * j + e] * c : -INFINITY;"
 BIAS_LOAD = "            const float2 v = __ldg(reinterpret_cast<const float2*>(bp + kStageTile * p + 8 * j));"
 BIAS_ROWS = ("      const int r0 = min(q0 + 16 * warp + lane / 4, L - 1), "
@@ -109,22 +131,46 @@ VARIANTS = {  # name: [(whole source line, replacement)]
     "bias_no_l1": [(BIAS_LOAD, "            float2 v; asm(\"ld.global.nc.L1::no_allocate.v2.f32 {%0, %1}, [%2];\" : "
                                "\"=f\"(v.x), \"=f\"(v.y) : \"l\"(bp + kStageTile * p + 8 * j));")],
     "bias_row0": [(BIAS_ROWS, "      const int r0 = 0, r1 = 0;")],
+    "f32_cvt": [("  hi = fabsf(x) < INFINITY ? tf32_rna_bits(x) : __float_as_uint(x);",
+                 '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));'),
+                ("  lo = tf32_rna_bits(x - __uint_as_float(hi));",
+                 '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));')],
+    "f32_cvt_hi": [("  hi = fabsf(x) < INFINITY ? tf32_rna_bits(x) : __float_as_uint(x);",
+                    '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));')],
+    "f32_unchecked": [("  hi = fabsf(x) < INFINITY ? tf32_rna_bits(x) : __float_as_uint(x);",
+                       "  hi = tf32_rna_bits(x);")],
+    "f32_keys64": [("constexpr int kF32StageKeys = 32;", "constexpr int kF32StageKeys = 64;")],
+    "f32_tf32": [("  mma_tf32(d, ah, bl0, bl1);", ""), ("  mma_tf32(d, al, bh0, bh1);", "")],
+    "f32_fma": [("    case 4: return launch_f32<64>(a, batch, stream);",
+                 "    case 4: return launch_fma_stage<float>(a, batch, stream);")],
+    "f32_no_split": [("  hi = fabsf(x) < INFINITY ? tf32_rna_bits(x) : __float_as_uint(x);", "  hi = __float_as_uint(x);"),
+                     ("  lo = tf32_rna_bits(x - __uint_as_float(hi));", "  lo = hi;")],
+    "f32_no_exp": [("          const float pe = exp2f((sc[j][e] - m_ref[e >> 1]) * kLog2e);",
+                    "          const float pe = sc[j][e] - m_ref[e >> 1];")],
+    "f32_no_pv": [("            mma_split(o[n], ph, pl, bh0, bh1, bl0, bl1);", "")],
+    "f32_no_s": [("            mma_split(sc[j], ah, al, bh0, bh1, bl0, bl1);", "")],
+    "f32_no_kv_load": [("        cp_async16(sK + j * S + d, kb + at, ok);", ""),
+                       ("        cp_async16(sV + j * S + d, vb + at, ok);", "")],
 }
 BIAS_VARIANTS = ("no_bias_load", "bias_row0", "bias_evict_last", "bias_no_l1")
 SHAPE = (256, 197, 12, 64)  # vit_base b256: B, L, heads, head dim
 # entry: (source, C entry point, mangled name of its one-pass Dh = 64 kernel)
 ENTRIES = {"k1": ("fused_qkv_attention.cu", "eqx_fused_qkv_attention", "attention_stage_wgmmaILi64ELb1ELb0E"),
            "k2_bias": ("attention.cu", "eqx_attention", "attention_stage_wgmmaILi64ELb1ELb1E")}
+F32_KERNEL = "attention_stage_f32ILi64EE"
 
 
-def patch(text, name):
-    lines = text.split("\n")
+def patch(texts, name):
+    """``texts`` ({header: text}) with ``name``'s lines changed; each line to
+    change must occur once in exactly one of the headers."""
+    lines = {header: text.split("\n") for header, text in texts.items()}
     for old, new in VARIANTS[name]:
-        hits = [i for i, line in enumerate(lines) if line == old]
+        hits = [(h, i) for h, ls in lines.items() for i, line in enumerate(ls) if line == old]
         if len(hits) != 1:
-            raise SystemExit(f"{name}: the line to change occurs {len(hits)} times in {HEADER}: {old!r}")
-        lines[hits[0]] = new
-    return "\n".join(lines)
+            raise SystemExit(f"{name}: the line to change occurs {len(hits)} times in {', '.join(texts)}: {old!r}")
+        header, i = hits[0]
+        lines[header][i] = new
+    return {header: "\n".join(ls) for header, ls in lines.items()}
 
 
 def registers(log, kernel):
@@ -148,8 +194,11 @@ def main():
     ap.add_argument("--variants", nargs="+", default=None, choices=list(VARIANTS),
                     help="default: every variant that applies to the entry")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
-    variants = args.variants or [v for v in VARIANTS if args.entry == "k2_bias" or v not in BIAS_VARIANTS]
+    f32 = args.dtype == "float32"
+    variants = args.variants or [v for v in VARIANTS if (v == "base" or v.startswith("f32_") == f32)
+                                 and (args.entry == "k2_bias" or v not in BIAS_VARIANTS)]
     import torch
 
     if not torch.cuda.is_available():
@@ -159,15 +208,18 @@ def main():
     from eqxvision_tpu_torch import _native
 
     source, entry, kernel = ENTRIES[args.entry]
-    header = (PKG / "csrc" / HEADER).read_text()
+    kernel = F32_KERNEL if f32 else kernel
+    dtype, code = (torch.float32, 0) if f32 else (torch.bfloat16, 1)
+    headers = {h: (PKG / "csrc" / h).read_text() for h in (HEADER, SPLIT_HEADER)}
     for name in variants:  # patch them all first: a stale patch stops the run before any build
-        patch(header, name)
+        patch(headers, name)
     builds = {}
     for name in variants:
         root = COPY / args.entry / name
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(PKG / "csrc", root / "csrc")
-        (root / "csrc" / HEADER).write_text(patch(header, name))
+        for h, text in patch(headers, name).items():
+            (root / "csrc" / h).write_text(text)
         lib = root / "libstage.so"
         cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(lib), str(root / "csrc" / source)]
         builds[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -188,23 +240,24 @@ def main():
             lib.eqx_attention.argtypes = [*([ctypes.c_void_p] * 4), ctypes.c_int, ctypes.c_void_p,
                                           *([ctypes.c_int] * 4), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             cfg = (ctypes.c_int * 6)()
-            lib.eqx_attention_config(l, dh, 1, 1, cfg)
-            design = f"kernel {cfg[0]} (2: wgmma), {cfg[1]} blocks an SM, {cfg[2]} bytes of shared memory a block"
+            lib.eqx_attention_config(l, dh, code, 1, cfg)
+            design = f"kernel {cfg[0]} (2: wgmma, 3: f32), {cfg[1]} blocks an SM, {cfg[2]} bytes of shared memory a block"
         libs[name] = lib
-        print(f"{name:12s} {entry}, attention_stage_wgmma<64, true>: {registers(log, kernel)}; {design}", flush=True)
+        stage = "attention_stage_f32<64>" if f32 else "attention_stage_wgmma<64, true>"
+        print(f"{name:12s} {entry}, {stage}: {registers(log, kernel)}; {design}", flush=True)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     if args.entry == "k1":
-        qkv = torch.randn(b, l, 3 * h * dh, device="cuda", generator=gen).bfloat16()
-        out = torch.empty(b, l, h * dh, dtype=torch.bfloat16, device="cuda")
+        qkv = torch.randn(b, l, 3 * h * dh, device="cuda", generator=gen).to(dtype)
+        out = torch.empty(b, l, h * dh, dtype=dtype, device="cuda")
 
         def launch(lib):
-            return lib.eqx_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), b, l, h, dh, dh**-0.5, 1, stream)
+            return lib.eqx_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), b, l, h, dh, dh**-0.5, code, stream)
     else:
-        q, k, v = (torch.randn(b * h, l, dh, device="cuda", generator=gen).bfloat16() for _ in range(3))
+        q, k, v = (torch.randn(b * h, l, dh, device="cuda", generator=gen).to(dtype) for _ in range(3))
         # the compact bias with an even row stride and the room after it that the kernel may read, as
         # ops.attention lays it out
         ld = (l + 1) // 2 * 2
@@ -213,7 +266,7 @@ def main():
 
         def launch(lib):
             return lib.eqx_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), ld, out.data_ptr(),
-                                     b * h, h, l, dh, dh**-0.5, 1, stream)
+                                     b * h, h, l, dh, dh**-0.5, code, stream)
 
     def call(lib):
         err = launch(lib)
@@ -236,7 +289,7 @@ def main():
             times[name].append(time_ms(libs[name]))
     what = "K1 entry at vit_base b256" if args.entry == "k1" else "K2 entry, vit_base b256 with a (12, 197, 197) bias,"
     for name, ms in times.items():
-        print(f"{name:12s} {what} {SHAPE}: {ms[0]:.4f}, {ms[1]:.4f} ms", flush=True)
+        print(f"{name:12s} {what} {SHAPE} {args.dtype}: {ms[0]:.4f}, {ms[1]:.4f} ms", flush=True)
     return 0
 
 

@@ -1,9 +1,9 @@
-"""Time the port's three fused halves in bf16 at chip_smoke.py's cases, in
-the tree the script sits in.
+"""Time the port's three fused halves at chip_smoke.py's cases, in the tree
+the script sits in.
 
 Run from the root of a tree on a machine with a CUDA card:
 
-    python3 scripts/time_torch_halves.py [--iters 20]
+    python3 scripts/time_torch_halves.py [--iters 20] [--dtype float32]
 
 It builds (or loads) that tree's kernels and, for each case of its
 ``chip_smoke.py``'s MLP_CASES, ATTN_HALF_CASES and WINDOW_HALF_CASES, makes
@@ -13,10 +13,11 @@ device time of the op's kernels a call by torch.profiler (at small shapes
 the host's launch cost, not the kernels, sets the first). For the ViT
 attention half it also prints its attention stage's device time alone (the
 kernels named ``attention_stage*``), and it times the fused-qkv attention
-(K1) on a bf16 qkv of vit_base b256's shape the same way, and the public
-attention (K2) on bf16 q, k, v of that shape, (256, 12, 197, 64), without
+(K1) on a qkv of vit_base b256's shape the same way, and the public
+attention (K2) on q, k, v of that shape, (256, 12, 197, 64), without
 and with a compact (12, 197, 197) relative-position bias, and at swin_t
-stage 1's (128, 192, 49, 32) with its (192, 49, 49) bias. To compare two
+stage 1's (128, 192, 49, 32) with its (192, 49, 49) bias. Every input is
+in ``--dtype`` (bfloat16 by default). To compare two
 trees on one card, copy the script into the other tree and run the two in
 one command in turns (parent, change, change, parent). Imports nothing of
 JAX.
@@ -40,6 +41,7 @@ K2_CASES = {"swin_t stage 1": ((128, 192), 49, 32, (1, 192)), "vit_base b256": (
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_torch_halves: needs a CUDA card", file=sys.stderr)
@@ -55,7 +57,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf16 = torch.bfloat16
+    bf16 = getattr(torch, args.dtype)  # the inputs' type
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"inputs in {args.dtype}")
     calls = []
     for name, (rows, c, residual_is_x) in cs.MLP_CASES.items():
         x, residual, params = cs._mlp_inputs(rows, c, residual_is_x, bf16, gen)

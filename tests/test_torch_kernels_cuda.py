@@ -949,3 +949,222 @@ def test_bf16_input_gradients_on_the_card_match_the_cpu(cuda, name):
         assert out is not None and ref is not None
         assert torch.isfinite(out).all()
         assert _rel(out.cpu(), ref) < 2e-2
+
+
+# The f32 GEMM of csrc/gemm_bf16.cuh (split TF32 on TMA-fed wgmma) through
+# the three ops that run it, against their plain versions in f64 at 1e-4:
+# each of its four epilogues (bias + gelu and bias + layer scale + residual
+# in the MLP half, the bias alone and bias + residual in the attention
+# half, the rounded bias in the Swin attention half), the LayerNorm on A
+# with rows shifted by 1e3, masked padding rows, bf16 LayerNorm parameters
+# and biases, and ragged M, N and K (C = 40: K = 40 and N = 40 are not
+# multiples of the 32-float k-tile or of either column tile).
+F32_GEMM_EDGES = {
+    "gelu-and-residual-ragged-M": ("mlp", (300, 96, False)),
+    "residual-is-x-K-3072": ("mlp", (130, 768, True)),
+    "ragged-N-and-K-40": ("mlp", (77, 40, False)),
+    "one-row": ("mlp", (1, 96, False)),
+    "rows-shifted-by-1e3": ("mlp-shifted", (260, 384, False)),
+    "bf16-parameters": ("mlp-bf16-vectors", (250, 192, False)),
+    "bias-and-residual-N-2304": ("attention", (2, 197, 768, 12)),
+    "bias-and-residual-ragged": ("attention", (3, 45, 384, 6)),
+    "rounded-bias-masked-rows": ("window", (2, 10, 384, 12)),
+    "rounded-bias-N-768": ("window", (1, 14, 256, 8)),
+}
+
+
+@pytest.mark.parametrize("edge", list(F32_GEMM_EDGES))
+def test_f32_gemm_edges_through_the_ops(cuda, edge):
+    kind, shape = F32_GEMM_EDGES[edge]
+    f32 = torch.float32
+    if kind.startswith("mlp"):
+        x, residual, params = _mlp_inputs(cuda, *shape, f32, shift=1e3 if kind == "mlp-shifted" else 0.0)
+        if kind == "mlp-bf16-vectors":
+            params = [t if t is None or t.ndim == 2 else t.bfloat16() for t in params]
+        out = M.fused_mlp_half(x, residual, *params)
+        ref = _mlp_plain(x, residual, params)
+    elif kind == "attention":
+        b, l, d, heads = shape
+        x, params = _ah_inputs(cuda, b, l, d, f32)
+        out = AH.fused_attention_half(x, *params, heads)
+        ref = _ah_plain(x, params, heads)
+    else:
+        b, side, c, heads = shape
+        x, params, bias, valid = _wh_inputs(cuda, b, side, c, heads, f32)
+        assert (valid is not None) == (side % 7 != 0)
+        out = WH.fused_window_attention_half(x, *params, bias, heads, None, 1e-5, valid)
+        ref = _wh_plain(x, params, bias, heads, valid)
+    torch.cuda.synchronize()
+    assert out.dtype == f32 and out.shape == x.shape
+    assert float((out.double() - ref.double()).abs().max()) < 1e-4
+
+
+# The f32 attention stage (split TF32 on mma.sync, one pass) through K1's
+# entry and K2's: lengths 1, 49, 197, 257, 577 and 1024 (one key group, a
+# ragged chunk, vit_base's tokens, a chunk and one key, 384 px, long rows)
+# at head dims 16, 48, 64, 80 and 128 (rounded up to 16 or not, one and
+# two key chunk sizes).
+F32_STAGE_SHAPES = [(2, 1, 3, 64), (3, 49, 2, 48), (2, 197, 12, 64), (2, 257, 2, 80), (1, 577, 2, 16),
+                    (1, 1024, 2, 128), (2, 197, 2, 128), (2, 49, 4, 16)]
+
+
+@pytest.mark.parametrize("shape", F32_STAGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_f32_stage_through_k1_and_k2(cuda, shape):
+    b, l, h, dh = shape
+    qkv = torch.randn(b, l, 3 * h * dh, device=cuda, generator=torch.Generator(cuda).manual_seed(l + dh))
+    k1 = A.fused_qkv_attention(qkv, h)
+    ref = A.attention_stage_reference(qkv.double(), h, dh**-0.5)
+    q, k, v = (t.reshape(b, l, h, dh).transpose(1, 2).contiguous() for t in qkv.split(h * dh, dim=-1))
+    bias = torch.randn(h, l, l, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    k2 = A.attention(q, k, v, bias, dh**-0.5)
+    k2_ref = A.attention_reference(q.double(), k.double(), v.double(), bias.double(), dh**-0.5)
+    torch.cuda.synchronize()
+    assert float((k1.double() - ref).abs().max()) < 1e-4
+    assert float((k2.double() - k2_ref).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("case", ["head-300-down", "minus-inf-block"])
+def test_f32_stage_far_and_infinite_biases(cuda, case):
+    """A head biased 300 log-units down, and -inf over the first 256 keys of
+    some rows (finite after them): finite, and equal to the plain version
+    in f64 within 1e-4."""
+    q, k, v, bias = _attn_inputs(cuda, (6, 49, 32, 3) if case == "head-300-down" else (4, 300, 64, 2), torch.float32)
+    if case == "head-300-down":
+        bias[1] -= 300.0
+    else:
+        bias[1, :40, :256] = float("-inf")
+    out = A.attention(q, k, v, bias, 0.125)
+    ref = A.attention_reference(q.double(), k.double(), v.double(), bias.double(), 0.125)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float((out.double() - ref).abs().max()) < 1e-4
+
+
+def test_f32_stage_is_the_split_tf32_kernel(cuda):
+    """K1, K2 and the attention half in f32 launch attention_stage_f32, and
+    no CUDA-core stage kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qkv = torch.randn(2, 197, 3 * 128, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    q = torch.randn(4, 197, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    x, params = _ah_inputs(cuda, 2, 197, 128, torch.float32)
+    for fn in (lambda: A.fused_qkv_attention(qkv, 2), lambda: A.attention(q, q, q),
+               lambda: AH.fused_attention_half(x, *params, 2)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "attention_stage" in e.key]
+        assert names and all("attention_stage_f32" in n for n in names), names
+
+
+@pytest.mark.parametrize("dh", [8, 24, 40])
+def test_bf16_stage_off_multiples_of_16_stays_two_pass(cuda, dh):
+    """bf16 with Dh % 16 != 0 keeps the two-pass CUDA-core stage, whose p is
+    rounded to bf16 before P V: the profiler names attention_stage_fma, two
+    calls give the same bits, and it holds the bf16 bound against the plain
+    version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qkv = torch.randn(2, 70, 3 * 2 * dh, device=cuda, generator=torch.Generator(cuda).manual_seed(dh)).bfloat16()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = A.fused_qkv_attention(qkv, 2)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "attention_stage" in e.key]
+    assert names and all("attention_stage_fma" in n for n in names), names
+    again = A.fused_qkv_attention(qkv, 2)
+    ref = A.fused_qkv_attention_reference(qkv.float(), 2, dh**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert float((out.float() - ref).abs().max()) < 0.02
+
+
+@pytest.mark.parametrize("conv", [(3, 96, 4, 4, 0, 1), (96, 96, 3, 1, 1, 1), (96, 96, 7, 1, 3, 96)],
+                         ids=["stem-4x4-stride-4", "3x3", "depthwise-7x7"])
+def test_bf16_conv_with_f32_parameters_rounds_once_on_the_card(cuda, conv):
+    """A bf16 input through Conv2d with f32 parameters: each output is the
+    f32 accumulator plus the bias rounded once, within half a bf16 step
+    (taken at magnitude 1 below it) of the f64 value. (With bf16 parameters
+    cuDNN rounds twice, a standing choice: ROADMAP C.9.)"""
+    from eqxvision_tpu_torch.nn import Conv2d
+
+    cin, cout, k, stride, pad, groups = conv
+    layer = Conv2d(cin, cout, k, stride, pad, groups=groups, generator=torch.Generator().manual_seed(0), device=cuda)
+    with torch.no_grad():
+        layer.bias.mul_(64.0)
+    x = torch.randn(2, 28, 28, cin, device=cuda, generator=torch.Generator(cuda).manual_seed(1)).bfloat16()
+    with torch.no_grad():
+        out = layer(x)
+        ref = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2), layer.weight.bfloat16().double(),
+                                         layer.bias.double(), stride, pad, 1, groups).permute(0, 2, 3, 1)
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1.0))) - 7)
+    assert out.dtype == torch.bfloat16
+    assert float(((out.double() - ref).abs() / step).max()) <= 0.51
+
+
+# Non-finite values through the split-TF32 kernels. Every value the kernels
+# split passes through tf32 rounding; a NaN or an infinity must come out as
+# one. Three bit patterns: the card's canonical NaN (what its arithmetic
+# makes, so what a LayerNorm of a non-finite row or a gelu of a NaN
+# produces), the CPU's NaN and an infinity.
+NON_FINITE_BITS = {"nan-7fffffff": 0x7FFFFFFF, "nan-7fc00000": 0x7FC00000, "inf": 0x7F800000}
+
+
+def _plant(t, index, bits):
+    t.view(torch.int32)[index] = bits
+
+
+def _keeps_non_finite(out, ref, clean):
+    """out is non-finite wherever the f64 plain version is, and within 1e-4
+    of it on the entries ``clean`` that the planted value cannot reach."""
+    bad = ~torch.isfinite(ref)
+    assert bool(bad.any()), "the planted value reaches no output"
+    assert bool((~torch.isfinite(out))[bad].all())
+    assert float((out[clean].double() - ref[clean].double()).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("where", ["x", "fc2-weight"])
+@pytest.mark.parametrize("bits", list(NON_FINITE_BITS))
+def test_f32_mlp_half_keeps_non_finite_values(cuda, bits, where):
+    """Planted in x, it reaches fc1's GEMM through the LayerNorm on A and
+    fc2's as gelu's NaN (A without a LayerNorm); planted in fc2's weight, it
+    is split as W."""
+    x, residual, params = _mlp_inputs(cuda, 130, 96, False, torch.float32)
+    if where == "x":
+        _plant(x, (5, 3), NON_FINITE_BITS[bits])
+    else:
+        _plant(params[4], (2, 7), NON_FINITE_BITS[bits])
+    out = M.fused_mlp_half(x, residual, *params)
+    ref = _mlp_plain(x, residual, params)
+    torch.cuda.synchronize()
+    _keeps_non_finite(out, ref, torch.isfinite(ref))
+
+
+@pytest.mark.parametrize("bits", list(NON_FINITE_BITS))
+def test_f32_attention_half_keeps_non_finite_values(cuda, bits):
+    """Planted in one token of image 1: its LayerNorm row, then its keys and
+    values, reach every query of that image; images 0 and 2 stay as they were."""
+    x, params = _ah_inputs(cuda, 3, 50, 128, torch.float32)
+    _plant(x, (1, 10, 5), NON_FINITE_BITS[bits])
+    out = AH.fused_attention_half(x, *params, 2)
+    ref = _ah_plain(x, params, 2)
+    torch.cuda.synchronize()
+    _keeps_non_finite(out, ref, [0, 2])
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+@pytest.mark.parametrize("bits", list(NON_FINITE_BITS))
+def test_f32_attention_keeps_non_finite_values(cuda, bits, operand):
+    """K2 with a compact bias and K1 on the same heads, the value planted in
+    one head of the second image: the other image stays as it was. (An
+    infinite key gives the plain version -inf scores, hence finite rows, where
+    the split makes it a NaN: non-finite there too, a stricter answer.)"""
+    q, k, v, bias = _attn_inputs(cuda, (4, 197, 64, 2), torch.float32)
+    _plant(dict(q=q, k=k, v=v)[operand], (1, 0, 20, 9), NON_FINITE_BITS[bits])
+    out = A.attention(q, k, v, bias, 0.125)
+    ref = A.attention_reference(q.double(), k.double(), v.double(), bias.double(), 0.125)
+    qkv = torch.cat([t.permute(0, 2, 1, 3).reshape(2, 197, 128) for t in (q, k, v)], dim=-1)
+    k1 = A.fused_qkv_attention(qkv, 2)
+    k1_ref = A.attention_stage_reference(qkv.double(), 2, 0.125)
+    torch.cuda.synchronize()
+    _keeps_non_finite(out, ref, [0])
+    _keeps_non_finite(k1, k1_ref, [0])

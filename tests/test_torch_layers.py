@@ -151,6 +151,29 @@ def test_bias_meets_f32_accumulator_as_jax(name):
     np.testing.assert_array_equal(out.float().numpy(), ref)
 
 
+@pytest.mark.parametrize("name", [n for n in BIAS_CASES if n.startswith("conv2d")])
+def test_bf16_conv_bias_meets_f32_accumulator_as_jax(name):
+    """bf16 parameters and a bf16 input on the CPU: the JAX layer adds the
+    bf16 bias to the f32 accumulator and rounds once, and so does the port's
+    one torch call here (on the card cuDNN rounds twice: ROADMAP C.9).
+    Outputs are equal."""
+    case, shape = BIAS_CASES[name]
+    jax_layer, torch_layer = case()[0]
+    rng = np.random.RandomState(4)
+    bias = (3.0 * rng.randn(*jax_layer.bias.shape)).astype(np.float32)
+    jax_layer = jax.tree_util.tree_map(lambda a: jnp.asarray(bias) if a.shape == bias.shape else a, jax_layer)
+    jax_layer = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16) if isinstance(a, jax.Array) else a, jax_layer)
+    with torch.no_grad():
+        torch_layer.bias.copy_(torch.from_numpy(bias))
+    torch_layer = torch_layer.to(torch.bfloat16)
+    x = jnp.asarray(rng.randn(*shape), jnp.bfloat16)
+    ref = np.asarray(jax_layer(x).astype(jnp.float32))
+    with torch.no_grad():
+        out = torch_layer(torch.from_numpy(np.asarray(x.astype(jnp.float32))).bfloat16())
+    assert out.dtype == torch.bfloat16 and torch_layer.bias.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
 def test_drop_path_drops_whole_samples():
     layer = TL.DropPath(0.5).train()
     x = torch.ones(64, 3, 4)
