@@ -22,10 +22,14 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    spill or on wgmma
    serialised by ptxas (C7520), and its design at each case) at ViT-B/16's
    shapes, at 384 px, a ragged L above 256 and L = 1024 with head dim 128;
-   the window attention at every stage shape of ``swin_t``
-   (224 px) and ``swin_v2_t`` (256 px) at b128 and the whole Swin block at
-   their C <= 192 stages, each also with a head biased 300 log-units below
-   the others; a ragged input (odd window count from padding, a window
+   the window attention (its window stage's and cosine f32 kernels'
+   registers and spills first, failing on a spill or on wgmma serialised by
+   ptxas) at every stage shape of ``swin_t`` (224 px) and ``swin_v2_t``
+   (256 px) at b128 in bf16 and f32, with the path each takes and SDPA and
+   the bound beside each, on qkv whose buffer holds NaN after the last
+   window, and with NaN and inf planted in a row of q or k, and the whole
+   Swin block at their C <= 192 stages, each also with a head biased 300
+   log-units below the others; a ragged input (odd window count from padding, a window
    wider than the padded side) through the NHWC entry points; the
    LayerNorm at vit_base b256's and convnext_tiny b128's shapes, rows
    shifted by 1e3 and no affine; the public attention at swin_t stage 1's
@@ -254,17 +258,28 @@ def _stage_build_report(log):
     """The attention-stage kernels (csrc/attention_stage.cuh), named by their
     template arguments: the wgmma stage's head dim, one pass and bias, the
     CUDA-core stage's type and output columns a lane, the f32 stage's head
-    dim rounded up to 16."""
+    dim rounded up to 16 and cosine mode (Swin v2's, the window entry's)."""
     def name(m):
         if m.group(1) == "wgmma":
             return f"attention_stage_wgmma<{m.group(2)}, {_flag(m.group(3))}, {_flag(m.group(4))}>"
         if m.group(1) == "fma":
             return f"attention_stage_fma<{'float' if m.group(5) == 'f' else 'bf16'}, {m.group(6)}>"
-        return f"attention_stage_f32<{m.group(7)}>"
+        return f"attention_stage_f32<{m.group(7)}, {_flag(m.group(8))}>"
 
     return _ptxas_report(
-        log, r"attention_stage_(wgmma|fma|f32)I(?:Li(\d+)ELb([01])ELb([01])E|(f|13__nv_bfloat16)Li(\d)E|Li(\d+)EE)",
-        name)
+        log, r"attention_stage_(wgmma|fma|f32)I(?:Li(\d+)ELb([01])ELb([01])E|(f|13__nv_bfloat16)Li(\d)E|"
+             r"Li(\d+)ELb([01])EE)", name)
+
+
+def _window_build_report(log):
+    """The window kernels of csrc/window_attention.cu: the window stage by
+    type, head dim and cosine mode, and the bf16 CUDA-core kernel."""
+    def name(m):
+        if m.group(1):
+            return f"window_stage<{'float' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}, {_flag(m.group(3))}>"
+        return "window_attention_kernel"
+
+    return _ptxas_report(log, r"window_stageI(f|13__nv_bfloat16)Li(\d+)ELb([01])E|(window_attention_kernel)E", name)
 
 
 def check_fused_qkv(attention, lib, log):
@@ -283,7 +298,8 @@ def check_fused_qkv(attention, lib, log):
         print(f"{kernel}: {regs} registers, {spills} bytes of spill stores and loads (ptxas -v)")
     _check(all(spills == 0 for k, _, spills in report if k.startswith(("attention_stage_wgmma", "attention_stage_f32"))),
            "a bf16 wgmma or an f32 attention-stage kernel spills")
-    _check(len({k for k, _, _ in report if k.startswith("attention_stage_f32")}) == 8,
+    # K1's, the half's and K2's sources build the 8 head dims plain; the window entry's the 4 up to 64 in both modes
+    _check(len({k for k, _, _ in report if k.startswith("attention_stage_f32")}) == 12,
            f"f32 attention-stage kernels in the build log: {report}")
     serialised = [line for line in log.splitlines() if "C7520" in line]
     print(f"ptxas C7520 (wgmma serialised) lines: {len(serialised)}")
@@ -346,56 +362,171 @@ def _window_inputs(nw, L, c, h, shifted, v2, dtype, gen):
     return qkv, bias, (1.0 if v2 else (c // h) ** -0.5), gs
 
 
-def check_window_attention(attention):
-    """window_qkv_attention kernel vs its plain version at every stage shape
-    of swin_t and swin_v2_t at b128, with SDPA beside swin_t stage 3 in both
-    types; returns swin_t stage 3 bf16's numbers."""
+WINDOW_PATHS = {0: "the bf16 CUDA-core kernel", 1: "the bf16 window stage (TMA ring, wgmma)",
+                2: "the f32 attention stage (split TF32, mma.sync)",
+                3: "the f32 window stage (TMA ring, split TF32 on mma.sync)"}
+# Non-finite values planted in q or k: the f32 patterns of tests/test_torch_kernels_cuda.py
+# (the card's NaN, the CPU's NaN, inf) and their bf16 counterparts.
+NON_FINITE_BITS = {torch.float32: {"nan-7fffffff": 0x7FFFFFFF, "nan-7fc00000": 0x7FC00000, "inf": 0x7F800000},
+                   torch.bfloat16: {"nan-7fff": 0x7FFF, "nan-7fc0": 0x7FC0, "inf": 0x7F80}}
+
+
+def _device_ms(fn, names=None, iters=10):
+    """Device time of one call of ``fn`` (torch.profiler, mean over ``iters``
+    calls): its kernels whose names hold one of ``names``, or all of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_time_total and (names is None or any(n in e.key for n in names))) / 1e3 / iters
+
+
+def _window_f64(qkv, bias, h, scale, gs=None):
+    """window_qkv_attention's function in f64: the f32 kernels' yardstick
+    (the plain version computes in f32)."""
+    b, nw, L, three_c = qkv.shape
+    c = three_c // 3
+    q, k, v = qkv.double().view(b, nw, L, 3, h, c // h).permute(3, 0, 1, 4, 2, 5).unbind(0)
+    if gs is not None:
+        q = F.normalize(q, dim=-1, eps=1e-12) * gs.double().view(h, 1, 1)
+        k = F.normalize(k, dim=-1, eps=1e-12)
+    s = q @ k.transpose(-1, -2) * scale + bias.double()
+    return (torch.softmax(s, dim=-1) @ v).transpose(2, 3).reshape(b, nw, L, c)
+
+
+def _window_yardstick(attention, qkv, bias, h, scale, gs):
+    """The plain version at the kernel's bound: f32 for a bf16 kernel, f64 for an f32 one."""
+    if qkv.dtype == torch.float32:
+        return _window_f64(qkv, bias, h, scale, gs)
+    return attention.window_qkv_attention_reference(qkv.float(), bias, h, scale, gs)
+
+
+def check_window_attention(attention, lib, log):
+    """window_qkv_attention (csrc/window_attention.cu): the window stage's and
+    the f32 stage's cosine kernels' registers and spills from ptxas (a spill
+    in a window-stage kernel, or its wgmma serialised by ptxas (C7520), fails
+    the run); then at every stage shape of swin_t and swin_v2_t at b128, in
+    bf16 and f32, the path each takes, the kernel against its plain version
+    (bf16: the plain version in f32; f32: in f64), both timed in turns by
+    CUDA events (where a kernel is shorter than the wrapper's host cost a
+    call, the events read the host), the kernel's device time by
+    torch.profiler, and SDPA on the same q, k, v with the bias as a float
+    mask laid out before the call (v2: q and k normalised and q scaled
+    before the call), events and device time, with the bound; a head 300
+    log-units down; qkv as the front rows of a buffer whose
+    later rows hold NaN; NaN and inf planted in one row of one window's q and
+    of its k. Returns swin_t stage 3 bf16's numbers."""
+    report = sorted(set(_window_build_report(log)) |
+                    {r for r in _stage_build_report(log) if r[0].startswith("attention_stage_f32") and "true" in r[0]})
+    for kernel, regs, spills in report:
+        print(f"{kernel}: {regs} registers, {spills} bytes of spill stores and loads (ptxas -v)")
+    # bf16 at head dims 16, 32, 48 and 64, f32 at 16 and 32, each v1 and v2
+    _check(len({k for k, _, _ in report if k.startswith("window_stage<")}) == 12,
+           f"window-stage kernels in the build log: {report}")
+    _check(all(spills == 0 for k, _, spills in report if k.startswith("window_stage<")),
+           "a window-stage kernel spills")
+    serialised = [line for line in log.splitlines() if "C7520" in line and "window_stage" in line]
+    _check(not serialised, f"ptxas serialises a window-stage kernel's wgmma: {serialised}")
     gen = torch.Generator(device="cuda").manual_seed(1)
     main = None
     for name in SWIN:
         v2 = name.startswith("swin_v2")
         for stage, nw, L, c, h, shifted in _stage_shapes(name):
+            n = SWIN_BATCH * nw
             for dtype in (torch.bfloat16, torch.float32):
                 qkv, bias, scale, gs = _window_inputs(nw, L, c, h, shifted, v2, dtype, gen)
                 bound = WINDOW_BF16_BOUND[v2] if dtype == torch.bfloat16 else F32_BOUND
+                cfg = (ctypes.c_int * 5)()
+                _check(lib.eqx_window_attention_config(L, c // h, int(dtype == torch.bfloat16), int(v2), n * h, cfg)
+                       == 0, f"window attention config {name} stage {stage}")
+                path = WINDOW_PATHS[cfg[0]]
+                if cfg[0] in (1, 3):
+                    path += (f": {cfg[3]} blocks of {-(-n * h // cfg[3])} tiles or fewer, {cfg[1]} an SM, {cfg[2]} "
+                             f"bytes of shared memory a block, a ring of {cfg[4]}")
+                _check(cfg[0] == (1 if dtype == torch.bfloat16 else 3), f"{name} stage {stage} {dtype}: path {path}")
                 with torch.no_grad():
                     out = attention.window_qkv_attention(qkv, bias, h, scale, gs)
-                    ref = attention.window_qkv_attention_reference(qkv.float(), bias, h, scale, gs)
+                    ref = _window_yardstick(attention, qkv, bias, h, scale, gs)
                 what = f"window_qkv_attention {name} stage {stage}"
                 err = _compare(out, ref, bound, f"{what} {dtype}")
+                del ref
                 ms, plain_ms, turns = _turns(
                     lambda: attention.window_qkv_attention_reference(qkv, bias, h, scale, gs),
                     lambda: attention.window_qkv_attention(qkv, bias, h, scale, gs), 10,
                 )
-                extra = ""
-                if (name, stage) == ("swin_t", 3):
-                    n = SWIN_BATCH * nw
-                    q, k, v = (t.contiguous() for t in qkv.view(n, L, 3, h, c // h).permute(2, 0, 3, 1, 4).unbind(0))
-                    mask = bias.to(dtype).expand(SWIN_BATCH, nw, h, L, L).reshape(n, h, L, L)
-                    with torch.inference_mode():
-                        library_ms = _time_ms(
-                            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 10
-                        )
-                    e = qkv.element_size()
-                    n_bytes = qkv.numel() * e + out.numel() * e + bias.numel() * 4
-                    bound_ms, bound_by = _bound_ms(n_bytes, 4 * n * h * L * L * (c // h), dtype)
-                    if dtype == torch.bfloat16:
-                        main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                    library_ms=library_ms)
-                    extra = (f"; library (SDPA, float mask, q/k/v and mask laid out before the call) "
-                             f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
-                _report(what, (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms, plain_ms, turns, extra)
+                q, k, v = (t.contiguous() for t in qkv.view(n, L, 3, h, c // h).permute(2, 0, 3, 1, 4).unbind(0))
+                if v2:
+                    q = (F.normalize(q.float(), dim=-1) * gs.view(h, 1, 1)).to(dtype)
+                    k = F.normalize(k.float(), dim=-1).to(dtype)
+                mask = bias.to(dtype).expand(SWIN_BATCH, nw, h, L, L).reshape(n, h, L, L)
+                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
+                with torch.inference_mode():
+                    library_ms = _time_ms(sdpa, 10)
+                device_ms = _device_ms(lambda: attention.window_qkv_attention(qkv, bias, h, scale, gs),
+                                       ("window_stage", "window_attention_kernel", "attention_stage_f32"))
+                library_device_ms = _device_ms(sdpa)
+                del q, k, v, mask
+                e = qkv.element_size()
+                n_bytes = qkv.numel() * e + out.numel() * e + bias.numel() * 4
+                bound_ms, bound_by = _bound_ms(n_bytes, 4 * n * h * L * L * (c // h), dtype)
+                if (name, stage, dtype) == ("swin_t", 3, torch.bfloat16):
+                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=library_ms)
+                _report(what, (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms, plain_ms, turns,
+                        f"; kernel device time {device_ms:.4f} ms (profiler); library (SDPA, float mask"
+                        f"{', q and k normalised' if v2 else ''}, laid out before the call) {library_ms:.4f} ms, device "
+                        f"{library_device_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}); path: {path}")
 
-    # a head biased 300 log-units below the others: finite, and equal to the plain version
     for dtype, bound in ((torch.bfloat16, WINDOW_BF16_BOUND[False]), (torch.float32, F32_BOUND)):
+        # a head biased 300 log-units below the others: finite, and equal to the plain version
         qkv, bias, scale, gs = _window_inputs(4, 49, 384, 12, True, False, dtype, gen)
         bias[:, 5] -= 300.0
         with torch.no_grad():
             out = attention.window_qkv_attention(qkv, bias, 12, scale)
-            err = _compare(out, attention.window_qkv_attention_reference(qkv.float(), bias, 12, scale), bound,
+            err = _compare(out, _window_yardstick(attention, qkv, bias, 12, scale, None), bound,
                            f"window_qkv_attention, head 300 below, {dtype}")
         print(f"window_qkv_attention {str(dtype)[6:]} with one head 300 log-units below the others: finite, "
               f"max|diff| {err:.3e} (bound {bound})")
+        # qkv as the front rows of a larger buffer whose later rows hold NaN: no row past the last window is read
+        rows = qkv.numel() // qkv.shape[-1]
+        buf = torch.full((rows + 4096, qkv.shape[-1]), float("nan"), device="cuda", dtype=dtype)
+        buf[:rows] = qkv.view(rows, -1)
+        front = buf[:rows].view(qkv.shape)
+        with torch.no_grad():
+            err = _compare(attention.window_qkv_attention(front, bias, 12, scale),
+                           _window_yardstick(attention, qkv, bias, 12, scale, None), bound,
+                           f"window_qkv_attention, NaN rows after the windows, {dtype}")
+        print(f"window_qkv_attention {str(dtype)[6:]} on the front rows of a buffer whose later rows hold NaN: "
+              f"finite, max|diff| {err:.3e} (bound {bound})")
+        del buf, front
+        # NaN or inf in one row of image 1, window 2's q (reaches that row of head 2) or k (all of that window's
+        # head 2)
+        for operand, col in (("q", 0), ("k", 384)):
+            for bits_name, bits in NON_FINITE_BITS[dtype].items():
+                x = qkv.clone()
+                x.view(torch.int32 if dtype == torch.float32 else torch.int16)[1, 2, 7, col + 2 * 32 + 3] = bits
+                with torch.no_grad():
+                    out = attention.window_qkv_attention(x, bias, 12, scale)
+                    ref = _window_yardstick(attention, x, bias, 12, scale, None)
+                torch.cuda.synchronize()
+                reach = torch.zeros_like(out, dtype=torch.bool)
+                reach[1, 2, (7 if operand == "q" else slice(None)), 64:96] = True
+                bad, got = ~torch.isfinite(ref), ~torch.isfinite(out)
+                _check(bool(bad.any()) and bool(got[bad].all()),
+                       f"window_qkv_attention {dtype} {bits_name} in {operand}: a non-finite plain output came out finite")
+                _check(not bool(got[~reach].any()), f"window_qkv_attention {dtype} {bits_name} in {operand}: "
+                       f"non-finite outputs outside the (window, head) it reaches")
+                err = (out[~reach].double() - ref[~reach].double()).abs().max().item()
+                _check(err < bound, f"window_qkv_attention {dtype} {bits_name} in {operand}: max|diff| {err}")
+                print(f"window_qkv_attention {str(dtype)[6:]} with {bits_name} in a row of {operand}: non-finite at "
+                      f"{int(got.sum())} outputs (plain version {int(bad.sum())}, reachable {int(reach.sum())}), "
+                      f"the rest within {err:.3e}")
     return main
 
 
@@ -1253,7 +1384,7 @@ def main():
 
     check_gemm(M, AH, W, WH, _native.build_log())
     qkv_main = check_fused_qkv(attention, _native.library(), _native.build_log())
-    window_main = check_window_attention(attention)
+    window_main = check_window_attention(attention, _native.library(), _native.build_log())
     block_main = check_block(W, _native.build_log())
     check_ragged(W)
     ln_main = check_layer_norm(LN)
@@ -1285,7 +1416,8 @@ def main():
         {"name": "fused_qkv_attention", "route": "cuda", "source": src + "attention_stage.cuh",
          "replaces": ["eqxvision_tpu/ops/attention.py:245", "eqxvision_tpu/ops/attention.py:276"],
          "launches": train_counts["fused_qkv_attention"], **qkv_main},
-        {"name": "window_qkv_attention", "route": "cuda", "source": src + "window_attention.cu",
+        {"name": "window_qkv_attention", "route": "cuda",
+         "source": [src + "window_attention.cu", src + "attention_stage.cuh"],
          "replaces": ["eqxvision_tpu/ops/attention.py:445", "eqxvision_tpu/ops/attention.py:682",
                       "scripts/ablate_swin2.py:71", "scripts/ablate_swin9.py:53"],
          "launches": swin_v2_counts["window_qkv_attention"], **window_main},

@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
     lib.eqx_window_attention.restype = c_int
     lib.eqx_window_attention_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_window_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_window_attention_config.argtypes = [c_int, c_int, c_int, c_int, ctypes.c_longlong, ctypes.POINTER(c_int)]
+    lib.eqx_window_attention_config.restype = c_int
     lib.eqx_swin_block.argtypes = [
         *([c_ptr] * 16), *([c_int] * 13), ctypes.c_float, ctypes.c_float, c_int, c_int, c_int, c_ptr,
     ]

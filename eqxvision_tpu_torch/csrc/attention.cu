@@ -19,11 +19,10 @@
 // - bf16 with N <= 64 and a head dim that is a multiple of 16 (at most 64):
 //   one block of 8 warps per row b on the tensor cores. The block stages
 //   q|k|v of row b in shared memory (rows past N zero) and runs the head
-//   attention of tensor_core_attention.cuh, the one the window-attention
-//   and whole-block kernels use (S = Q K^T and O = P V with mma.sync, the
-//   softmax by one warp per row between them). At swin_t's 49-token rows
-//   this beats the attention stage, whose 256-key blocks would waste three
-//   quarters of their products.
+//   attention of tensor_core_attention.cuh (S = Q K^T and O = P V with
+//   mma.sync, the softmax by one warp per row between them). At swin_t's
+//   49-token rows this beats the attention stage, whose 256-key blocks
+//   would waste three quarters of their products.
 // - otherwise: the attention stage of attention_stage.cuh, the one K1 and
 //   the ViT attention half run, on separate q, k, v maps with one head a
 //   row (H = 1, D = Dh) and the compact bias: bf16 with Dh a multiple of

@@ -171,19 +171,28 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
-// Operands of the CUDA-core stage. q, k and v point at image 0, head 0, row
-// 0: image b, head h, row i is at (b L + i) ld + h Dh.
+// Operands of the CUDA-core and f32 stages. q, k and v point at image 0,
+// head 0, row 0: image b, head h, row i is at (b L + i) ld + h Dh.
 template <typename T>
 struct FmaArgs {
   const T* q;
   const T* k;
   const T* v;
   T* out;             // (B, L, H Dh)
-  const float* bias;  // (n_bias, L, bias_ld) f32, image b reads bias[b % n_bias]; or null
+  const float* bias;  // (n_bias, H, L, bias_ld) f32, image b and head h read bias[(b % bias_period) % n_bias, h]; or null
+  const float* gs;    // f32 stage: (H,) f32, Swin v2's cosine attention (see attention_stage_f32); or null
   long long ld;       // row stride of q, k and v in elements: 3 D for qkv, Dh for K2's separate tensors
-  int n_bias, bias_ld, seq_len, num_heads, head_dim, n_qtiles;
+  int n_bias, bias_period, bias_ld, seq_len, num_heads, head_dim, n_qtiles;
   float scale;
 };
+
+// The bias rows of image b, head h (null without a bias): K2's compact bias
+// (H = 1, bias_period = n_bias) or a Swin window's (bias_period = nW).
+template <typename T>
+__device__ __forceinline__ const float* stage_bias(const FmaArgs<T>& a, long long b, int h) {
+  if (a.bias == nullptr) return nullptr;
+  return a.bias + ((b % a.bias_period) % a.n_bias * a.num_heads + h) * a.seq_len * a.bias_ld;
+}
 
 // NI: output columns per lane, ceil(Dh / 32).
 template <typename T, int NI>
@@ -207,7 +216,7 @@ __global__ void __launch_bounds__(kFmaThreads) attention_stage_fma(const FmaArgs
   const int q0 = qt * kFmaQTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // this warp's rows of the bias; rows past L read row L - 1 and are not stored
-  const float* bias_b = a.bias == nullptr ? nullptr : a.bias + (b % a.n_bias) * L * a.bias_ld;
+  const float* bias_b = stage_bias(a, b, h);
   const float* brow[kFmaRows];
 #pragma unroll
   for (int r = 0; r < kFmaRows; ++r)
@@ -350,9 +359,11 @@ constexpr int kF32StageKeys = 32;
 // columns for V) each hit 32 distinct banks.
 __host__ __device__ constexpr int f32_stage_stride(int dhp) { return dhp + 4; }
 
-size_t f32_stage_smem_bytes(int dhp) {
-  // Q's hi and lo, then two buffers of K and V as loaded
-  return sizeof(float) * (size_t)f32_stage_stride(dhp) * (2 * kF32StageRows + 4 * kF32StageKeys);
+size_t f32_stage_smem_bytes(int dhp, bool cosine) {
+  // Q's hi and lo, then two buffers of K and V as loaded; with cosine the
+  // chunk's inverse key norms
+  return sizeof(float) * ((size_t)f32_stage_stride(dhp) * (2 * kF32StageRows + 4 * kF32StageKeys) +
+                          (cosine ? kF32StageKeys : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
@@ -391,7 +402,12 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4]
 // group and t + 4 for key 2 t + 1, and V's fragment is read with the same
 // permutation. Key groups of 8 wholly past L are skipped, as are warps
 // whose 16 rows are all past L.
-template <int DHP>
+// kCosine (Swin v2, the window entry): q and k are L2-normalised per row
+// (the norm floored at 1e-12) and q multiplied by gs[h]. Q's rows are
+// scaled by gs[h] / |q| in f32 before their split; each chunk's inverse key
+// norms go to shared memory once the chunk has landed and scale the
+// product's columns: s = (q' . k) / |k| * scale + bias.
+template <int DHP, bool kCosine>
 __global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const FmaArgs<float> a) {
   constexpr int KC = kF32StageKeys, S = f32_stage_stride(DHP), NB = KC / 8, ND = DHP / 8;
   constexpr float kLog2e = 1.4426950408889634f;
@@ -399,6 +415,7 @@ __global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const
   float* sQh = reinterpret_cast<float*>(smem);  // kF32StageRows x S
   float* sQl = sQh + kF32StageRows * S;
   float* sKV = sQl + kF32StageRows * S;  // [2][K KC x S, V KC x S]
+  float* sKinv = sKV + 4 * KC * S;       // kCosine: the chunk's inverse key norms
 
   const int L = a.seq_len, Dh = a.head_dim, n_qtiles = a.n_qtiles;
   const int qt = blockIdx.x % n_qtiles;
@@ -440,8 +457,13 @@ __global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const
   };
   load_kv(0, 0);
   // Q's tile, split once: every load of a thread issued before its stores
+  // (kCosine: stored as loaded, then scaled and split below)
   auto store_q = [&](int r, int d, float x) {
-    split_tf32(x, sQh[r * S + d], sQl[r * S + d]);
+    if constexpr (kCosine) {
+      sQh[r * S + d] = x;
+    } else {
+      split_tf32(x, sQh[r * S + d], sQl[r * S + d]);
+    }
   };
   if (vec && reinterpret_cast<uintptr_t>(qb) % 16 == 0) {
     constexpr int P = DHP / 4, N = kF32StageRows * P / kF32StageThreads;  // 16-byte pieces: a row's, a thread's
@@ -466,10 +488,23 @@ __global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const
       store_q(r, d, q0 + r < L && d < Dh ? qb[(long long)(q0 + r) * ld + d] : 0.f);
     }
   }
+  if constexpr (kCosine) {  // two threads a row, each half of its columns: q' = q gs / |q|, then split
+    __syncthreads();
+    constexpr int HALF = DHP / 2;
+    float* qr = sQh + (threadIdx.x / 2) * S + (threadIdx.x % 2) * HALF;
+    float q2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < HALF; ++d) q2 = fmaf(qr[d], qr[d], q2);
+    q2 += __shfl_xor_sync(0xffffffffu, q2, 1);
+    const float f = a.gs[h] / fmaxf(sqrtf(q2), 1e-12f);
+    float* ql = sQl + (qr - sQh);
+#pragma unroll
+    for (int d = 0; d < HALF; ++d) split_tf32(qr[d] * f, qr[d], ql[d]);
+  }
 
   const int r0 = warp * 16;  // the warp's rows of the tile: r0 + g and r0 + g + 8
   const bool active = q0 + r0 < L;
-  const float* bias_b = a.bias == nullptr ? nullptr : a.bias + (b % a.n_bias) * L * a.bias_ld;
+  const float* bias_b = stage_bias(a, b, h);
   const float* brow[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr)
@@ -489,6 +524,16 @@ __global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const
       cp_async_wait<0>();
     }
     __syncthreads();  // chunk c (and, at c = 0, Q) is in shared memory
+    if constexpr (kCosine) {  // four threads a key, each a quarter of its columns
+      constexpr int QUARTER = DHP / 4;
+      const float* kr = sKV + (c & 1) * 2 * KC * S + (threadIdx.x / 4) * S + (threadIdx.x % 4) * QUARTER;
+      float k2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < QUARTER; ++d) k2 = fmaf(kr[d], kr[d], k2);
+      k2 = quad_sum(k2);
+      if (threadIdx.x % 4 == 0) sKinv[threadIdx.x / 4] = 1.f / fmaxf(sqrtf(k2), 1e-12f);
+      __syncthreads();
+    }
     if (active) {
       const float* sK = sKV + (c & 1) * 2 * KC * S;
       const float* sV = sK + KC * S;
@@ -523,6 +568,7 @@ __global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const
         for (int e = 0; e < 4; ++e) {
           const int key = j0 + 8 * j + 2 * t + (e & 1), rr = e >> 1;
           float x = sc[j][e] * a.scale;
+          if constexpr (kCosine) x *= sKinv[8 * j + 2 * t + (e & 1)];
           if (bias_b != nullptr) x += brow[rr][min(key, L - 1)];
           x = key < L ? x : -INFINITY;
           sc[j][e] = x;
@@ -592,13 +638,13 @@ __global__ void __launch_bounds__(kF32StageThreads, 1) attention_stage_f32(const
   }
 }
 
-template <int DHP>
+template <int DHP, bool kCosine = false>
 cudaError_t launch_f32(FmaArgs<float> a, int batch, cudaStream_t stream) {
   a.n_qtiles = (a.seq_len + kF32StageRows - 1) / kF32StageRows;
   const long long blocks = (long long)batch * a.num_heads * a.n_qtiles;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const size_t smem = f32_stage_smem_bytes(DHP);
-  auto kernel = attention_stage_f32<DHP>;
+  const size_t smem = f32_stage_smem_bytes(DHP, kCosine);
+  auto kernel = attention_stage_f32<DHP, kCosine>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)blocks, kF32StageThreads, smem, stream>>>(a);
@@ -1134,6 +1180,7 @@ cudaError_t launch_attention_stage(const void* qkv, void* out, int batch, int se
   f.out = static_cast<T*>(out);
   f.ld = 3LL * D;
   f.n_bias = 1;
+  f.bias_period = 1;
   f.bias_ld = seq_len;
   f.seq_len = seq_len;
   f.num_heads = num_heads;
@@ -1188,6 +1235,7 @@ cudaError_t launch_attention_stage_qkv(const void* q, const void* k, const void*
   f.bias = bias;
   f.ld = head_dim;
   f.n_bias = n_bias;
+  f.bias_period = n_bias;
   f.bias_ld = bias_ld;
   f.seq_len = seq_len;
   f.num_heads = 1;
@@ -1242,7 +1290,7 @@ int attention_stage_config(int seq_len, int head_dim, int* out) {
 long long attention_stage_smem_bytes(int seq_len, int head_dim, bool is_bf16) {
   if (seq_len <= 0 || head_dim <= 0 || head_dim > kStageMaxHeadDim) return 0;
   if (stage_uses_wgmma(is_bf16, head_dim)) return stage_wgmma_smem_bytes(stage_kv_rows(seq_len, head_dim), head_dim);
-  return is_bf16 ? (long long)fma_smem_bytes(head_dim) : (long long)f32_stage_smem_bytes((head_dim + 15) / 16 * 16);
+  return is_bf16 ? (long long)fma_smem_bytes(head_dim) : (long long)f32_stage_smem_bytes((head_dim + 15) / 16 * 16, false);
 }
 
 }  // namespace

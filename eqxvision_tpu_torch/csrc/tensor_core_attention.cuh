@@ -1,9 +1,8 @@
-// Tensor-core pieces shared by swin_block.cu, window_attention.cu,
-// attention.cu, and through gemm_bf16.cuh by mlp_half.cu and
-// attention_half.cu:
-// mma.sync and ldmatrix wrappers and one head's window attention in bf16
-// (S = Q K^T, softmax, O = P V) for windows of at most 64 tokens, run by a
-// block of 8 warps.
+// Tensor-core pieces shared by swin_block.cu, attention.cu, and through
+// gemm_bf16.cuh by the other sources: mma.sync and ldmatrix wrappers, and
+// one head's attention in bf16 (S = Q K^T, softmax, O = P V) for rows of at
+// most 64 tokens, run by a block of 8 warps: the public attention's (K2)
+// short rows.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernels _window_qkv_kernel and
 // _packed_window_kernel (eqxvision_tpu/ops/attention.py, launched from
 // _window_qkv_attention and _packed_window_attention). Both compute one
-// function on two layouts; this kernel computes it on the unpadded one:
+// function on two layouts; this file computes it on the unpadded one:
 //
 //   qkv  (B*nW, L, 3*H*Dh) laid out [q heads | k heads | v heads]
 //   bias (nWb, H, L, L) f32, window w reads bias[w % nWb]
@@ -13,128 +13,640 @@
 // input type, and p.V accumulated in f32 and stored in the input type, as
 // window_qkv_attention_reference does. With cosine_gs (Swin v2) q and k are
 // L2-normalised per head and row (norm floored at 1e-12) and q is
-// multiplied by its head's gs, all in f32: the normalised q stays in f32
-// registers, and k keeps its input-type values beside an f32 inverse norm
-// per row that scales its scores.
+// multiplied by its head's gs, in f32.
 // The TPU kernels' 128-lane padding of C, head-masked K/V stacks and
 // segment-sum softmax are layout devices of that chip. Here the softmax is
 // per head and exact, so no head can underflow against another.
 //
-// Design. bf16 windows of at most 64 tokens with a head dim that is a
-// multiple of 16 (every Swin stage in bf16) take the tensor cores: one
-// block of 8 warps per (window, head) stages the head's q|k|v rows and
-// runs the attention of tensor_core_attention.cuh, the one the whole-block
-// kernel uses (S = Q K^T and O = P V with mma.sync, the softmax by one warp
-// per row between them). Other shapes and f32 take the CUDA cores:
-// one block of 4 warps per (window, head). The block stages that
-// head's K and V in shared memory in the input type (one warp per row,
-// with K's inverse row norms in cosine mode), reading them with strides
-// out of the qkv rows.
-// Each warp then takes query rows in turn: q goes to a per-warp f32
-// buffer, each lane computes the scores of keys lane, lane+32, ... and
-// writes them to a per-warp score row, warp shuffles give the row's max
-// and sum, and each lane accumulates output columns lane and lane+32.
-// K's row stride is an odd number of 32-bit words, so 32 lanes reading 32
-// rows at one column hit 32 banks.
+// Design. Chosen from the type and the shape (window_path):
+// - L <= 64 (every Swin stage), 16-byte aligned qkv and out, and a head dim
+//   of 16, 32, 48 or 64 in bf16, 16 or 32 in f32 (a box row of at most 128
+//   bytes): the window stage below, window_stage<T, DH, kCosine>. Its work
+//   unit is a tile, one (window, head): 64 query rows (L live), 64 keys and
+//   Dh columns, 12 KB of bf16 q, k and v at Dh = 32. Persistent blocks of
+//   one warpgroup (128 threads), as many as fit the card, walk over the
+//   tiles: block j takes tiles j, j + grid, ... Thread 0 keeps a ring of
+//   kWinStages stages (bf16 two, f32 one) in shared memory filled by TMA
+//   (cp.async.bulk.tensor over one 3-D map of qkv, (3C, L, windows), at
+//   columns h Dh, C + h Dh and 2C + h Dh, guarded by one mbarrier a
+//   stage), so that the next tiles' loads are in flight while a tile
+//   computes; a tile's stage is refilled with the tile kWinStages further
+//   on once every warp is done with it. The box is exactly Dh columns wide (bf16 Dh = 48: 64, the only
+//   such width) with the swizzle that width allows (32, 64 or 128 bytes):
+//   a wider box would read the next head's columns, bytes a memory-bound
+//   kernel cannot spare. Rows past L read as zeros, not as the next
+//   window's rows. The tile's (window, head) bias slab, L x L f32, is copied
+//   into shared memory where it differs from the block's last one (at the
+//   served shapes the grid is a multiple of nWb H, so a block's tiles share
+//   one): read from L2 per score, it took 30% of the kernel's time
+//   (scripts/ablate_torch_window_stage.py, PERF.md §6).
+//   A row lives in the four lanes of a quad, 32 f32 scores a thread, keys
+//   >= L -inf by selects, and the softmax runs in those registers.
+//   bf16: S = Q K^T by wgmma m64n64k16 (both operands by descriptor,
+//   K-major, descriptors for the box's swizzle). v1: the accumulators start
+//   at the bias over the scale (the attention stage's kBias method: s =
+//   (bias / scale + q . k) scale). v2: the products start at zero; q's and
+//   k's inverse row norms (two threads a row, from the tile in shared
+//   memory, while the products run) scale the accumulators' rows and
+//   columns in f32, q's by gs[h], then the bias is added. p = e / sum is
+//   rounded to bf16 in place as the register A operand of wgmma m64nDk16
+//   for P V, with V read MN-major from the stage (the transpose bit).
+//   Nothing that writes a wgmma operand register sits under a branch
+//   (PERF.md §6: a branch there makes ptxas serialise every wgmma, C7520).
+//   The output is rounded to bf16 through the warp's own swizzled staging
+//   rows and rows < L written as 16-byte stores at column h Dh of out.
+//   f32: each warp its 16 rows; S and P V by split TF32 on mma.sync
+//   m16n8k8 (hi + lo, three products; split_tf32_bits keeps a NaN or an
+//   infinity in hi) with the fragments read from the swizzled boxes, and
+//   e's accumulators as P V's A operand unmoved (the attention stage's key
+//   permutation); s = (q . k) scale (v2: times gs[h] / |q| and 1 / |k|)
+//   + bias, the bias after the scaled product; O divided by the row sum at
+//   its 8-byte stores. The f32 attention stage below took 31% longer at
+//   swin_t stages 3-4 and swin_v2_t stage 3 (PERF.md §6).
+// - f32 otherwise (L > 64, other head dims, unaligned tensors): the f32
+//   attention stage of attention_stage.cuh (split TF32 on mma.sync, one
+//   pass, K and V streamed in chunks of 32 keys), with the window's bias per
+//   (window, head) and, for v2, q scaled by gs[h] / |q| before its split
+//   and the products' columns by 1 / |k|.
+// - bf16 otherwise (L > 64, a head dim off the multiples of 16, unaligned
+//   tensors, or a v1 scale whose reciprocal is not finite): the CUDA-core
+//   kernel window_attention_kernel, one block of 4 warps per (window,
+//   head), K and V staged in shared memory, serial per-row FMA chains.
 //
 // What bounds it. At swin_t stage 3, b128 bf16 (B*nW=512, L=49, H=12,
 // Dh=32), one call reads 57.8 MB of qkv and 0.5 MB of bias and writes
 // 19.3 MB, 0.023 ms at 3.35 TB/s; its 1.9 GFLOP take 0.002 ms on the tensor
-// cores. The bound is device memory. Each (window, head) pair is one block
-// that reads its bytes once; the CUDA-core path spends its time in serial
-// per-row FMA chains on shared-memory operands, the tensor-core path in
-// its staging and barriers. Limits: head_dim <= 64; one head's K and V
-// must fit in shared memory (L up to several hundred); the entry point
-// returns cudaErrorInvalidValue outside them.
+// cores. The bound is device memory: each tile's q, k and v are read once,
+// 12 KB in one TMA stage, and the ring keeps up to kWinStages tiles a block
+// in flight. Per tile a thread does about ten instructions a score on the
+// CUDA cores (bias load, scale, mask, max, exp, sum, pack): 32 scores a
+// thread; the bf16 stage runs at 1.5x the bound there (PERF.md §6).
+// Limits: head_dim <= 64; on the CUDA-core kernel one head's K and V must
+// fit in shared memory (L up to several hundred); the entry point returns
+// cudaErrorInvalidValue outside them.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "tensor_core_attention.cuh"
+#include "attention_stage.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kMaxHeadDim = 64;
+constexpr int kWinMaxHeadDim = 64;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---- the window stage: persistent blocks, a TMA ring; bf16 on wgmma, f32 by split TF32 on mma.sync ----
+constexpr int kWinThreads = 128;  // one warpgroup
+constexpr int kWinRows = 64;      // query rows of a tile, and its keys
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+constexpr bool kWinIsF32 = std::is_same<T, float>::value;
+// Ring depth, the tiles a block has in flight: two in bf16; one in f32,
+// whose three blocks an SM then leave L1 more room (9% faster than two,
+// scripts/ablate_torch_window_stage.py; the other blocks hide the loads).
+template <typename T>
+constexpr int kWinStages = kWinIsF32<T> ? 1 : 2;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// Columns of a TMA box: the head dim, or 64 for bf16 at Dh = 48 (no
+// swizzle is 96 bytes wide).
+__host__ __device__ constexpr int win_box_cols(int dh) { return dh == 48 ? 64 : dh; }
+// Bytes of a box's row, the swizzle's span: 32, 64 or 128.
+template <typename T>
+__host__ __device__ constexpr int win_row_bytes(int dh) {
+  return win_box_cols(dh) * (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr int win_box_bytes(int dh) {
+  return kWinRows * win_row_bytes<T>(dh);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Dynamic shared memory of one block: alignment slack, the ring (q, k, v a
+// stage), bf16's staging rows (one box), the bias slab, v2's row scales,
+// the barriers.
+template <typename T>
+__host__ __device__ constexpr int win_smem_bytes(int dh) {
+  return 1024 + (3 * kWinStages<T> + (kWinIsF32<T> ? 0 : 1)) * win_box_bytes<T>(dh) + kWinRows * kWinRows * 4 +
+         2 * kWinRows * 4 + kWinStages<T> * 8;
 }
+
+// The 16-byte unit that holds unit u of row r of a box whose rows are RB
+// bytes, in the layout TMA writes with the RB-byte swizzle (box aligned to
+// 1024 bytes): bits 7.. of the row's offset XOR the unit index.
+template <int RB>
+__device__ __forceinline__ int win_unit(int r, int u) {
+  return u ^ ((r * RB >> 7) & (RB / 16 - 1));
+}
+
+// Element (r, c) of an f32 box of RB-byte rows.
+template <int RB>
+__device__ __forceinline__ float win_f32(const unsigned char* box, int r, int c) {
+  return *reinterpret_cast<const float*>(box + r * RB + (win_unit<RB>(r, c >> 2) << 4) + (c & 3) * 4);
+}
+
+// wgmma descriptor of a box read K-major (Q and K for S = Q K^T): rows of RB
+// bytes, 8-row groups 8 RB apart, the RB-byte swizzle. A k16 step further
+// along is +2 (32 bytes).
+template <int RB>
+__device__ __forceinline__ uint64_t win_desc(const void* tile) {
+  constexpr uint64_t mode = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(8 * RB >> 4) << 32) |
+         (mode << 62);
+}
+
+// The same box read MN-major (V for P V, the transpose bit): rows along K
+// of RB / 2 columns, 8-row groups 8 RB apart (the stride offset); the box
+// is one chunk wide, so the leading offset is not used. 16 rows further
+// along K is +16 RB bytes.
+template <int RB>
+__device__ __forceinline__ uint64_t win_mn_desc(const void* tile) {
+  constexpr uint64_t mode = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | ((uint64_t)(kWinRows * RB >> 4) << 16) |
+         ((uint64_t)(8 * RB >> 4) << 32) | (mode << 62);
+}
+
+// D (+)= A B for a 64 x N tile, N = 16 or 32: A (64 x 16) from registers as
+// in wgmma_m64n64k16_rs, B (16 x N) by descriptor, MN-major.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\nwgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\nwgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_win_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                             int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_rs(d, a, desc_b, accumulate);
+  } else if constexpr (N == 32) {
+    wgmma_m64n32k16_rs(d, a, desc_b, accumulate);
+  } else {
+    static_assert(N == 16, "P V is 16, 32 or 64 wide");
+    wgmma_m64n16k16_rs(d, a, desc_b, accumulate);
+  }
+}
+
+// The four accumulators of n8 tile j of a 32-register score row block, as
+// mma.sync's D fragment.
+__device__ __forceinline__ float (&win_tile(float* s, int j))[4] { return *reinterpret_cast<float(*)[4]>(s + 4 * j); }
+
+struct WinArgs {
+  CUtensorMap map;     // qkv as (3C, L, windows): boxes of win_box_cols(Dh) x 64 rows x 1, swizzled
+  void* out;           // (windows, L, C) in the input's type
+  const float* bias;   // (n_bias, H, L, L) f32: window w, head h reads bias[(w % n_windows) % n_bias, h]
+  const float* gs;     // kCosine: (H,) f32
+  long long tiles;     // windows x H
+  int seq_len, num_heads, n_windows, n_bias;
+  float scale;
+  float inv_scale;     // bf16 v1: 1 / scale
+  float scale_log2e;   // bf16: scale log2(e)
+};
+
+// Thread (warp w, lane 4 g + t) holds, in register 4 j + e of a tile's
+// scores, query row 16 w + g (e = 0, 1) or 16 w + g + 8 (e = 2, 3) at key
+// 8 j + 2 t + e % 2: the layout of wgmma's accumulators and, tile by tile,
+// of mma.sync's; the output's registers 4 n + e are columns 8 n + 2 t + e %
+// 2 of the same rows.
+template <typename T, int DH, bool kCosine>
+__global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : kCosine ? 3 : 4)
+    window_stage(const __grid_constant__ WinArgs a) {
+  constexpr bool F32 = kWinIsF32<T>;
+  constexpr int NS = kWinStages<T>;
+  constexpr int BW = win_box_cols(DH), RB = win_row_bytes<T>(DH), BOX = win_box_bytes<T>(DH), U = RB / 16;
+  static_assert(RB >= 32 && RB <= 128, "a box row is one swizzle span");
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;  // the swizzle's alignment
+  unsigned char* ring = smem;                                        // [NS][q, k, v boxes]
+  unsigned char* stg = ring + 3 * NS * BOX;                          // bf16: [4 warps][16 rows x RB bytes]
+  float* sb = reinterpret_cast<float*>(stg + (F32 ? 0 : BOX));       // the tile's bias slab, L x L
+  float* rs = sb + kWinRows * kWinRows;                              // kCosine: q's row scales, k's inverse norms
+  uint64_t* full = reinterpret_cast<uint64_t*>(rs + 2 * kWinRows);  // one a stage
+
+  const int L = a.seq_len, H = a.num_heads, C = H * DH;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4, r0 = 16 * warp;
+  const long long first = blockIdx.x, step = gridDim.x;
+  const int n_it = first < a.tiles ? (int)((a.tiles - first + step - 1) / step) : 0;  // this block's tiles
+
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // (thread 0) tile it's q, k and v boxes into its stage
+  auto issue = [&](int it) {
+    const long long tile = first + it * step;
+    const int h = (int)(tile % H), w = (int)(tile / H);
+    unsigned char* dst = ring + (it % NS) * 3 * BOX;
+    uint64_t* bar = &full[it % NS];
+    mbar_arrive_expect_tx(bar, 3 * BOX);
+#pragma unroll
+    for (int x = 0; x < 3; ++x) tma_load_3d(dst + x * BOX, &a.map, bar, x * C + h * DH, 0, w);
+  };
+  if (tid == 0 && n_it > 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&a.map)) : "memory");
+    for (int it = 0; it < n_it && it < NS; ++it) issue(it);
+  }
+
+  // this thread's bias rows in the slab (query rows past L read row L - 1)
+  const float* b0 = sb + min(r0 + g, L - 1) * L;
+  const float* b1 = sb + min(r0 + g + 8, L - 1) * L;
+  long long slab = -1;  // the (window, head) slab sb holds
+  float s[32], o[BW / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BW / 2; ++i) o[i] = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    const long long tile = first + it * step;
+    const int h = (int)(tile % H);
+    const long long w = tile / H;
+    const int st = it % NS;
+    const unsigned char* tq = ring + st * 3 * BOX;
+    const unsigned char* tk = tq + BOX;
+    const unsigned char* tv = tk + BOX;
+
+    // The tile's bias slab into shared memory where it changed (a block's
+    // tiles mostly share one: the grid is a multiple of nWb H at the served
+    // shapes); every thread finished reading the last one before the
+    // previous tile's final barrier.
+    const long long want = (w % a.n_windows) % a.n_bias * H + h;
+    if (want != slab) {
+      const float* src = a.bias + want * L * L;
+      for (int i = tid; i < L * L; i += kWinThreads) sb[i] = __ldg(src + i);
+      named_barrier(1, kWinThreads);
+      slab = want;
+    }
+    if constexpr (!F32 && !kCosine) {  // bf16 v1: the accumulators start at the bias over the scale
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = min(8 * j + 2 * t + e, L - 1);  // keys past L read key L - 1 (masked below)
+          s[4 * j + e] = b0[key] * a.inv_scale;
+          s[4 * j + 2 + e] = b1[key] * a.inv_scale;
+        }
+    }
+    mbar_wait(&full[st], (it / NS) & 1);
+
+    // S = Q K^T: bf16 on wgmma (onto the bias over the scale in v1, from
+    // zero in v2); f32 by split TF32 on mma.sync, each warp its 16 rows
+    if constexpr (F32) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        split_tf32_bits(win_f32<RB>(tq, r0 + g, 8 * ks + t), ah[0], al[0]);
+        split_tf32_bits(win_f32<RB>(tq, r0 + g + 8, 8 * ks + t), ah[1], al[1]);
+        split_tf32_bits(win_f32<RB>(tq, r0 + g, 8 * ks + t + 4), ah[2], al[2]);
+        split_tf32_bits(win_f32<RB>(tq, r0 + g + 8, 8 * ks + t + 4), ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_bits(win_f32<RB>(tk, 8 * j + g, 8 * ks + t), bh0, bl0);
+          split_tf32_bits(win_f32<RB>(tk, 8 * j + g, 8 * ks + t + 4), bh1, bl1);
+          mma_split(win_tile(s, j), ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    } else {
+      fence_accumulator(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks)
+        wgmma_m64n64k16(s, win_desc<RB>(tq) + 2 * ks, win_desc<RB>(tk) + 2 * ks, !kCosine || ks > 0);
+      wgmma_commit();
+    }
+    if constexpr (kCosine) {  // (bf16: while the products run) two threads a row, each half its columns
+      constexpr int UH = DH * (int)sizeof(T) / 32;  // 16-byte units a half row
+      const int r = tid / 2, hf = tid % 2;
+      float q2 = 0.f, k2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < UH; ++i) {
+        const int off = r * RB + (win_unit<RB>(r, hf * UH + i) << 4);
+        const uint4 qv = *reinterpret_cast<const uint4*>(tq + off);
+        const uint4 kv = *reinterpret_cast<const uint4*>(tk + off);
+        const uint32_t qw[4] = {qv.x, qv.y, qv.z, qv.w}, kw[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (F32) {
+            const float qf = __uint_as_float(qw[c]), kf = __uint_as_float(kw[c]);
+            q2 = fmaf(qf, qf, q2);
+            k2 = fmaf(kf, kf, k2);
+          } else {
+            const float2 qf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qw[c]));
+            const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kw[c]));
+            q2 = fmaf(qf.x, qf.x, fmaf(qf.y, qf.y, q2));
+            k2 = fmaf(kf.x, kf.x, fmaf(kf.y, kf.y, k2));
+          }
+        }
+      }
+      q2 += __shfl_xor_sync(0xffffffffu, q2, 1);
+      k2 += __shfl_xor_sync(0xffffffffu, k2, 1);
+      if (hf == 0) {
+        rs[r] = a.gs[h] / fmaxf(sqrtf(q2), 1e-12f) * (F32 ? a.scale : a.scale_log2e);
+        rs[kWinRows + r] = 1.f / fmaxf(sqrtf(k2), 1e-12f);
+      }
+    }
+    if constexpr (!F32) {
+      wgmma_wait<0>();
+      fence_accumulator(s);
+    }
+    if constexpr (kCosine) named_barrier(1, kWinThreads);  // the row scales
+
+    // The scores: bf16 in log2 units (s scale log2(e), v2 s (gs / |q|) scale
+    // log2(e) / |k| + bias log2(e)), f32 in natural ones (s scale + bias, v2
+    // s (gs / |q|) scale / |k| + bias); -inf at keys >= L; each row's max
+    const int lim = L - 2 * t;  // key 8 j + 2 t + e % 2 is below L iff 8 j + e % 2 < lim
+    float mx[2] = {-INFINITY, -INFINITY};
+    float qs[2] = {F32 ? a.scale : a.scale_log2e, F32 ? a.scale : a.scale_log2e};
+    if constexpr (kCosine) {
+      qs[0] = rs[r0 + g];
+      qs[1] = rs[r0 + g + 8];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      [[maybe_unused]] float2 ki;
+      if constexpr (kCosine) ki = *reinterpret_cast<const float2*>(rs + kWinRows + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[4 * j + e] * qs[e >> 1];
+        if constexpr (kCosine) v *= (e & 1) ? ki.y : ki.x;
+        if constexpr (F32 || kCosine) {
+          const float bv = (e >> 1 ? b1 : b0)[min(8 * j + 2 * t + (e & 1), L - 1)];
+          v += F32 ? bv : bv * kLog2e;
+        }
+        v = 8 * j + (e & 1) < lim ? v : -INFINITY;
+        s[4 * j + e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float x = F32 ? exp2f((s[i] - mx[(i >> 1) & 1]) * kLog2e) : ex2(s[i] - mx[(i >> 1) & 1]);
+      s[i] = x;
+      sum[(i >> 1) & 1] += x;
+    }
+    const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+
+    // O = P V. bf16: p = e / sum rounded to bf16 as wgmma's register A
+    // operand, V MN-major. f32: e split as mma.sync's A operand unmoved (A's
+    // k index t stands for key 2 t, t + 4 for key 2 t + 1; V read with the
+    // same permutation), O divided by the sum at the store.
+    if constexpr (F32) {
+#pragma unroll
+      for (int i = 0; i < BW / 2; ++i) o[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32_bits(s[4 * j], ph[0], pl[0]);
+        split_tf32_bits(s[4 * j + 2], ph[1], pl[1]);
+        split_tf32_bits(s[4 * j + 1], ph[2], pl[2]);
+        split_tf32_bits(s[4 * j + 3], ph[3], pl[3]);
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_bits(win_f32<RB>(tv, 8 * j + 2 * t, 8 * n + g), bh0, bl0);
+          split_tf32_bits(win_f32<RB>(tv, 8 * j + 2 * t + 1, 8 * n + g), bh1, bl1);
+          mma_split(win_tile(o, n), ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    } else {
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(s[8 * kk + 2 * i] * inv[i & 1], s[8 * kk + 2 * i + 1] * inv[i & 1]);
+          pa[kk][i] = *reinterpret_cast<const uint32_t*>(&v);
+          asm volatile("" : "+r"(pa[kk][i])::"memory");  // computed before the fence
+        }
+      fence_accumulator(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_win_pv<BW>(o, pa[kk], win_mn_desc<RB>(tv + 16 * kk * RB), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_accumulator(o);
+    }
+
+    // every warp is done with this stage (and the slab, v2's row scales): refill it
+    named_barrier(1, kWinThreads);
+    if (tid == 0 && it + NS < n_it) issue(it + NS);
+
+    if constexpr (F32) {  // rows < L as 8-byte stores of O / sum
+      float* out = static_cast<float*>(a.out);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + g + 8 * hr;
+        if (row < L)
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n)
+            *reinterpret_cast<float2*>(out + (w * L + row) * C + h * DH + 8 * n + 2 * t) =
+                make_float2(o[4 * n + 2 * hr] * inv[hr], o[4 * n + 2 * hr + 1] * inv[hr]);
+      }
+    } else {  // O rounded to bf16 through this warp's staging rows, rows < L as 16-byte stores
+      bf16* out = static_cast<bf16*>(a.out);
+      unsigned char* sw = stg + warp * 16 * RB;
+#pragma unroll
+      for (int j = 0; j < BW / 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = g + 8 * hr;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(o[4 * j + 2 * hr], o[4 * j + 2 * hr + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(sw + r * RB + (win_unit<RB>(r, j) << 4) + 4 * t) = v;
+        }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 16 * U / 32; ++i) {
+        const int idx = lane + 32 * i, r = idx / U, u = idx % U, row = r0 + r;
+        if (row < L && u < DH / 8)
+          *reinterpret_cast<uint4*>(out + (w * L + row) * C + h * DH + 8 * u) =
+              *reinterpret_cast<const uint4*>(sw + r * RB + (win_unit<RB>(r, u) << 4));
+      }
+      __syncwarp();  // the staging rows are free again
+    }
+  }
+}
+
+// TMA map of qkv (windows, L, cols) in T as (cols, L, windows), in boxes of
+// box_cols x 64 rows x 1 with the swizzle of that width (box_cols
+// sizeof(T) bytes: 32, 64 or 128); rows past L read as zeros.
+template <typename T>
+cudaError_t encode_window_map(CUtensorMap* map, const void* qkv, int windows, int seq_len, int cols, int box_cols) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = (cuuint64_t)cols * sizeof(T);
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)seq_len, (cuuint64_t)windows};
+  const cuuint64_t strides[2] = {row, row * seq_len};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)kWinRows, 1};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  const size_t span = box_cols * sizeof(T);
+  const CUtensorMapSwizzle swizzle = span == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapDataType type = kWinIsF32<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, 3, const_cast<void*>(qkv), dims, strides, box, element_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Blocks of the window stage's kernel an SM holds, found once (its shared
+// memory attribute set first); 0 on an error.
+template <typename T, int DH, bool kCosine>
+int window_stage_occupancy() {
+  static const int occ = []() {
+    auto kernel = window_stage<T, DH, kCosine>;
+    int n = 0;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, win_smem_bytes<T>(DH)) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kWinThreads, win_smem_bytes<T>(DH)) !=
+            cudaSuccess)
+      return 0;
+    return n;
+  }();
+  return occ;
+}
+
+// Blocks the window stage launches for `tiles` tiles on `sms` SMs: as many
+// as the card holds at once (persistent), at most one a tile.
+long long window_stage_blocks(long long tiles, int sms, int occupancy) {
+  const long long resident = (long long)sms * (occupancy > 0 ? occupancy : 1);
+  return tiles < resident ? tiles : resident;
+}
+
+template <typename T, int DH, bool kCosine>
+cudaError_t launch_window_stage(const WinArgs& a, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  auto kernel = window_stage<T, DH, kCosine>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, win_smem_bytes<T>(DH));
+  if (err != cudaSuccess) return err;
+  const int occ = window_stage_occupancy<T, DH, kCosine>();
+  if (occ == 0) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)window_stage_blocks(a.tiles, sms, occ), kWinThreads, win_smem_bytes<T>(DH), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The head dims each type's window stage takes: bf16 16, 32, 48, 64 (a box
+// row of at most 128 bytes); f32 16 and 32.
+template <typename T, bool kCosine>
+cudaError_t launch_window_stage_dh(const WinArgs& a, int head_dim, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch_window_stage<T, 16, kCosine>(a, stream);
+    case 32: return launch_window_stage<T, 32, kCosine>(a, stream);
+    default: break;
+  }
+  if constexpr (!kWinIsF32<T>) {
+    if (head_dim == 48) return launch_window_stage<T, 48, kCosine>(a, stream);
+    if (head_dim == 64) return launch_window_stage<T, 64, kCosine>(a, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int window_stage_occupancy_dh(int head_dim, bool cosine) {
+  switch (head_dim * 2 + cosine) {
+    case 32: return window_stage_occupancy<T, 16, false>();
+    case 33: return window_stage_occupancy<T, 16, true>();
+    case 64: return window_stage_occupancy<T, 32, false>();
+    case 65: return window_stage_occupancy<T, 32, true>();
+    default: break;
+  }
+  if constexpr (!kWinIsF32<T>) {
+    switch (head_dim * 2 + cosine) {
+      case 96: return window_stage_occupancy<T, 48, false>();
+      case 97: return window_stage_occupancy<T, 48, true>();
+      case 128: return window_stage_occupancy<T, 64, false>();
+      case 129: return window_stage_occupancy<T, 64, true>();
+      default: break;
+    }
+  }
+  return 0;
+}
+
+// ---- f32 elsewhere: the attention stage's split-TF32 kernel with the window's bias ----
+template <bool kCosine>
+cudaError_t launch_window_f32(const FmaArgs<float>& f, int windows, cudaStream_t stream) {
+  switch ((f.head_dim + 15) / 16) {
+    case 1: return launch_f32<16, kCosine>(f, windows, stream);
+    case 2: return launch_f32<32, kCosine>(f, windows, stream);
+    case 3: return launch_f32<48, kCosine>(f, windows, stream);
+    case 4: return launch_f32<64, kCosine>(f, windows, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- bf16 CUDA-core kernel, for the shapes the window stage does not take ----
+constexpr int kWarps = 4;
 
 // Row stride of the staged K and V, in elements: at least head_dim, and an
 // odd number of 32-bit words.
-__host__ __device__ __forceinline__ int kv_stride(int head_dim, int elem_bytes) {
-  int words = (head_dim * elem_bytes + 3) / 4;
+__host__ __device__ __forceinline__ int kv_stride(int head_dim) {
+  int words = (head_dim * 2 + 3) / 4;
   if (words % 2 == 0) words += 1;
-  return words * 4 / elem_bytes;
+  return words * 2;
 }
 
-size_t smem_bytes(int seq_len, int head_dim, int elem_bytes) {
-  return 2 * (size_t)seq_len * kv_stride(head_dim, elem_bytes) * elem_bytes  // K and V
-         + kWarps * (size_t)seq_len * sizeof(float)                         // score rows
-         + kWarps * (size_t)kMaxHeadDim * sizeof(float)                     // q rows
-         + (size_t)seq_len * sizeof(float);                                 // K's inverse norms
+size_t smem_bytes(int seq_len, int head_dim) {
+  return 2 * (size_t)seq_len * kv_stride(head_dim) * sizeof(bf16)  // K and V
+         + kWarps * (size_t)seq_len * sizeof(float)                // score rows
+         + kWarps * (size_t)kWinMaxHeadDim * sizeof(float)         // q rows
+         + (size_t)seq_len * sizeof(float);                        // K's inverse norms
 }
 
 // Loads one head's row of q or k (columns lane and lane+32; 0 past
 // head_dim) in f32 and returns the inverse of its L2 norm, floored at 1e-12.
-template <typename T>
-__device__ __forceinline__ float load_head_row(const T* src, int head_dim, int lane, float (&v)[2]) {
+__device__ __forceinline__ float load_head_row(const bf16* src, int head_dim, int lane, float (&v)[2]) {
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     const int d = lane + 32 * t;
-    v[t] = d < head_dim ? to_f32(src[d]) : 0.f;
+    v[t] = d < head_dim ? __bfloat162float(src[d]) : 0.f;
   }
   return 1.f / fmaxf(sqrtf(warp_sum(v[0] * v[0] + v[1] * v[1])), 1e-12f);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-    window_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bias, const float* __restrict__ gs,
-                            T* __restrict__ out, int n_windows, int n_bias, int seq_len, int num_heads,
-                            int head_dim, float scale) {
+    window_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                            const float* __restrict__ gs, bf16* __restrict__ out, int n_windows, int n_bias,
+                            int seq_len, int num_heads, int head_dim, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = seq_len, Dh = head_dim;
-  const int ks = kv_stride(Dh, sizeof(T));
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + (size_t)L * ks;
+  const int ks = kv_stride(Dh);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + (size_t)L * ks;
   float* s_all = reinterpret_cast<float*>(v_s + (size_t)L * ks);
   float* q_all = s_all + kWarps * L;
-  float* k_inv = q_all + kWarps * kMaxHeadDim;
+  float* k_inv = q_all + kWarps * kWinMaxHeadDim;
 
   const int h = blockIdx.x % num_heads;
   const long long bw = blockIdx.x / num_heads;  // image * nW + window
   const int wb = (int)(bw % n_windows) % n_bias;
   const int D = num_heads * Dh;
   const long long row_stride = 3LL * D;
-  const T* base = qkv + bw * L * row_stride + h * Dh;
+  const bf16* base = qkv + bw * L * row_stride + h * Dh;
   const float* bias_h = bias + ((long long)wb * num_heads + h) * L * L;
   const bool cosine = gs != nullptr;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int j = warp; j < L; j += kWarps) {
-    const T* row = base + j * row_stride;
+    const bf16* row = base + j * row_stride;
     float kv[2];
     const float inv = load_head_row(row + D, Dh, lane, kv);
     if (lane == 0) k_inv[j] = cosine ? inv : 1.f;
@@ -150,7 +662,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   __syncthreads();
 
   float* s_w = s_all + warp * L;
-  float* q_w = q_all + warp * kMaxHeadDim;
+  float* q_w = q_all + warp * kWinMaxHeadDim;
   const float gain = cosine ? gs[h] : 1.f;
   for (int i = warp; i < L; i += kWarps) {
     float qv[2];
@@ -164,9 +676,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     const float* b_row = bias_h + (long long)i * L;
     float m = -INFINITY;
     for (int j = lane; j < L; j += 32) {
-      const T* k_row = k_s + j * ks;
+      const bf16* k_row = k_s + j * ks;
       float acc = 0.f;
-      for (int d = 0; d < Dh; ++d) acc = fmaf(q_w[d], to_f32(k_row[d]), acc);
+      for (int d = 0; d < Dh; ++d) acc = fmaf(q_w[d], __bfloat162float(k_row[d]), acc);
       const float s = acc * k_inv[j] * scale + b_row[j];
       s_w[j] = s;
       m = fmaxf(m, s);
@@ -179,113 +691,33 @@ __global__ void __launch_bounds__(kWarps * 32)
       sum += e;
     }
     const float inv_sum = 1.f / warp_sum(sum);
-    for (int j = lane; j < L; j += 32) s_w[j] = to_f32(from_f32<T>(s_w[j] * inv_sum));
+    for (int j = lane; j < L; j += 32) s_w[j] = __bfloat162float(__float2bfloat16(s_w[j] * inv_sum));
     __syncwarp();
 
     float o[2] = {0.f, 0.f};
     for (int j = 0; j < L; ++j) {
       const float p = s_w[j];
-      const T* v_row = v_s + j * ks;
+      const bf16* v_row = v_s + j * ks;
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int d = lane + 32 * t;
-        if (d < Dh) o[t] = fmaf(p, to_f32(v_row[d]), o[t]);
+        if (d < Dh) o[t] = fmaf(p, __bfloat162float(v_row[d]), o[t]);
       }
     }
-    T* dst = out + (bw * L + i) * D + h * Dh;
+    bf16* dst = out + (bw * L + i) * D + h * Dh;
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int d = lane + 32 * t;
-      if (d < Dh) dst[d] = from_f32<T>(o[t]);
+      if (d < Dh) dst[d] = __float2bfloat16(o[t]);
     }
     __syncwarp();  // s_w and q_w are rewritten by the next row
   }
 }
 
-// bf16 windows of at most 64 tokens with a head dim that is a multiple of
-// 16: one block of 8 warps per (window, head) on the tensor cores. The
-// block stages the head's q|k|v rows in shared memory (rows past L zero)
-// and runs eqx_tc::attention_head_mma, whose score tile takes v2's norms as
-// f32 row and column scales.
-bool takes_tensor_cores(int dtype, int seq_len, int head_dim) {
-  return dtype == 1 && seq_len <= eqx_tc::kRows && head_dim % 16 == 0;
-}
-
-// Row stride of the staged q|k|v: 3 * Dh + 2 elements, an odd number of
-// 32-bit words for head dims that are multiples of 16.
-__host__ __device__ __forceinline__ int qkv_stride(int head_dim) { return 3 * head_dim + 2; }
-
-size_t smem_bytes_mma(int head_dim) {
-  return (size_t)eqx_tc::kRows * qkv_stride(head_dim) * sizeof(__nv_bfloat16)  // q|k|v, 16-byte multiple
-         + (size_t)eqx_tc::kRows * eqx_tc::kSs * sizeof(float)                // scores, then p
-         + 2 * (size_t)eqx_tc::kRows * sizeof(float);                         // row scales of q and k
-}
-
-__global__ void __launch_bounds__(eqx_tc::kThreads)
-    window_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
-                                const float* __restrict__ gs, __nv_bfloat16* __restrict__ out, int n_windows,
-                                int n_bias, int seq_len, int num_heads, int head_dim, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int L = seq_len, Dh = head_dim, sq = qkv_stride(Dh);
-  __nv_bfloat16* qkvh = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* s_buf = reinterpret_cast<float*>(smem + (size_t)eqx_tc::kRows * sq * sizeof(__nv_bfloat16));
-  float* q_scale = s_buf + eqx_tc::kRows * eqx_tc::kSs;
-  float* k_inv = q_scale + eqx_tc::kRows;
-
-  const int h = blockIdx.x % num_heads;
-  const long long bw = blockIdx.x / num_heads;  // image * nW + window
-  const int wb = (int)(bw % n_windows) % n_bias;
-  const int D = num_heads * Dh;
-  const __nv_bfloat16* base = qkv + bw * L * 3LL * D + h * Dh;
-  const int pairs = 3 * Dh / 2;  // 32-bit pieces of a row's q|k|v
-  for (int e = threadIdx.x; e < eqx_tc::kRows * pairs; e += eqx_tc::kThreads) {
-    const int r = e / pairs, c = (e % pairs) * 2;
-    const uint32_t v = r < L ? eqx_tc::ld32(base + r * 3LL * D + (c / Dh) * D + c % Dh) : 0u;
-    *reinterpret_cast<uint32_t*>(qkvh + r * sq + c) = v;
-  }
-  for (int r = threadIdx.x; r < eqx_tc::kRows; r += eqx_tc::kThreads) q_scale[r] = k_inv[r] = 1.f;
-  __syncthreads();
-  if (gs != nullptr) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < L; r += eqx_tc::kWarps) {
-      const __nv_bfloat16* row = qkvh + r * sq;
-      float q2 = 0.f, k2 = 0.f;
-      for (int d = lane; d < Dh; d += 32) {
-        const float q = __bfloat162float(row[d]), k = __bfloat162float(row[Dh + d]);
-        q2 += q * q;
-        k2 += k * k;
-      }
-      q2 = eqx_tc::warp_sum(q2);
-      k2 = eqx_tc::warp_sum(k2);
-      if (lane == 0) {
-        q_scale[r] = gs[h] / fmaxf(sqrtf(q2), 1e-12f);
-        k_inv[r] = 1.f / fmaxf(sqrtf(k2), 1e-12f);
-      }
-    }
-    __syncthreads();
-  }
-  eqx_tc::attention_head_mma(qkvh, sq, Dh, L, q_scale, k_inv, scale, bias + ((long long)wb * num_heads + h) * L * L,
-                             s_buf, out + bw * L * D + h * Dh, D);
-}
-
-cudaError_t launch_mma(const void* qkv, const float* bias, const float* gs, void* out, int windows, int n_windows,
-                       int n_bias, int seq_len, int num_heads, int head_dim, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes_mma(head_dim);
-  const long long blocks = (long long)windows * num_heads;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  window_attention_mma_kernel<<<(unsigned)blocks, eqx_tc::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), bias, gs, static_cast<__nv_bfloat16*>(out), n_windows, n_bias, seq_len,
-      num_heads, head_dim, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* qkv, const float* bias, const float* gs, void* out, int windows, int n_windows,
-                   int n_bias, int seq_len, int num_heads, int head_dim, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(seq_len, head_dim, sizeof(T));
+cudaError_t launch_cuda_cores(const void* qkv, const float* bias, const float* gs, void* out, int windows,
+                              int n_windows, int n_bias, int seq_len, int num_heads, int head_dim, float scale,
+                              cudaStream_t stream) {
+  const size_t smem = smem_bytes(seq_len, head_dim);
   int device = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -294,12 +726,48 @@ cudaError_t launch(const void* qkv, const float* bias, const float* gs, void* ou
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
   const long long blocks = (long long)windows * num_heads;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = window_attention_kernel<T>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(window_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kWarps * 32, smem, stream>>>(static_cast<const T*>(qkv), bias, gs, static_cast<T*>(out),
-                                                            n_windows, n_bias, seq_len, num_heads, head_dim, scale);
+  window_attention_kernel<<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(qkv), bias, gs, static_cast<bf16*>(out), n_windows, n_bias, seq_len, num_heads,
+      head_dim, scale);
   return cudaGetLastError();
+}
+
+// The kernel eqx_window_attention takes: 0 the bf16 CUDA-core kernel, 1 the
+// bf16 window stage (TMA + wgmma), 2 the f32 attention stage (split TF32).
+// The kernel eqx_window_attention takes: 0 the bf16 CUDA-core kernel, 1 the
+// bf16 window stage (TMA ring, wgmma), 2 the f32 attention stage (split
+// TF32, mma.sync), 3 the f32 window stage (TMA ring, split TF32 on mma.sync).
+enum WindowPath { kPathCudaCores = 0, kPathStageBf16 = 1, kPathAttentionStageF32 = 2, kPathStageF32 = 3 };
+WindowPath window_path(int dtype, int seq_len, int head_dim, bool aligned, bool cosine, float scale) {
+  const bool tiles = seq_len <= kWinRows && aligned;
+  if (dtype == 0) return tiles && (head_dim == 16 || head_dim == 32) ? kPathStageF32 : kPathAttentionStageF32;
+  const bool scale_ok = cosine || (isfinite(scale) && isfinite(1.f / scale));  // v1 takes bias / scale
+  return tiles && head_dim % 16 == 0 && scale_ok ? kPathStageBf16 : kPathCudaCores;
+}
+
+template <typename T>
+cudaError_t launch_window_stage_any(const void* qkv, const float* bias, const float* gs, void* out, int windows,
+                                    int n_windows, int n_bias, int seq_len, int num_heads, int head_dim, float scale,
+                                    cudaStream_t stream) {
+  WinArgs a = {};
+  const cudaError_t err =
+      encode_window_map<T>(&a.map, qkv, windows, seq_len, 3 * num_heads * head_dim, win_box_cols(head_dim));
+  if (err != cudaSuccess) return err;
+  a.out = out;
+  a.bias = bias;
+  a.gs = gs;
+  a.tiles = (long long)windows * num_heads;
+  a.seq_len = seq_len;
+  a.num_heads = num_heads;
+  a.n_windows = n_windows;
+  a.n_bias = n_bias;
+  a.scale = scale;
+  a.inv_scale = 1.f / scale;
+  a.scale_log2e = scale * 1.4426950408889634f;
+  return gs != nullptr ? launch_window_stage_dh<T, true>(a, head_dim, stream)
+                       : launch_window_stage_dh<T, false>(a, head_dim, stream);
 }
 
 }  // namespace
@@ -310,29 +778,84 @@ extern "C" {
 // with windows = images * n_windows, bias (n_bias, num_heads, seq_len, seq_len)
 // f32, gs (num_heads,) f32 or null (null: v1, non-null: v2 cosine attention),
 // out (windows, seq_len, num_heads*head_dim); all contiguous on the current
-// device. Launches on `stream` and returns the cudaError_t of the launch.
+// device. Window w reads bias[(w % n_windows) % n_bias]. Launches on
+// `stream` and returns the cudaError_t of the launch.
 int eqx_window_attention(const void* qkv, const void* bias, const void* gs, void* out, int windows, int n_windows,
                          int n_bias, int seq_len, int num_heads, int head_dim, float scale, int dtype, void* stream) {
   if (windows <= 0 || n_windows <= 0 || n_bias <= 0 || seq_len <= 0 || num_heads <= 0 || head_dim <= 0 ||
-      head_dim > kMaxHeadDim || windows % n_windows != 0)
+      head_dim > kWinMaxHeadDim || windows % n_windows != 0 || dtype < 0 || dtype > 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   const float* g = static_cast<const float*>(gs);
-  if (dtype == 0)
-    return launch<float>(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads, head_dim, scale, s);
-  if (takes_tensor_cores(dtype, seq_len, head_dim))
-    return launch_mma(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads, head_dim, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads, head_dim, scale,
-                                 s);
-  return cudaErrorInvalidValue;
+  const int C = num_heads * head_dim;
+  switch (window_path(dtype, seq_len, head_dim, aligned16(qkv) && aligned16(out), g != nullptr, scale)) {
+    case kPathStageBf16:
+      return launch_window_stage_any<bf16>(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads, head_dim,
+                                           scale, s);
+    case kPathStageF32:
+      return launch_window_stage_any<float>(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads,
+                                            head_dim, scale, s);
+    case kPathAttentionStageF32: {
+      const float* base = static_cast<const float*>(qkv);
+      FmaArgs<float> f = {};
+      f.q = base;
+      f.k = base + C;
+      f.v = base + 2 * C;
+      f.out = static_cast<float*>(out);
+      f.bias = b;
+      f.gs = g;
+      f.ld = 3LL * C;
+      f.n_bias = n_bias;
+      f.bias_period = n_windows;
+      f.bias_ld = seq_len;
+      f.seq_len = seq_len;
+      f.num_heads = num_heads;
+      f.head_dim = head_dim;
+      f.scale = scale;
+      return g != nullptr ? launch_window_f32<true>(f, windows, s) : launch_window_f32<false>(f, windows, s);
+    }
+    default:
+      return launch_cuda_cores(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads, head_dim, scale, s);
+  }
 }
 
-// Dynamic shared memory one block needs; for error messages and reports.
+// The kernel eqx_window_attention takes at (seq_len, head_dim, dtype, v2)
+// for 16-byte aligned tensors and a v1 scale of 1 / sqrt(head_dim), over
+// `tiles` (window, head) pairs: out[0] its WindowPath; for the window stage
+// out[1] blocks an SM, out[2] dynamic shared memory a block, out[3] blocks
+// launched, out[4] ring stages; else zeros. Returns a cudaError_t.
+int eqx_window_attention_config(int seq_len, int head_dim, int dtype, int cosine, long long tiles, int* out) {
+  if (seq_len <= 0 || head_dim <= 0 || head_dim > kWinMaxHeadDim || dtype < 0 || dtype > 1 || tiles <= 0)
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < 5; ++i) out[i] = 0;
+  out[0] = window_path(dtype, seq_len, head_dim, true, cosine != 0, 1.f / sqrtf((float)head_dim));
+  if (out[0] != kPathStageBf16 && out[0] != kPathStageF32) return cudaSuccess;
+  const bool f32 = out[0] == kPathStageF32;
+  const int occ = f32 ? window_stage_occupancy_dh<float>(head_dim, cosine != 0)
+                      : window_stage_occupancy_dh<bf16>(head_dim, cosine != 0);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  out[1] = occ;
+  out[2] = f32 ? win_smem_bytes<float>(head_dim) : win_smem_bytes<bf16>(head_dim);
+  out[3] = (int)window_stage_blocks(tiles, sms, occ);
+  out[4] = f32 ? kWinStages<float> : kWinStages<bf16>;
+  return occ > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory one block of the kernel eqx_window_attention takes
+// needs (16-byte aligned tensors, a v1 scale of 1 / sqrt(head_dim)); for
+// error messages and reports.
 long long eqx_window_attention_smem_bytes(int seq_len, int head_dim, int elem_bytes) {
-  if (takes_tensor_cores(elem_bytes == 2 ? 1 : 0, seq_len, head_dim)) return (long long)smem_bytes_mma(head_dim);
-  return (long long)smem_bytes(seq_len, head_dim, elem_bytes);
+  if (seq_len <= 0 || head_dim <= 0 || head_dim > kWinMaxHeadDim) return 0;
+  switch (window_path(elem_bytes == 2 ? 1 : 0, seq_len, head_dim, true, false, 1.f / sqrtf((float)head_dim))) {
+    case kPathStageBf16: return win_smem_bytes<bf16>(head_dim);
+    case kPathStageF32: return win_smem_bytes<float>(head_dim);
+    case kPathAttentionStageF32: return (long long)f32_stage_smem_bytes((head_dim + 15) / 16 * 16, false);
+    default: return (long long)smem_bytes(seq_len, head_dim);
+  }
 }
 
 }  // extern "C"

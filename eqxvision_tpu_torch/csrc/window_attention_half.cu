@@ -32,8 +32,9 @@
 //      epilogue, into a (rows, 3C) workspace in x's type.
 //   3. The window attention of window_attention.cu, called through its
 //      entry point eqx_window_attention on that workspace: bf16 windows of
-//      at most 64 tokens with Dh a multiple of 16 on the tensor cores, f32
-//      on the CUDA cores.
+//      at most 64 tokens with Dh a multiple of 16 on its window stage
+//      (persistent blocks, a TMA ring, wgmma), f32 on the attention stage's
+//      split-TF32 kernel.
 //   4. proj: the GEMM with the bias + residual epilogue, the residual x.
 // qkv and the attention output go through device memory: 8 * rows * C *
 // itemsize bytes in all, 0.15 GB at swin_t stage 3 b128 in bf16, about
@@ -43,8 +44,8 @@
 // attention operations against x and out read or written once: at swin_t
 // stage 3 b128 in bf16 29.6 + 1.9 GFLOP, 0.032 ms at 989 TFLOP/s, against
 // 0.011 ms of device memory. The GEMMs are gemm_bf16.cuh's TMA-fed wgmma
-// ones (in f32 by split TF32); the window attention runs mma.sync, a fraction of the card's wgmma
-// rate; the roll and partition stay outside the kernels.
+// ones (in f32 by split TF32), the window attention's bf16 stage wgmma too;
+// the roll and partition stay outside the kernels.
 // Limits: C a multiple of 8, C divisible by H, Dh <= 64, in bf16 C at most
 // 12,344 (the qkv GEMM's LayerNorm vectors), 16-byte aligned tensors; the
 // entry point returns cudaErrorInvalidValue otherwise.

@@ -157,7 +157,7 @@ SHAPE = (256, 197, 12, 64)  # vit_base b256: B, L, heads, head dim
 # entry: (source, C entry point, mangled name of its one-pass Dh = 64 kernel)
 ENTRIES = {"k1": ("fused_qkv_attention.cu", "eqx_fused_qkv_attention", "attention_stage_wgmmaILi64ELb1ELb0E"),
            "k2_bias": ("attention.cu", "eqx_attention", "attention_stage_wgmmaILi64ELb1ELb1E")}
-F32_KERNEL = "attention_stage_f32ILi64EE"
+F32_KERNEL = "attention_stage_f32ILi64ELb0EE"
 
 
 def patch(texts, name):

@@ -206,6 +206,180 @@ def test_window_kernel_refuses(cuda, head_dim, dtype, error):
         )
 
 
+def _window_f64(qkv, bias, h, scale, gs=None):
+    """window_qkv_attention's function in f64 (the plain version computes in f32)."""
+    b, nw, L, three_c = qkv.shape
+    c = three_c // 3
+    q, k, v = qkv.double().view(b, nw, L, 3, h, c // h).permute(3, 0, 1, 4, 2, 5).unbind(0)
+    if gs is not None:
+        q = torch.nn.functional.normalize(q, dim=-1, eps=1e-12) * gs.double().view(h, 1, 1)
+        k = torch.nn.functional.normalize(k, dim=-1, eps=1e-12)
+    s = q @ k.transpose(-1, -2) * scale + bias.double()
+    return (torch.softmax(s, dim=-1) @ v).transpose(2, 3).reshape(b, nw, L, c)
+
+
+def _window_plain(qkv, bias, h, scale, gs=None):
+    """The plain version at the kernel's bound: f32 for bf16, f64 for f32."""
+    if qkv.dtype == torch.float32:
+        return _window_f64(qkv, bias, h, scale, gs)
+    return A.window_qkv_attention_reference(qkv.float(), bias, h, scale, gs)
+
+
+WINDOW_BOUND = {(torch.bfloat16, False): 0.02, (torch.bfloat16, True): 0.12, (torch.float32, False): 1e-4,
+                (torch.float32, True): 1e-4}
+# The window kernels at their edges: head dims 16, 48 and 64 at L = 49 and
+# 64; a tile count (245 windows x 12 heads) that leaves the persistent
+# blocks of the bf16 window stage a ragged last round; b1 at swin_t's stage
+# 4. (B, nW, nW of the bias, L, H, Dh, v2); a bias a window carries the
+# -100 shift mask.
+WINDOW_EDGES = {
+    "dh16-L49": (2, 4, 4, 49, 4, 16, False), "dh16-L64-v2": (2, 4, 4, 64, 4, 16, True),
+    "dh48-L49": (2, 4, 1, 49, 2, 48, False), "dh48-L64-v2": (2, 4, 4, 64, 2, 48, True),
+    "dh64-L49-v2": (2, 4, 4, 49, 2, 64, True), "dh64-L64": (2, 4, 1, 64, 2, 64, False),
+    "ragged-tiles": (5, 49, 49, 49, 12, 32, False), "swin_t-s4-b1": (1, 1, 1, 49, 24, 32, False),
+}
+
+
+def _masked_window_inputs(cuda, shape, dtype):
+    qkv, bias, scale, gs = _window_inputs(cuda, shape, dtype)
+    if bias.shape[0] > 1:
+        bias[:, :, : shape[3] // 2, shape[3] // 2:] -= 100.0
+    return qkv, bias, scale, gs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(WINDOW_EDGES))
+def test_window_kernel_edges(cuda, case, dtype):
+    shape = WINDOW_EDGES[case]
+    qkv, bias, scale, gs = _masked_window_inputs(cuda, shape, dtype)
+    out = A.window_qkv_attention(qkv, bias, shape[4], scale, gs)
+    ref = _window_plain(qkv, bias, shape[4], scale, gs)
+    torch.cuda.synchronize()
+    assert float((out.double() - ref.double()).abs().max()) < WINDOW_BOUND[dtype, shape[6]]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("nwb", [1, 4], ids=["bias-shared", "bias-per-window"])
+def test_window_kernel_shift_mask(cuda, nwb, dtype):
+    """The -100 shift mask between a window's regions, through a bias
+    shared by all windows (nWb = 1) and one a window (nWb = nW)."""
+    qkv, bias, scale, _ = _window_inputs(cuda, (2, 4, nwb, 49, 12, 32, False), dtype)
+    bias[:, :, :24, 24:] -= 100.0
+    bias[:, :, 24:, :24] -= 100.0
+    out = A.window_qkv_attention(qkv, bias, 12, scale)
+    assert float((out.double() - _window_plain(qkv, bias, 12, scale).double()).abs().max()) < WINDOW_BOUND[dtype, False]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_window_kernel_v2_logit_scale_100_and_far_head(cuda, dtype):
+    """v2 with logit scales 100, 0.02 and 10 and one head 300 log-units below the others."""
+    qkv, bias, scale, _ = _masked_window_inputs(cuda, (2, 4, 4, 64, 6, 32, True), dtype)
+    gs = torch.tensor([100.0, 0.02, 10.0, 100.0, 0.02, 10.0], device=cuda)
+    bias[:, 3] -= 300.0
+    out = A.window_qkv_attention(qkv, bias, 6, scale, gs)
+    assert bool(torch.isfinite(out).all())
+    assert float((out.double() - _window_plain(qkv, bias, 6, scale, gs).double()).abs().max()) < WINDOW_BOUND[dtype, True]
+
+
+@pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_window_kernel_reads_no_row_past_the_windows(cuda, dtype, v2):
+    """qkv as the front rows of a buffer whose later rows hold NaN: the
+    output stays finite and equal to the plain version's."""
+    shape = (2, 4, 4, 64 if v2 else 49, 3, 32, v2)
+    qkv, bias, scale, gs = _masked_window_inputs(cuda, shape, dtype)
+    rows = qkv.numel() // qkv.shape[-1]
+    buf = torch.full((rows + 300, qkv.shape[-1]), float("nan"), device=cuda, dtype=dtype)
+    buf[:rows] = qkv.view(rows, -1)
+    out = A.window_qkv_attention(buf[:rows].view(qkv.shape), bias, 3, scale, gs)
+    assert bool(torch.isfinite(out).all())
+    assert float((out.double() - _window_plain(qkv, bias, 3, scale, gs).double()).abs().max()) < WINDOW_BOUND[dtype, v2]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_window_kernel_qkv_off_16_bytes(cuda, dtype):
+    """qkv 4 bytes past a 16-byte boundary: bf16 takes the CUDA-core kernel
+    (TMA needs 16-byte aligned rows), f32 the stage's 4-byte loads; both
+    equal the plain version."""
+    qkv, bias, scale, _ = _masked_window_inputs(cuda, (2, 4, 4, 49, 3, 32, False), dtype)
+    shift = 4 // qkv.element_size()
+    buf = torch.empty(qkv.numel() + shift, dtype=dtype, device=cuda)
+    off = buf[shift:].view(qkv.shape)
+    off.copy_(qkv)
+    assert off.data_ptr() % 16 == 4
+    out = A.window_qkv_attention(off, bias, 3, scale)
+    assert float((out.double() - _window_plain(qkv, bias, 3, scale).double()).abs().max()) < WINDOW_BOUND[dtype, False]
+
+
+NON_FINITE_BF16_BITS = {"nan-7fffffff": 0x7FFF, "nan-7fc00000": 0x7FC0, "inf": 0x7F80}
+
+
+def _plant_any(t, index, name):
+    """NON_FINITE_BITS[name] into t (f32), or its bf16 counterpart."""
+    if t.dtype == torch.float32:
+        t.view(torch.int32)[index] = NON_FINITE_BITS[name]
+    else:
+        t.view(torch.int16)[index] = NON_FINITE_BF16_BITS[name]
+
+
+def _keeps_non_finite_within(out, ref, reach, bound):
+    """out is non-finite wherever the plain version is, finite outside
+    ``reach`` (what the planted value can touch), and within ``bound`` of
+    the plain version there."""
+    bad, got = ~torch.isfinite(ref), ~torch.isfinite(out)
+    assert bool(bad.any()), "the planted value reaches no output"
+    assert bool(got[bad].all())
+    assert not bool(got[~reach].any())
+    assert float((out[~reach].double() - ref[~reach].double()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("operand", ["q", "k"])
+@pytest.mark.parametrize("bits", ["nan-7fffffff", "nan-7fc00000", "inf"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_window_kernel_keeps_non_finite_values(cuda, dtype, bits, operand):
+    """Planted in one row of window (1, 2)'s q (reaching that row of head 1)
+    or k (reaching all of window (1, 2), head 1): non-finite wherever the
+    plain version is (an infinite key gives the plain version some -inf
+    scores, hence finite rows, where the split makes NaN: non-finite there
+    too, within the reach), every other output finite and within bound."""
+    qkv, bias, scale, _ = _masked_window_inputs(cuda, (2, 4, 4, 49, 3, 32, False), dtype)
+    _plant_any(qkv, (1, 2, 9, (0 if operand == "q" else 96) + 32 + 5), bits)
+    out = A.window_qkv_attention(qkv, bias, 3, scale)
+    ref = _window_plain(qkv, bias, 3, scale)
+    torch.cuda.synchronize()
+    reach = torch.zeros(out.shape, dtype=torch.bool, device=cuda)
+    reach[1, 2, (9 if operand == "q" else slice(None)), 32:64] = True
+    _keeps_non_finite_within(out, ref, reach, WINDOW_BOUND[dtype, False])
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_window_attention_half_kernel_reads_no_row_past_the_windows(cuda, dtype, bound):
+    """x as the front rows of a buffer whose later rows hold NaN."""
+    x, params, bias, valid = _wh_inputs(cuda, 2, 14, 384, 12, dtype)
+    rows = x.numel() // x.shape[-1]
+    buf = torch.full((rows + 300, x.shape[-1]), float("nan"), device=cuda, dtype=dtype)
+    buf[:rows] = x.view(rows, -1)
+    out = WH.fused_window_attention_half(buf[:rows].view(x.shape), *params, bias, 12, None, 1e-5, valid)
+    assert bool(torch.isfinite(out).all())
+    assert float((out.double() - _wh_plain(x, params, bias, 12, valid).double()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("bits", ["nan-7fffffff", "nan-7fc00000", "inf"])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.05), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_window_attention_half_kernel_keeps_non_finite_values(cuda, dtype, bound, bits):
+    """Planted in one token of window (1, 2): its LayerNorm row, then its q,
+    k and v, reach every row of that window; every other window stays
+    finite and within bound."""
+    x, params, bias, valid = _wh_inputs(cuda, 2, 14, 384, 12, dtype)
+    _plant_any(x, (1, 2, 9, 5), bits)
+    out = WH.fused_window_attention_half(x, *params, bias, 12, None, 1e-5, valid)
+    ref = _wh_plain(x, params, bias, 12, valid)
+    torch.cuda.synchronize()
+    reach = torch.zeros(out.shape, dtype=torch.bool, device=cuda)
+    reach[1, 2] = True
+    _keeps_non_finite_within(out, ref, reach, bound)
+
+
 def _block_inputs(cuda, c, heads, n, nw, L, dtype, v2):
     gen = torch.Generator(cuda).manual_seed(c + L)
 
