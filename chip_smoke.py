@@ -570,27 +570,38 @@ def _map_block_inputs(c, h, side, win, v2, dtype, gen):
 
 
 def _block_build_report(log):
-    """The whole-block kernels, the bf16 ones named by their template
-    arguments (proj width, cosine attention)."""
-    return _ptxas_report(log, r"swin_block_(bf16|f32)_kernel(ILi(\d+)ELb([01])E)?",
-                         lambda m: f"swin_block_{m.group(1)}_kernel"
-                         + (f"<{m.group(3)}, {_flag(m.group(4))}>" if m.group(2) else ""))
+    """The whole-block kernels, named by their template arguments (proj
+    width, cosine attention), and the f32 path's split of the weights."""
+    return _ptxas_report(log, r"swin_block_(bf16|f32)_kernelILi(\d+)ELb([01])E|split_weights_kernel",
+                         lambda m: "split_weights_kernel" if m.group(1) is None
+                         else f"swin_block_{m.group(1)}_kernel<{m.group(2)}, {_flag(m.group(3))}>")
+
+
+def _block_reference(W, x, p, bias, h, scale, v2, gs):
+    """The block's plain version on windows: in f32 for a bf16 x, in f64 for
+    an f32 x (the f32 kernel's yardstick)."""
+    t = torch.float64 if x.dtype == torch.float32 else torch.float32
+    return W.fused_swin_block_reference(x.to(t), W.SwinBlockParams(*(q.to(t) for q in p)), bias.to(t), h, scale,
+                                        1e-5, v2, None if gs is None else gs.to(t))
 
 
 def check_block(W, log):
     """The whole-block kernel. On (N, nW, L, C) windows against its plain
     version at the whole-block stages (C <= 192) of swin_t and swin_v2_t at
-    b128, bf16 and f32, and a head 300 log-units down. Then the NHWC entry
-    (fused_swin_block_v1/_v2: one launch that reads the windows from the
-    map) at the same four stage shapes, bf16: against the f32 plain path on
-    the same map, and timed in turns against that plain path (pad, roll,
-    partition, the block on windows, and back) beside its bound; with the
-    design's windows per block (G), blocks per SM, and each instantiation's
-    registers and spills from ptxas. Returns swin_t stage 1 bf16's numbers."""
+    b128, bf16 (against the plain version in f32) and f32 (in f64), a head
+    300 log-units down, and NaN and inf through the f32 kernel. Then the
+    NHWC entry (fused_swin_block_v1/_v2: one launch that reads the windows
+    from the map) at the same four stage shapes, bf16 and f32: against the
+    plain path on the same map (f32 for bf16, f64 for f32), and timed in
+    turns against that plain path in the input's type (pad, roll, partition,
+    the block on windows, and back) beside its bound; with each design's
+    windows per block (G), weight stages and blocks per SM, and each
+    instantiation's registers and spills from ptxas. Returns swin_t stage 1
+    bf16's numbers."""
     from eqxvision_tpu_torch import _native
 
     report = sorted(set(_block_build_report(log)))
-    _check(len(report) == 7, f"whole-block kernels in the build log: {report}")
+    _check(len(report) == 13, f"whole-block kernels in the build log: {report}")
     for kernel, regs, spills in report:
         print(f"{kernel}: {regs} registers, {spills} bytes of spill stores and loads (ptxas -v)")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -602,16 +613,15 @@ def check_block(W, log):
             for dtype in (torch.bfloat16, torch.float32):
                 x, p, bias, gs = _block_inputs(c, h, nw, L, shifted, v2, dtype, gen, W)
                 scale = 1.0 if v2 else (c // h) ** -0.5
-                p32 = W.SwinBlockParams(*(t.float() for t in p))
                 bound = BLOCK_BF16_BOUND[v2] if dtype == torch.bfloat16 else F32_BOUND
                 with torch.no_grad():
                     out = W.fused_swin_block(x, p, bias, h, scale, 1e-5, v2, gs)
-                    ref = W.fused_swin_block_reference(x.float(), p32, bias, h, scale, 1e-5, v2, gs)
+                    ref = _block_reference(W, x, p, bias, h, scale, v2, gs)
                 err = _compare(out, ref, bound, f"fused_swin_block windows {name} stage {stage} {dtype}")
                 what = f"fused_swin_block on windows {name} stage {stage}"
                 if (name, stage, dtype) != ("swin_t", 1, torch.float32):
-                    print(f"{what} {(SWIN_BATCH, nw, L, c, h)} {str(dtype)[6:]}: max|kernel-plain_f32| {err:.3e} "
-                          f"(bound {bound})")
+                    print(f"{what} {(SWIN_BATCH, nw, L, c, h)} {str(dtype)[6:]}: max|kernel-plain| {err:.3e} "
+                          f"(plain in {'f32' if dtype == torch.bfloat16 else 'f64'}; bound {bound})")
                     continue
                 # the f32 kernel's time (the NHWC entry below is bf16's)
                 ms, plain_ms, turns = _turns(
@@ -621,63 +631,94 @@ def check_block(W, log):
                 n_bytes = 2 * x.numel() * 4 + (4 * c * c + 2 * c * hidden) * 4 + bias.numel() * 4
                 flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * SWIN_BATCH * nw * L * L * c
                 bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
-                _report(what, (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms, plain_ms, turns,
+                _report(what + " (kernel vs plain in f64)", (SWIN_BATCH, nw, L, c, h), dtype, err, bound, ms,
+                        plain_ms, turns,
                         f"; bound {bound_ms:.4f} ms ({bound_by})")
 
     for dtype, bound in ((torch.bfloat16, BLOCK_BF16_BOUND[False]), (torch.float32, F32_BOUND)):
         x, p, bias, gs = _block_inputs(96, 3, 64, 49, True, False, dtype, gen, W)
         bias[:, 1] -= 300.0
-        p32 = W.SwinBlockParams(*(t.float() for t in p))
         with torch.no_grad():
             out = W.fused_swin_block(x, p, bias, 3, 32**-0.5)
-            err = _compare(out, W.fused_swin_block_reference(x.float(), p32, bias, 3, 32**-0.5, 1e-5, False), bound,
-                           f"fused_swin_block, head 300 below, {dtype}")
+            ref = _block_reference(W, x, p, bias, 3, 32**-0.5, False, None)
+            err = _compare(out, ref, bound, f"fused_swin_block, head 300 below, {dtype}")
         print(f"fused_swin_block {str(dtype)[6:]} with one head 300 log-units below the others: finite, "
               f"max|diff| {err:.3e} (bound {bound})")
 
+    # NaN and inf through the f32 kernel (split TF32 keeps them in hi): the
+    # card's NaN and an inf in one token of a window of image 1, the CPU's
+    # NaN in one weight of fc2 (v1) and of qkv (v2); the output is
+    # non-finite wherever the f64 plain version is, within the bound elsewhere
+    for v2, where, bits in ((False, "x", 0x7FFFFFFF), (True, "x", 0x7F800000), (False, "fc2_w", 0x7FC00000),
+                            (True, "qkv_w", 0x7FC00000)):
+        L = 64 if v2 else 49
+        x, p, bias, gs = _block_inputs(96, 3, 64, L, True, v2, torch.float32, gen, W)
+        target = x[1, 3, 10] if where == "x" else getattr(p, where)[2]
+        target.view(torch.int32)[5] = bits
+        scale = 1.0 if v2 else 32**-0.5
+        with torch.no_grad():
+            out = W.fused_swin_block(x, p, bias, 3, scale, 1e-5, v2, gs)
+            ref = _block_reference(W, x, p, bias, 3, scale, v2, gs)
+        torch.cuda.synchronize()
+        bad = ~torch.isfinite(ref)
+        _check(bool(bad.any()) and bool((~torch.isfinite(out))[bad].all()),
+               f"fused_swin_block f32 {'v2' if v2 else 'v1'} {where} {bits:#x}: finite where the plain version is not")
+        clean = torch.isfinite(ref)  # none where the value reaches every token (a v2 weight)
+        err = (out.double() - ref)[clean].abs().max().item() if bool(clean.any()) else 0.0
+        _check(err < F32_BOUND, f"fused_swin_block f32 {where} {bits:#x}: clean outputs off by {err}")
+        print(f"fused_swin_block f32 {'v2' if v2 else 'v1'} with {bits:#010x} in {where}: non-finite on "
+              f"{int(bad.sum())} outputs where f64 is ({int((~torch.isfinite(out)).sum())} in all), "
+              f"max|diff| elsewhere {err:.3e} (bound {F32_BOUND})")
+
     lib = _native.library()
     main = None
-    for name in SWIN:
-        size, win, dim, heads = SWIN[name]
-        v2 = name.startswith("swin_v2")
-        fn = W.fused_swin_block_v2 if v2 else W.fused_swin_block_v1
-        side = size // 4
-        for stage, h in enumerate(heads, 1):
-            c = dim * 2 ** (stage - 1)
-            if c > W.BLOCK_MAX_CHANNELS:
-                break
-            shift = win // 2 if side > win else 0
-            geometry = dict(window_size=(win, win), shift_size=(shift, shift), num_heads=h)
-            x, kw = _map_block_inputs(c, h, side, win, v2, torch.bfloat16, gen)
-            kw32 = {k: v.float() for k, v in kw.items()}
-            with torch.no_grad():
-                out = fn(x, **kw, **geometry)
-                ref = W._block_map_reference(
-                    x.float(), *_map_reference_args(W, kw32, c, h, win, shift, side, v2))
-            bound = BLOCK_BF16_BOUND[v2]
-            err = _compare(out, ref, bound, f"fused_swin_block NHWC {name} stage {stage}")
-            plain_args = _map_reference_args(W, kw, c, h, win, shift, side, v2)
-            ms, plain_ms, turns = _turns(lambda: W._block_map_reference(x, *plain_args),
-                                         lambda: fn(x, **kw, **geometry), 10)
-            tokens, hidden, L = x.numel() // c, 4 * c, win * win
-            n_windows = SWIN_BATCH * (-(-side // win)) ** 2
-            bias_rows = (-(-side // win)) ** 2 if shift else 1
-            e = x.element_size()
-            n_bytes = (2 * x.numel() + (4 * c * c + 2 * c * hidden)) * e + bias_rows * h * L * L * 4 + (9 * c + hidden) * 4
-            # the products on this run's tokens, and the attention on its windows of L tokens
-            flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * n_windows * L * L * c
-            bound_ms, bound_by = _bound_ms(n_bytes, flops, torch.bfloat16)
-            info = (ctypes.c_int * 4)()
-            _native.check(lib.eqx_swin_block_config(c, h, info), "eqx_swin_block_config")
-            extra = (f"; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB); "
-                     f"G = {info[0]} windows a block, {info[1]} weight stages, {info[2]} bytes of shared memory, "
-                     f"{info[3]} block(s) per SM")
-            _report(f"fused_swin_block NHWC {name} stage {stage} (plain: pad, roll, partition, block, back)",
-                    (SWIN_BATCH, side, side, c, h), torch.bfloat16, err, bound, ms, plain_ms, turns, extra)
-            if (name, stage) == ("swin_t", 1):
-                main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=None)
-            side = -(-side // 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        for name in SWIN:
+            size, win, dim, heads = SWIN[name]
+            v2 = name.startswith("swin_v2")
+            fn = W.fused_swin_block_v2 if v2 else W.fused_swin_block_v1
+            side = size // 4
+            for stage, h in enumerate(heads, 1):
+                c = dim * 2 ** (stage - 1)
+                if c > W.BLOCK_MAX_CHANNELS:
+                    break
+                shift = win // 2 if side > win else 0
+                geometry = dict(window_size=(win, win), shift_size=(shift, shift), num_heads=h)
+                x, kw = _map_block_inputs(c, h, side, win, v2, dtype, gen)
+                ref_type = torch.float64 if f32 else torch.float32
+                kw_ref = {k: v.to(ref_type) for k, v in kw.items()}
+                with torch.no_grad():
+                    out = fn(x, **kw, **geometry)
+                    ref = W._block_map_reference(
+                        x.to(ref_type), *_map_reference_args(W, kw_ref, c, h, win, shift, side, v2))
+                bound = F32_BOUND if f32 else BLOCK_BF16_BOUND[v2]
+                err = _compare(out, ref, bound, f"fused_swin_block NHWC {name} stage {stage} {dtype}")
+                plain_args = _map_reference_args(W, kw, c, h, win, shift, side, v2)
+                ms, plain_ms, turns = _turns(lambda: W._block_map_reference(x, *plain_args),
+                                             lambda: fn(x, **kw, **geometry), 10)
+                tokens, hidden, L = x.numel() // c, 4 * c, win * win
+                n_windows = SWIN_BATCH * (-(-side // win)) ** 2
+                bias_rows = (-(-side // win)) ** 2 if shift else 1
+                e = x.element_size()
+                n_bytes = ((2 * x.numel() + (4 * c * c + 2 * c * hidden)) * e + bias_rows * h * L * L * 4
+                           + (9 * c + hidden) * 4)
+                # the products on this run's tokens, and the attention on its windows of L tokens
+                flops = 2 * tokens * (4 * c * c + 2 * c * hidden) + 4 * n_windows * L * L * c
+                bound_ms, bound_by = _bound_ms(n_bytes, flops, dtype)
+                info = (ctypes.c_int * 4)()
+                config = lib.eqx_swin_block_f32_config if f32 else lib.eqx_swin_block_config
+                _native.check(config(c, h, info), "eqx_swin_block_config")
+                extra = (f"; bound {bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB); "
+                         f"G = {info[0]} windows a block, {info[1]} weight stages, {info[2]} bytes of shared memory, "
+                         f"{info[3]} block(s) per SM")
+                _report(f"fused_swin_block NHWC {name} stage {stage} (plain: pad, roll, partition, block, back; "
+                        f"kernel vs plain in {'f64' if f32 else 'f32'})",
+                        (SWIN_BATCH, side, side, c, h), dtype, err, bound, ms, plain_ms, turns, extra)
+                if (name, stage, dtype) == ("swin_t", 1, torch.bfloat16):
+                    main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None)
+                side = -(-side // 2)
     print("fused_swin_block library_ms: null; no single PyTorch call computes a whole Swin block")
     return main
 

@@ -122,13 +122,17 @@ def library() -> ctypes.CDLL:
     lib.eqx_window_attention_config.argtypes = [c_int, c_int, c_int, c_int, ctypes.c_longlong, ctypes.POINTER(c_int)]
     lib.eqx_window_attention_config.restype = c_int
     lib.eqx_swin_block.argtypes = [
-        *([c_ptr] * 16), *([c_int] * 13), ctypes.c_float, ctypes.c_float, c_int, c_int, c_int, c_ptr,
+        *([c_ptr] * 16), *([c_int] * 13), ctypes.c_float, ctypes.c_float, c_int, c_int, c_int, c_ptr, c_ptr,
     ]
     lib.eqx_swin_block.restype = c_int
     lib.eqx_swin_block_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_swin_block_smem_bytes.restype = ctypes.c_longlong
+    lib.eqx_swin_block_scratch_floats.argtypes = [c_int, c_int, c_int]
+    lib.eqx_swin_block_scratch_floats.restype = ctypes.c_longlong
     lib.eqx_swin_block_config.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
     lib.eqx_swin_block_config.restype = c_int
+    lib.eqx_swin_block_f32_config.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
+    lib.eqx_swin_block_f32_config.restype = c_int
     lib.eqx_layer_norm.argtypes = [c_ptr, c_ptr, c_ptr, c_ptr, ctypes.c_longlong, c_int, ctypes.c_float, c_int, c_int, c_ptr]
     lib.eqx_layer_norm.restype = c_int
     lib.eqx_attention.argtypes = [

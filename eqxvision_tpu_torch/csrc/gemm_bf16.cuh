@@ -314,6 +314,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The box of `map` at (c0 along the contiguous axis, c1 along rows, c2 along
+// the outer axis) into shared memory; its bytes complete a transaction on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :
+      : "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -510,6 +520,24 @@ __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
   split_tf32_bits(x, h, l);
   hi = __uint_as_float(h);
   lo = __uint_as_float(l);
+}
+
+// d += a b on TF32 operands, m16n8k8: a (row g, col t), (g + 8, t), (g, t +
+// 4), (g + 8, t + 4); b (row t, col g), (t + 4, g); d (g, 2 t), (g, 2 t +
+// 1), (g + 8, 2 t), (g + 8, 2 t + 1), with g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// hi a hi b + hi a lo b + lo a hi b, the small products first.
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], uint32_t bh0,
+                                          uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 // D (+)= A B^T on TF32 operands, k = 8 (32 bytes of a 128-byte swizzle row,

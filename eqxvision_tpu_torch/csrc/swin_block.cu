@@ -94,9 +94,44 @@
 // 32 for an fc1 chunk; the attention's S (32), bias (32), P (16) and O (32).
 // ptxas reports 255 and some spills (chip_smoke.py prints them).
 //
-// f32 keeps the earlier design, one window a block of 256 threads, products
-// as CUDA-core FMAs (wgmma has no f32 product that rounds as the reference
-// does); it reads the map the same way.
+// f32 design (sm_90a), split TF32 on the same tensor cores (PERF.md §6):
+//   - The weights are split once a call (split_weights_kernel, a small
+//     launch before the block's) into a scratch buffer the wrapper
+//     allocates: each becomes a TF32 hi plane and a lo plane (hi = tf32(w),
+//     lo = tf32(w - hi), rounded to nearest; a NaN or an infinity kept in
+//     hi), each row's k reordered within groups of 8 as 0, 2, 4, 6, 1, 3, 5,
+//     7. No window splits a weight, and the k index t of a product step
+//     reads column 2 t of its group, t + 4 column 2 t + 1: the two columns a
+//     thread holds of an accumulator row, or reads as one float2.
+//   - The bf16 kernel's grid and ring: 256-thread blocks, one 64-row window
+//     a warpgroup, G = 2 windows a group, groups walked window-major; the
+//     weights by TMA (maps of (k, row, plane)) into four mbarrier-guarded
+//     24 KB stages, one 32-float k-tile of up to 96 rows of hi and of lo a
+//     stage, refilled by the eighth warp done with it; both windows
+//     multiply every stage.
+//   - The four products on wgmma m64nNk8 .tf32 with A from registers, split
+//     as it is read: each k-step hi lo, lo hi, hi hi into a part that each
+//     k-tile starts from zero and adds to the product's sum in f32 (the
+//     tensor cores add into their accumulator rounding toward zero). qkv's
+//     A from x in device memory (v1: LN1 on the way), by pieces of 64 / Dh
+//     heads, q, k and v each a 64-wide product over C; proj's from the
+//     heads' outputs in shared memory, NB = 96 (or 64) columns a product,
+//     summed over the pieces; fc1's from h (v1: LN2 on the way), 64 wide a
+//     hidden chunk; fc2's straight from gelu's registers (the accumulator
+//     layout is the A fragment's under the reordered k).
+//   - Attention per head in registers, each warp its 16 rows, split TF32 on
+//     mma.sync m16n8k8 as the f32 window stage: S from the q and k tiles,
+//     v1's scale or v2's f32 norms and the bias on the accumulators, the
+//     softmax by quads, e = exp(s - max) split as P V's A fragments with
+//     the keys reordered; O / sum written over the head's q columns.
+//   - Rows are taken about a pivot, x at the row's first column: LN1 centres
+//     x - pivot, h is kept as h - pivot (f32, over the piece tiles once the
+//     attention is done), fc2 sums from zero and the pivot comes back once,
+//     at the store: a row of 1e3 + N(0, 1) keeps its mean to f32's
+//     precision of an O(1) value, and its output is rounded once.
+//   Shared memory: per window q, k and v tiles of 64 x 64 f32 (row strides
+//   72, 72, 68: conflict-free fragment reads; later h), v2's norms; the
+//   ring; the vectors: 219 KB at C = 192, one block an SM.
 //
 // What bounds it. At swin_t stage 1, b128 bf16 (8192 windows of 49 tokens,
 // C = 96), one call does about 240 kFLOP per token, 96 GFLOP, and moves
@@ -107,6 +142,14 @@
 // clock64 probes on an H100 found it bound by issue and latency on the
 // CUDA cores (gelu, the softmax, the bias reads, the index math), with the
 // tensor cores and the weight stream mostly idle (PERF.md, PR 8).
+// In f32 the products count three times (split TF32: 165 TFLOP/s of f32
+// products) and the bytes twice: 0.584 ms against 0.093 ms of device memory
+// (311 MB), still the arithmetic. The f32 kernel takes 4.3 ms there (7x):
+// its ablation (PERF.md §6) puts about 1.9 ms in the products and their
+// waits (0.4 of it the split's two extra products), 0.9 ms in the attention
+// and 0.3 in gelu; the weight stream is hidden. ptxas gives it 255
+// registers, with up to 720 bytes of spills at C = 192, where proj's 96
+// accumulators stay live across the attention.
 // Limits: C <= 192, L <= 64, head_dim <= 64, and C, hidden and head_dim
 // multiples of 16; the entry point returns cudaErrorInvalidValue outside
 // them.
@@ -163,46 +206,7 @@ __device__ __forceinline__ long long token_at(const Geometry& g, const WindowOri
   return (o.img_row + y) * g.W + x;
 }
 
-// ============================ f32: CUDA cores ============================
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileN = 64;     // output columns per product tile
-constexpr int kTileK = 32;     // depth of one staged weight tile
-constexpr int kHidChunk = 64;  // hidden units per MLP chunk
-
-// Row stride, in floats, of a row of at least `cols` floats that is an odd
-// number of 32-bit words (conflict-free column reads).
-__host__ __device__ __forceinline__ int odd_stride(int cols) { return cols % 2 == 0 ? cols + 1 : cols; }
-
-// Shared-memory layout of the f32 kernel, in bytes from the start.
-struct Layout {
-  int ldr;  // row stride of the f32 residual stream: C + 4, off the banks of row + 1
-  int lda;  // row stride of buf_a and buf_o
-  int sq;   // row stride of one head's q|k|v
-  int sh;   // row stride of a hidden chunk
-  size_t res, buf_a, buf_o, scratch, wtile, scores, qrow, q_scale, k_inv, total;
-};
-
-__host__ __device__ inline Layout make_layout(int C, int head_dim) {
-  Layout g;
-  g.ldr = C + 4;
-  g.lda = C + 8;
-  g.sq = odd_stride(3 * head_dim);
-  g.sh = kHidChunk + 8;
-  const int scratch_row = (g.sq > g.sh ? g.sq : g.sh) * 4;
-  g.res = 0;
-  g.buf_a = g.res + (size_t)kRows * g.ldr * 4;
-  g.buf_o = g.buf_a + (size_t)kRows * g.lda * 4;
-  g.scratch = g.buf_o + (size_t)kRows * g.lda * 4;
-  g.wtile = g.scratch + (((size_t)kRows * scratch_row + 15) & ~(size_t)15);
-  g.scores = g.wtile + (size_t)kTileK * (kTileN + 1) * 4;
-  g.qrow = g.scores + (size_t)kWarps * kRows * 4;
-  g.q_scale = g.qrow + (size_t)kWarps * kMaxHeadDim * 4;
-  g.k_inv = g.q_scale + (size_t)kRows * 4;
-  g.total = g.k_inv + (size_t)kRows * 4;
-  return g;
-}
+// ============================ shared by both kernels ============================
 
 struct BlockArgs {
   const void* x;  // the NHWC map (N, H, W, C)
@@ -223,237 +227,6 @@ struct BlockArgs {
 
 __device__ __forceinline__ float vec_at(const BlockArgs& p, int which, int i) {
   return param(p.vec[which], p.param_bf16, i);
-}
-
-// Y[r, n] = sum_k A[r, k] * W[wrow(n), k] for r < kRows, n < N; epi(r, n, y)
-// is called for r < L only. 16 x 16 threads, each a 4 x 4 register tile of
-// a 64 x 64 output tile; the weight tile is staged in shared memory. The
-// epilogue must not write A. Ends with a barrier.
-template <typename WRow, typename Epi>
-__device__ void block_matmul_fma(const float* A, int lda, int K, const float* W, long long ldw, int N, int L,
-                                 WRow wrow, float* wtile, Epi epi) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  constexpr int kWs = kTileN + 1;
-  for (int n0 = 0; n0 < N; n0 += kTileN) {
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < K; k0 += kTileK) {
-      const int kn = min(kTileK, K - k0);
-      __syncthreads();  // the previous tile's readers are done
-      for (int e = threadIdx.x; e < kTileK * kTileN; e += kThreads) {
-        const int n = e / kTileK, kk = e % kTileK;
-        float w = 0.f;
-        if (n0 + n < N && kk < kn) w = W[(long long)wrow(n0 + n) * ldw + k0 + kk];
-        wtile[kk * kWs + n] = w;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * lda + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = wtile[kk * kWs + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= L) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (n < N) epi(r, n, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// LayerNorm of rows r < L of an f32 matrix (row stride lds, C columns),
-// one warp per row, statistics in f32; store(r, c, y) takes each output.
-// Ends with a barrier.
-template <typename Store>
-__device__ void layer_norm_rows(const float* src, int lds, int L, int C, const BlockArgs& p, int gw, int gb,
-                                Store store) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kPer = kMaxC / 32;
-  for (int r = warp; r < L; r += kWarps) {
-    float v[kPer];
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      const int c = lane + 32 * t;
-      v[t] = c < C ? src[r * lds + c] : 0.f;
-      sum += v[t];
-    }
-    const float mean = warp_sum(sum) / C;
-    float sq = 0.f;
-#pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      const int c = lane + 32 * t;
-      if (c < C) sq += (v[t] - mean) * (v[t] - mean);
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / C + p.eps);
-#pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      const int c = lane + 32 * t;
-      if (c < C) store(r, c, (v[t] - mean) * rstd * vec_at(p, gw, c) + vec_at(p, gb, c));
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads) swin_block_f32_kernel(BlockArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int L = p.L, C = p.C, H = p.num_heads, Dh = p.head_dim;
-  const Layout g = make_layout(C, Dh);
-  float* res = reinterpret_cast<float*>(smem + g.res);
-  float* a_f = reinterpret_cast<float*>(smem + g.buf_a);
-  float* o_f = reinterpret_cast<float*>(smem + g.buf_o);
-  float* qkvh = reinterpret_cast<float*>(smem + g.scratch);
-  float* hid = qkvh;
-  float* wtile = reinterpret_cast<float*>(smem + g.wtile);
-  float* scores = reinterpret_cast<float*>(smem + g.scores);
-  float* qrow = reinterpret_cast<float*>(smem + g.qrow);
-  float* q_scale = reinterpret_cast<float*>(smem + g.q_scale);
-  float* k_inv = reinterpret_cast<float*>(smem + g.k_inv);
-  const float* xin = static_cast<const float*>(p.x);
-  const float* w_qkv = static_cast<const float*>(p.w_qkv);
-  const float* w_proj = static_cast<const float*>(p.w_proj);
-  const float* w_fc1 = static_cast<const float*>(p.w_fc1);
-  const float* w_fc2 = static_cast<const float*>(p.w_fc2);
-  const int ldr = g.ldr, lda = g.lda, sq = g.sq, sh = g.sh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // Rows L..kRows-1 of every buffer stay zero: epilogues and norms write
-  // rows < L only.
-  for (size_t i = threadIdx.x; i < g.total / 4; i += kThreads) reinterpret_cast<float*>(smem)[i] = 0.f;
-  __syncthreads();
-  for (int r = threadIdx.x; r < kRows; r += kThreads) q_scale[r] = k_inv[r] = 1.f;  // v2 rewrites them per head
-
-  const unsigned w = blockIdx.x;  // image * n_windows + window
-  const int wb = (int)(w % (unsigned)p.geo.n_windows) % p.n_bias;
-  const WindowOrigin origin = window_origin(p.geo, w);
-  for (int e = threadIdx.x * 4; e < L * C; e += kThreads * 4) {  // C % 4 == 0: 16 bytes at a time
-    const int r = e / C, c = e % C;
-    const long long tok = token_at(p.geo, origin, r, L);
-    const float4 v = tok >= 0 ? *reinterpret_cast<const float4*>(xin + tok * C + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(res + r * ldr + c) = v;
-    if (p.postnorm) *reinterpret_cast<float4*>(a_f + r * lda + c) = v;
-  }
-  __syncthreads();
-  if (!p.postnorm) layer_norm_rows(res, ldr, L, C, p, kLn1W, kLn1B, [&](int r, int c, float y) { a_f[r * lda + c] = y; });
-
-  // ---- attention, one head at a time
-  float* s_w = scores + warp * kRows;
-  float* q_w = qrow + warp * kMaxHeadDim;
-  for (int h = 0; h < H; ++h) {
-    auto wrow = [&](int n) { return (n / Dh) * C + h * Dh + n % Dh; };
-    block_matmul_fma(a_f, lda, C, w_qkv, C, 3 * Dh, L, wrow, wtile, [&](int r, int n, float y) {
-      qkvh[r * sq + n] = y + vec_at(p, kBQkv, wrow(n));
-    });
-    if (p.gs != nullptr) {
-      // cosine attention: per row, gs over q's L2 norm and 1 over k's, in f32
-      for (int r = warp; r < L; r += kWarps) {
-        const float* q_row = qkvh + r * sq;
-        float q2 = 0.f, k2 = 0.f;
-        for (int d = lane; d < Dh; d += 32) {
-          q2 += q_row[d] * q_row[d];
-          k2 += q_row[Dh + d] * q_row[Dh + d];
-        }
-        q2 = warp_sum(q2);
-        k2 = warp_sum(k2);
-        if (lane == 0) {
-          q_scale[r] = p.gs[h] / fmaxf(sqrtf(q2), 1e-12f);
-          k_inv[r] = 1.f / fmaxf(sqrtf(k2), 1e-12f);
-        }
-      }
-      __syncthreads();
-    }
-    const float* bias_h = p.bias + ((long long)wb * H + h) * L * L;
-    for (int i = warp; i < L; i += kWarps) {
-      const float* q_src = qkvh + i * sq;
-      q_w[lane] = lane < Dh ? q_src[lane] * q_scale[i] : 0.f;
-      q_w[lane + 32] = lane + 32 < Dh ? q_src[lane + 32] * q_scale[i] : 0.f;
-      __syncwarp();
-      float m = -INFINITY;
-      for (int j = lane; j < L; j += 32) {
-        const float* k_row = qkvh + j * sq + Dh;
-        float acc = 0.f;
-        for (int d = 0; d < Dh; ++d) acc = fmaf(q_w[d], k_row[d], acc);
-        const float s = acc * k_inv[j] * p.scale + bias_h[i * L + j];
-        s_w[j] = s;
-        m = fmaxf(m, s);
-      }
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < L; j += 32) {
-        const float e = expf(s_w[j] - m);
-        s_w[j] = e;
-        sum += e;
-      }
-      const float inv = 1.f / warp_sum(sum);
-      for (int j = lane; j < L; j += 32) s_w[j] *= inv;
-      __syncwarp();
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int d = lane + 32 * t;
-        if (d >= Dh) continue;
-        float o = 0.f;
-        for (int j = 0; j < L; ++j) o = fmaf(s_w[j], qkvh[j * sq + 2 * Dh + d], o);
-        o_f[i * lda + h * Dh + d] = o;
-      }
-      __syncwarp();  // s_w and q_w are rewritten by the next row
-    }
-    __syncthreads();  // the next head's product rewrites q|k|v
-  }
-
-  // ---- projection and the first residual
-  auto ident = [](int n) { return n; };
-  if (!p.postnorm) {
-    block_matmul_fma(o_f, lda, C, w_proj, C, C, L, ident, wtile,
-                     [&](int r, int n, float y) { res[r * ldr + n] += y + vec_at(p, kBProj, n); });
-    layer_norm_rows(res, ldr, L, C, p, kLn2W, kLn2B, [&](int r, int c, float y) { a_f[r * lda + c] = y; });
-    for (int r = warp; r < L; r += kWarps)
-      for (int c = lane; c < C; c += 32) res[r * ldr + c] += vec_at(p, kBFc2, c);
-  } else {
-    block_matmul_fma(o_f, lda, C, w_proj, C, C, L, ident, wtile,
-                     [&](int r, int n, float y) { a_f[r * lda + n] = y + vec_at(p, kBProj, n); });
-    layer_norm_rows(a_f, lda, L, C, p, kLn1W, kLn1B, [&](int r, int c, float y) { res[r * ldr + c] += y; });
-    for (int r = warp; r < L; r += kWarps)
-      for (int c = lane; c < C; c += 32) {
-        a_f[r * lda + c] = res[r * ldr + c];
-        o_f[r * lda + c] = vec_at(p, kBFc2, c);
-      }
-  }
-  __syncthreads();
-
-  // ---- MLP in chunks of hidden units; fc2 sums into res (v1) or o_f (v2)
-  float* acc2 = p.postnorm ? o_f : res;
-  const int ld2 = p.postnorm ? lda : ldr;
-  for (int c0 = 0; c0 < p.hidden; c0 += kHidChunk) {
-    const int nc = min(kHidChunk, p.hidden - c0);
-    block_matmul_fma(a_f, lda, C, w_fc1, C, nc, L, [&](int n) { return c0 + n; }, wtile, [&](int r, int n, float y) {
-      const float u = y + vec_at(p, kBFc1, c0 + n);
-      hid[r * sh + n] = 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
-    });
-    block_matmul_fma(hid, sh, nc, w_fc2 + c0, p.hidden, C, L, ident, wtile,
-                     [&](int r, int n, float y) { acc2[r * ld2 + n] += y; });
-  }
-
-  if (p.postnorm) {  // res += LN2(y), in place
-    layer_norm_rows(o_f, lda, L, C, p, kLn2W, kLn2B, [&](int r, int c, float y) { res[r * ldr + c] += y; });
-  }
-  float* out = static_cast<float*>(p.out);
-  for (int e = threadIdx.x * 4; e < L * C; e += kThreads * 4) {
-    const int r = e / C, c = e % C;
-    const long long tok = token_at(p.geo, origin, r, L);
-    if (tok >= 0) *reinterpret_cast<float4*>(out + tok * C + c) = *reinterpret_cast<const float4*>(res + r * ldr + c);
-  }
 }
 
 // ============================ bf16: wgmma ============================
@@ -1191,18 +964,739 @@ cudaError_t launch_or_query_bf16(const BlockArgs& p, cudaStream_t stream, int* b
   }
 }
 
-cudaError_t launch_f32(const BlockArgs& p, cudaStream_t stream) {
-  const size_t smem = make_layout(p.C, p.head_dim).total;
-  int device = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&device);
+// ============================ f32: split TF32 on wgmma ============================
+
+// D (+)= A B^T on TF32 operands, k = 8, A from registers: a[0..3] hold A at
+// (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of the warp's 16 rows
+// (g = lane / 4, t = lane % 4), as mma.sync's m16n8k8 A fragment; B by
+// descriptor, K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_tf32_rs_m64n64k8(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\nwgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_m64n96k8(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\nwgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,"
+      "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47"
+      "}, {%48,%49,%50,%51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int accumulate) {
+  if constexpr (N == 96) {
+    wgmma_tf32_rs_m64n96k8(d, a, desc_b, accumulate);
+  } else {
+    static_assert(N == 64, "f32 block products are 64 or 96 wide");
+    wgmma_tf32_rs_m64n64k8(d, a, desc_b, accumulate);
+  }
+}
+
+// An A fragment (a k-step of 8) split into hi and lo: the thread's values at
+// rows (row0, row0 + 8) and columns (c, c + 1), which the pair-major weights
+// (below) read as k indices t and t + 4.
+__device__ __forceinline__ void split_frag(float2 v0, float2 v1, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32_bits(v0.x, hi[0], lo[0]);
+  split_tf32_bits(v1.x, hi[1], lo[1]);
+  split_tf32_bits(v0.y, hi[2], lo[2]);
+  split_tf32_bits(v1.y, hi[3], lo[3]);
+}
+
+// Keeps the compiler from reusing an A fragment's registers before the
+// wgmma that reads them is waited for.
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i][j])::"memory");
+}
+
+constexpr int kF32G = 2;  // windows per block: one per warpgroup
+constexpr int kF32Threads = kF32G * kWarpgroup;
+constexpr int kF32StageRows = 96;                    // weight rows a stage holds, one 32-deep k-tile each
+constexpr int kF32LoBytes = kF32StageRows * 128;     // a stage: the hi rows, then the lo rows 12 KB on
+constexpr int kF32StageBytes = 2 * kF32LoBytes;
+constexpr int kF32MaxStages = 4;
+constexpr int kQkLd = 72;  // row stride (floats) of the q and k tiles: float2 reads conflict-free
+constexpr int kVLd = 68;   // of the v tile: the P V fragments' scalar reads conflict-free
+constexpr int kQkvBytes = kRows * (2 * kQkLd + kVLd) * 4;
+constexpr int kF32WindowBytes = kQkvBytes + 2 * 4 * kRows * 4;  // q | k | v (later the MLP input), v2's norms
+
+// proj's and fc2's products: NB columns each (one stage's rows), NC / NB of them.
+template <int NC>
+struct F32Blocks {
+  static constexpr int NB = NC == 128 ? 64 : 96;
+  static constexpr int kCount = NC / NB;
+};
+
+__host__ __device__ constexpr int f32_fixed_smem_bytes(int C) {
+  return 1024 + kF32G * kF32WindowBytes + kSharedVecs * C * 4 + 2 * kF32MaxStages * 8;
+}
+__host__ __device__ constexpr int f32_ring_stages(int C) {
+  return (kMaxSmemBytes - f32_fixed_smem_bytes(C)) / kF32StageBytes < kF32MaxStages
+             ? (kMaxSmemBytes - f32_fixed_smem_bytes(C)) / kF32StageBytes
+             : kF32MaxStages;
+}
+__host__ __device__ constexpr int f32_smem_bytes(int C) {
+  return f32_fixed_smem_bytes(C) + f32_ring_stages(C) * kF32StageBytes;
+}
+static_assert(f32_ring_stages(kMaxC) >= 2, "two weight stages at the widest C");
+static_assert(kRows * (kMaxC + 8) * 4 <= kQkvBytes, "the MLP input fits where q, k and v were");
+
+struct F32Block {
+  CUtensorMap qkv_map;   // the split (3C, C): boxes of 64 rows x 32 k, plane 0 hi, 1 lo
+  CUtensorMap proj_map;  // (C, C): boxes of NB rows
+  CUtensorMap fc1_map;   // (hidden, C): boxes of 64 rows
+  CUtensorMap fc2_map;   // (C, hidden): boxes of NB rows
+  BlockArgs p;
+  int stages;
+};
+
+// One 32-deep k-tile of split products into part (overwritten): for each
+// k-step, hi lo, lo hi, then hi hi, A from registers, B from the stage.
+template <int N>
+__device__ __forceinline__ void mma_k_tile_f32(float (&part)[N / 2], const uint32_t (&ah)[4][4],
+                                               const uint32_t (&al)[4][4], const unsigned char* stage) {
+  const uint64_t db = sw128_desc(stage), dl = sw128_desc(stage + kF32LoBytes);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_tf32_rs<N>(part, ah[ks], dl + 2 * ks, ks > 0);
+    wgmma_tf32_rs<N>(part, al[ks], db + 2 * ks, 1);
+    wgmma_tf32_rs<N>(part, ah[ks], db + 2 * ks, 1);
+  }
+}
+
+// The f32 kernel; see the note at the top. Warpgroup cw takes window
+// kF32G g + cw of each group g.
+template <int NC, bool kCosine>
+__global__ void __launch_bounds__(kF32Threads, 1) swin_block_f32_kernel(const __grid_constant__ F32Block blk) {
+  constexpr int NB = F32Blocks<NC>::NB, NBLK = F32Blocks<NC>::kCount;
+  const BlockArgs& p = blk.p;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;  // the swizzle's alignment
+  const int C = p.C, L = p.L, H = p.num_heads, Dh = p.head_dim, hidden = p.hidden;
+  const float eps = p.eps;
+  const bool post = p.postnorm;
+  const int stages = blk.stages;
+  const int kT = (C + kFK - 1) / kFK;       // 32-deep k-tiles of C
+  const int hp = Dh >= 64 ? 1 : 64 / Dh;    // heads per qkv piece
+  const int pw = hp * Dh;                   // the piece's columns: 64 (48 at Dh = 48)
+  const int n_pieces = (H + hp - 1) / hp, n_chunks = (hidden + kChunk - 1) / kChunk;
+  const int n_groups = (p.windows + kF32G - 1) / kF32G;
+  const int per_block = (n_groups + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int grp_begin = min((int)blockIdx.x * per_block, n_groups);
+  const int grp_end = min(grp_begin + per_block, n_groups);
+  const unsigned images = (unsigned)p.windows / (unsigned)p.geo.n_windows;
+  unsigned char* ring = smem;
+  unsigned char* windows = ring + stages * kF32StageBytes;
+  float* vec = reinterpret_cast<float*>(windows + kF32G * kF32WindowBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec + kSharedVecs * C);
+  int* done = reinterpret_cast<int*>(full + stages);
+  const float *ln1_w = vec, *ln1_b = vec + C, *b_qkv = vec + 2 * C, *b_proj = vec + 5 * C;
+  const float *ln2_w = vec + 6 * C, *ln2_b = vec + 7 * C, *b_fc2 = vec + 8 * C;
+
+  // The weight stream, the same steps for every group: per qkv piece the q,
+  // k and v rows of its heads by k-tile, then proj's NBLK blocks at the
+  // piece's two k-tiles; per hidden chunk fc1's 64 rows by k-tile, then
+  // fc2's NBLK blocks at the chunk's two k-tiles. One step a stage.
+  const int piece_steps = 3 * kT + 2 * NBLK, chunk_steps = kT + 2 * NBLK;
+  const int steps = n_pieces * piece_steps + n_chunks * chunk_steps;
+  const uint32_t uses = (uint32_t)(grp_end - grp_begin) * steps;
+  auto load = [&](int s, const CUtensorMap* map, int k, int row, int rows) {
+    unsigned char* dst = ring + s * kF32StageBytes;
+    mbar_arrive_expect_tx(&full[s], 2 * rows * 128);
+    tma_load_3d(dst, map, &full[s], k, row, 0);  // plane 0, hi
+    tma_load_3d(dst + kF32LoBytes, map, &full[s], k, row, 1);
+  };
+  auto issue = [&](uint32_t i) {
+    if (i >= uses) return;
+    const int s = i % stages;
+    int step = i % steps;
+    if (step < n_pieces * piece_steps) {
+      const int j = step / piece_steps;
+      int q = step % piece_steps;
+      if (q < 3 * kT) {
+        load(s, &blk.qkv_map, (q % kT) * kFK, (q / kT) * C + j * pw, 64);
+      } else {
+        q -= 3 * kT;
+        load(s, &blk.proj_map, j * pw + (q / NBLK) * kFK, (q % NBLK) * NB, NB);
+      }
+    } else {
+      step -= n_pieces * piece_steps;
+      const int ch = step / chunk_steps;
+      int q = step % chunk_steps;
+      if (q < kT) {
+        load(s, &blk.fc1_map, q * kFK, ch * kChunk, kChunk);
+      } else {
+        q -= kT;
+        load(s, &blk.fc2_map, ch * kChunk + (q / NBLK) * kFK, (q % NBLK) * NB, NB);
+      }
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&blk.qkv_map)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&blk.proj_map)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&blk.fc1_map)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&blk.fc2_map)) : "memory");
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < stages; ++s) issue(s);
+  }
+  for (int i = threadIdx.x; i < kSharedVecs * C; i += kF32Threads) {
+    const int v = i / C, k = i % C;
+    const int which = v == 0 ? kLn1W : v == 1 ? kLn1B : v <= 4 ? kBQkv : v == 5 ? kBProj : v == 6 ? kLn2W
+                      : v == 7 ? kLn2B : kBFc2;
+    vec[i] = vec_at(p, which, (which == kBQkv ? v - 2 : 0) * C + k);
+  }
+  __syncthreads();
+
+  const int cw = threadIdx.x / kWarpgroup;
+  const int lane = threadIdx.x % 32;
+  unsigned char* win = windows + cw * kF32WindowBytes;
+  float* q_tile = reinterpret_cast<float*>(win);  // q, then each head's output over its q columns
+  float* k_tile = q_tile + kRows * kQkLd;
+  float* v_tile = k_tile + kRows * kQkLd;
+  float* mlp_in = q_tile;  // h - pivot, the MLP input, row stride C + 8, once q, k and v are done
+  float* norms = reinterpret_cast<float*>(win + kQkvBytes);  // v2: [q | k][head of the piece][row]
+  const int ld_m = C + 8;
+  const float* x = static_cast<const float*>(p.x);
+  float* out = static_cast<float*>(p.out);
+  const int bar = 1 + cw;
+  auto sync_wg = [&]() { named_barrier(bar, kWarpgroup); };
+  uint32_t next = 0, freed = 0;  // stage uses waited for and released
+  auto wait_stage = [&]() {
+    mbar_wait(&full[next % stages], (next / stages) & 1);  // TMA has landed the stage
+    return ring + (next++ % stages) * kF32StageBytes;
+  };
+  auto release = [&]() {
+    if (lane == 0) {
+      const int s = freed % stages;
+      if (atomicAdd(&done[s], 1) == kF32G * kWarpgroup / 32 - 1) {
+        done[s] = 0;
+        __threadfence_block();
+        issue(freed + stages);
+      }
+    }
+    ++freed;
+  };
+  // One k-tile of an N-wide product: wait for its stage, the split products
+  // into part, wait for them, release the stage.
+  auto product = [&](auto& part, const uint32_t(&ah)[4][4], const uint32_t(&al)[4][4]) {
+    constexpr int N = 2 * (int)std::extent<std::remove_reference_t<decltype(part)>>::value;
+    const unsigned char* st = wait_stage();
+    fence_accumulator(part);
+    wgmma_fence();
+    mma_k_tile_f32<N>(part, ah, al, st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulator(part);
+    release();
+  };
+  // acc = a 64-wide product over C's kT k-tiles, A from frags(kt, ah, al),
+  // one k-tile at a time (issuing the next k-tile before summing the last
+  // took 14% longer at swin_t stage 1: PERF.md §6).
+  auto sum_products64 = [&](float(&acc)[32], auto&& frags) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int kt = 0; kt < kT; ++kt) {
+      uint32_t ah[4][4], al[4][4];
+      frags(kt, ah, al);
+      float part[32];
+      product(part, ah, al);
+      fence_frags(ah);
+      fence_frags(al);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    }
+  };
+
+#pragma unroll 1
+  for (int grp = grp_begin; grp < grp_end; ++grp) {
+    int tid = threadIdx.x;
+    asm volatile("" : "+r"(tid));
+    const int wt = tid % kWarpgroup, warp = wt / 32, g = (tid % 32) >> 2, t = tid & 3;
+    const int row0 = 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+    const unsigned wm = (unsigned)(kF32G * grp + cw);
+    const unsigned w = wm % images * (unsigned)p.geo.n_windows + wm / images;
+    const bool live = wm < (unsigned)p.windows;
+    const int wb = (int)(w % (unsigned)p.geo.n_windows) % p.n_bias;
+    const WindowOrigin origin = window_origin(p.geo, w);
+    const long long tok[2] = {live ? token_at(p.geo, origin, row0, L) : -1,
+                              live ? token_at(p.geo, origin, row0 + 8, L) : -1};
+    // x at (row0 + 8 h, c and c + 1), zeros for padding and past C
+    auto x_pair = [&](int h, int c) {
+      return tok[h] >= 0 && c < C ? __ldg(reinterpret_cast<const float2*>(x + tok[h] * C + c))
+                                  : make_float2(0.f, 0.f);
+    };
+    sync_wg();  // the previous window's readers of the tiles are done
+
+    // Each row is taken about a pivot, x at its first column: LN1 centres x -
+    // pivot, the residual is kept as h - pivot, and the pivot is added back
+    // once, to the output (a row of 1e3 + N(0, 1) keeps its mean to f32's
+    // precision of an O(1) value, and the output is rounded once).
+    const float pivot[2] = {x_pair(0, 0).x, x_pair(1, 0).x};
+    // v1: LN1's row statistics of x - pivot, by quads (the mean, then the
+    // variance over the centred values)
+    float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
+    if (!post) {
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 8 * j + 2 * t;
+          if (c < C) {
+            const float2 v = x_pair(h, c);
+            s[h] += (v.x - pivot[h]) + (v.y - pivot[h]);
+          }
+        }
+      mean[0] = quad_sum(s[0]) / C;
+      mean[1] = quad_sum(s[1]) / C;
+      float q[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 8 * j + 2 * t;
+          if (c < C) {
+            const float2 v = x_pair(h, c);
+            const float d0 = (v.x - pivot[h]) - mean[h], d1 = (v.y - pivot[h]) - mean[h];
+            q[h] += d0 * d0 + d1 * d1;
+          }
+        }
+      rstd[0] = rsqrtf(quad_sum(q[0]) / C + eps);
+      rstd[1] = rsqrtf(quad_sum(q[1]) / C + eps);
+    }
+    // qkv's A: LN1 x (v1) or x (v2) at k-tile kt, from device memory
+    auto qkv_frags = [&](int kt, uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int c = kt * kFK + 8 * ks + 2 * t;
+        float2 v[2] = {x_pair(0, c), x_pair(1, c)};
+        if (!post && c < C) {
+          const float2 gm = *reinterpret_cast<const float2*>(ln1_w + c);
+          const float2 bt = *reinterpret_cast<const float2*>(ln1_b + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            v[h] = make_float2(((v[h].x - pivot[h]) - mean[h]) * rstd[h] * gm.x + bt.x,
+                               ((v[h].y - pivot[h]) - mean[h]) * rstd[h] * gm.y + bt.y);
+        }
+        split_frag(v[0], v[1], ah[ks], al[ks]);
+      }
+    };
+    // A from this thread's rows of an f32 tile (row stride ld) at k-tile kt,
+    // columns past `cols` zero
+    auto tile_frags = [&](const float* tile, int ld, int cols, int kt, uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int c = kt * kFK + 8 * ks + 2 * t;
+        float2 v0 = make_float2(0.f, 0.f), v1 = v0;
+        if (c < cols) {
+          v0 = *reinterpret_cast<const float2*>(tile + row0 * ld + c);
+          v1 = *reinterpret_cast<const float2*>(tile + (row0 + 8) * ld + c);
+        }
+        split_frag(v0, v1, ah[ks], al[ks]);
+      }
+    };
+
+    float acc[NC / 2];  // proj, then (briefly) h - pivot, then fc2
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+    float part_n[NB / 2];
+
+    // This thread's bias values of a head (rows row0, row0 + 8; keys 8 n + 2 t, + 1)
+    float bv[8][4];
+    auto load_bias = [&](int h) {
+      const float* bias_h = p.bias + ((long long)wb * H + h) * L * L;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row0 + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
+          bv[n][e] = r < L && c < L ? __ldg(bias_h + (r * L + c)) : 0.f;
+        }
+    };
+
+#pragma unroll 1
+    for (int j = 0; j < n_pieces; ++j) {
+      const int heads = min(hp, H - j * hp);
+      // ---- q, k and v of the piece's heads, each a 64-wide product over C
+#pragma unroll 1
+      for (int third = 0; third < 3; ++third) {
+        float qa[32];
+        sum_products64(qa, qkv_frags);
+        // + bias in f32 into the third's tile; columns of heads past the piece zero
+        float* dst = third == 0 ? q_tile : third == 1 ? k_tile : v_tile;
+        const int ld = third == 2 ? kVLd : kQkLd;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int c = 8 * jj + 2 * t;
+          const bool ok = c < heads * Dh;
+          const int n = third * C + j * pw + c;
+          const float b0 = ok ? b_qkv[n] : 0.f, b1 = ok ? b_qkv[n + 1] : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(dst + (row0 + 8 * h) * ld + c) =
+                ok ? make_float2(qa[4 * jj + 2 * h] + b0, qa[4 * jj + 2 * h + 1] + b1) : make_float2(0.f, 0.f);
+        }
+      }
+      load_bias(j * hp);  // the piece's first head
+      sync_wg();
+      if constexpr (kCosine) {
+        // v2: gs scale / |q| of every row and 1 / |k| of every key, per head, in f32
+        for (int i = wt; i < 2 * heads * kRows; i += kWarpgroup) {
+          const int which = i / (heads * kRows), hl = (i / kRows) % heads, r = i % kRows;
+          const float* src = (which == 0 ? q_tile : k_tile) + r * kQkLd + hl * Dh;
+          float s2 = 0.f;
+          for (int d = 0; d < Dh; ++d) s2 = fmaf(src[d], src[d], s2);
+          const float inv = 1.f / fmaxf(sqrtf(s2), 1e-12f);
+          norms[which * 4 * kRows + hl * kRows + r] = which == 0 ? p.gs[j * hp + hl] * p.scale * inv : inv;
+        }
+        sync_wg();
+      }
+      // ---- attention per head, each warp its 16 rows; the head's output
+      // goes over its q columns (only this thread reads them again)
+#pragma unroll 1
+      for (int hl = 0; hl < heads; ++hl) {  // the piece's heads
+        const int col = hl * Dh;
+        float s[8][4];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < kMaxHeadDim / 8; ++kd) {
+          if (8 * kd >= Dh) break;
+          const int c = col + 8 * kd + 2 * t;
+          uint32_t ah[4], al[4];
+          const float2 q0 = *reinterpret_cast<const float2*>(q_tile + row0 * kQkLd + c);
+          const float2 q1 = *reinterpret_cast<const float2*>(q_tile + (row0 + 8) * kQkLd + c);
+          split_tf32_bits(q0.x, ah[0], al[0]);
+          split_tf32_bits(q1.x, ah[1], al[1]);
+          split_tf32_bits(q0.y, ah[2], al[2]);
+          split_tf32_bits(q1.y, ah[3], al[3]);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const float2 kv = *reinterpret_cast<const float2*>(k_tile + (8 * n + g) * kQkLd + c);
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32_bits(kv.x, bh0, bl0);
+            split_tf32_bits(kv.y, bh1, bl1);
+            mma_split(s[n], ah, al, bh0, bh1, bl0, bl1);
+          }
+        }
+        // scales, bias and key mask; the softmax by quads
+        float qs[2] = {p.scale, p.scale}, m[2] = {-INFINITY, -INFINITY};
+        if constexpr (kCosine) {
+          qs[0] = norms[hl * kRows + row0];
+          qs[1] = norms[hl * kRows + row0 + 8];
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * n + 2 * t + (e & 1);
+            float v = -INFINITY;
+            if (c < L) {
+              const float ki = kCosine ? norms[4 * kRows + hl * kRows + c] : 1.f;
+              v = s[n][e] * qs[e >> 1] * ki + bv[n][e];
+            }
+            s[n][e] = v;
+            m[e >> 1] = fmaxf(m[e >> 1], v);
+          }
+        if (hl + 1 < heads) load_bias(j * hp + hl + 1);
+        m[0] = quad_max(m[0]);
+        m[1] = quad_max(m[1]);
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = 8 * n + 2 * t + (e & 1) < L ? expf(s[n][e] - m[e >> 1]) : 0.f;
+            s[n][e] = v;
+            sum[e >> 1] += v;
+          }
+        const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+        // O = e V, e split as the A fragments unmoved (A's k index t is key
+        // 2 t of the 8-key group, t + 4 key 2 t + 1; V read the same way)
+        float o[kMaxHeadDim / 8][4];
+#pragma unroll
+        for (int n = 0; n < kMaxHeadDim / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t ph[4], pl[4];
+          split_tf32_bits(s[kk][0], ph[0], pl[0]);
+          split_tf32_bits(s[kk][2], ph[1], pl[1]);
+          split_tf32_bits(s[kk][1], ph[2], pl[2]);
+          split_tf32_bits(s[kk][3], ph[3], pl[3]);
+          const float* v0 = v_tile + (8 * kk + 2 * t) * kVLd + col + g;
+#pragma unroll
+          for (int n = 0; n < kMaxHeadDim / 8; ++n) {
+            if (8 * n >= Dh) break;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32_bits(v0[8 * n], bh0, bl0);
+            split_tf32_bits(v0[kVLd + 8 * n], bh1, bl1);
+            mma_split(o[n], ph, pl, bh0, bh1, bl0, bl1);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kMaxHeadDim / 8; ++n) {
+          if (8 * n >= Dh) break;
+          const int c = col + 8 * n + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(q_tile + (row0 + 8 * h) * kQkLd + c) =
+                make_float2(o[n][2 * h] * inv[h], o[n][2 * h + 1] * inv[h]);
+        }
+      }
+      // ---- proj's part from this piece's output: its two k-tiles, NBLK
+      // products each, A from this thread's own rows of the q tile
+#pragma unroll 1
+      for (int kt = 0; kt < 2; ++kt) {
+        uint32_t ah[4][4], al[4][4];
+        tile_frags(q_tile, kQkLd, 64, kt, ah, al);
+#pragma unroll
+        for (int b = 0; b < NBLK; ++b) {
+          product(part_n, ah, al);
+#pragma unroll
+          for (int i = 0; i < NB / 2; ++i) acc[b * NB / 2 + i] += part_n[i];
+        }
+        fence_frags(ah);
+        fence_frags(al);
+      }
+      sync_wg();  // every warp is past this piece's k and v
+    }
+
+    // ---- proj's bias, v2's LN1 and the first residual, kept as h - pivot
+    // in the MLP tile (this thread's rows); v1: LN2's statistics of it
+#pragma unroll
+    for (int jj = 0; jj < NC / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * jj + 2 * t + (e & 1);
+        acc[4 * jj + e] = c < C ? acc[4 * jj + e] + b_proj[c] : 0.f;
+      }
+    if (post) quad_layer_norm<NC>(acc, ln1_w, ln1_b, C, eps, t);
+#pragma unroll
+    for (int jj = 0; jj < NC / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * jj + 2 * t;
+        if (c < C) {
+          const float2 xv = x_pair(h, c);
+          acc[4 * jj + 2 * h] += xv.x - pivot[h];
+          acc[4 * jj + 2 * h + 1] += xv.y - pivot[h];
+          *reinterpret_cast<float2*>(mlp_in + (row0 + 8 * h) * ld_m + c) =
+              make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+        }
+      }
+    float mu2[2] = {0.f, 0.f}, rs2[2] = {0.f, 0.f};
+    if (!post) quad_stats<NC>(acc, C, eps, t, mu2, rs2);
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;  // fc2 sums from zero
+    // fc1's A at k-tile kt: LN2 h (v1) or h (v2), from the MLP tile
+    auto mlp_frags = [&](int kt, uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int c = kt * kFK + 8 * ks + 2 * t;
+        float2 v[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+        if (c < C) {
+          const float2 gm = *reinterpret_cast<const float2*>(ln2_w + c);
+          const float2 bt = *reinterpret_cast<const float2*>(ln2_b + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 d = *reinterpret_cast<const float2*>(mlp_in + (row0 + 8 * h) * ld_m + c);
+            v[h] = post ? make_float2(pivot[h] + d.x, pivot[h] + d.y)
+                        : make_float2((d.x - mu2[h]) * rs2[h] * gm.x + bt.x, (d.y - mu2[h]) * rs2[h] * gm.y + bt.y);
+          }
+        }
+        split_frag(v[0], v[1], ah[ks], al[ks]);
+      }
+    };
+
+    // ---- the MLP by hidden chunks: fc1 (64 wide over C), b1 and gelu in
+    // registers, which are fc2's A for the chunk's two k-tiles
+#pragma unroll 1
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      float a1[32];
+      sum_products64(a1, mlp_frags);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = ch * kChunk + 8 * jj + 2 * t + (e & 1);
+          const float u = n < hidden ? a1[4 * jj + e] + param(p.vec[kBFc1], p.param_bf16, n) : 0.f;
+          a1[4 * jj + e] = 0.5f * u * (1.f + erff(0.70710678118654752f * u));
+        }
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const int J = 4 * kt + ks;
+          split_frag(make_float2(a1[4 * J], a1[4 * J + 1]), make_float2(a1[4 * J + 2], a1[4 * J + 3]), ah[ks], al[ks]);
+        }
+#pragma unroll
+        for (int b = 0; b < NBLK; ++b) {
+          product(part_n, ah, al);
+#pragma unroll
+          for (int i = 0; i < NB / 2; ++i) acc[b * NB / 2 + i] += part_n[i];
+        }
+        fence_frags(ah);
+        fence_frags(al);
+      }
+    }
+
+    // ---- out = pivot + (h - pivot + y), y = fc2 + b2 (v1) or LN2(fc2 + b2) (v2)
+#pragma unroll
+    for (int jj = 0; jj < NC / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * jj + 2 * t + (e & 1);
+        if (c < C) acc[4 * jj + e] += b_fc2[c];
+      }
+    if (post) quad_layer_norm<NC>(acc, ln2_w, ln2_b, C, eps, t);
+#pragma unroll
+    for (int jj = 0; jj < NC / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * jj + 2 * t;
+        if (tok[h] >= 0 && c < C) {
+          const float2 hv = *reinterpret_cast<const float2*>(mlp_in + (row0 + 8 * h) * ld_m + c);
+          *reinterpret_cast<float2*>(out + tok[h] * C + c) =
+              make_float2(pivot[h] + (hv.x + acc[4 * jj + 2 * h]), pivot[h] + (hv.y + acc[4 * jj + 2 * h + 1]));
+        }
+      }
+  }
+}
+
+// The four f32 weights split once a call for the f32 kernel: matrix m (rows
+// x K) becomes its hi plane then its lo plane, each row's k reordered within
+// groups of 8 as 0, 2, 4, 6, 1, 3, 5, 7 ("pair-major"), so that the k index t
+// of a product reads column 2 t of the group and t + 4 column 2 t + 1: the
+// columns a thread holds of an accumulator row (and reads as a float2).
+struct SplitArgs {
+  const float* src[4];
+  float* dst[4];
+  int rows[4], K[4];
+};
+
+__global__ void __launch_bounds__(256) split_weights_kernel(SplitArgs a) {
+#pragma unroll 1
+  for (int m = 0; m < 4; ++m) {
+    const long long n = (long long)a.rows[m] * a.K[m];
+    const int K = a.K[m];
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+      const int c = (int)(i % K), u = c & 7;
+      const long long src = i - u + (u < 4 ? 2 * u : 2 * u - 7);
+      float hi, lo;
+      split_tf32(a.src[m][src], hi, lo);
+      a.dst[m][i] = hi;
+      a.dst[m][n + i] = lo;
+    }
+  }
+}
+
+// TMA map of a split f32 weight (its hi plane, then its lo plane, each rows
+// x K, as split_weights_kernel writes them), read in boxes of box_rows x one
+// 32-float k-tile of one plane with the 128-byte swizzle; rows and k past
+// the edges read as zeros.
+cudaError_t encode_split_weight(CUtensorMap* map, const float* base, int rows, int K, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * 4, (cuuint64_t)rows * K * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)kFK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides, box,
+                            element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Floats of the f32 kernel's scratch: the four weights' hi and lo planes.
+long long f32_split_floats(int C, int hidden) { return 2LL * (4LL * C * C + 2LL * C * hidden); }
+
+template <int NC, bool kCosine>
+cudaError_t launch_f32(const BlockArgs& p, float* split, cudaStream_t stream, int* blocks_per_sm) {
+  constexpr int NB = F32Blocks<NC>::NB;
+  const int smem = f32_smem_bytes(p.C);
+  auto kernel = swin_block_f32_kernel<NC, kCosine>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (blocks_per_sm != nullptr)  // a report: nothing is launched
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kF32Threads, smem);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(swin_block_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the weights split once for every window of the call
+  const int C = p.C, hid = p.hidden;
+  const void* mats[4] = {p.w_qkv, p.w_proj, p.w_fc1, p.w_fc2};
+  const int rows[4] = {3 * C, C, hid, C}, ks[4] = {C, C, C, hid};
+  SplitArgs sa;
+  float* dst = split;
+  for (int m = 0; m < 4; ++m) {
+    sa.src[m] = static_cast<const float*>(mats[m]);
+    sa.dst[m] = dst;
+    sa.rows[m] = rows[m];
+    sa.K[m] = ks[m];
+    dst += 2LL * rows[m] * ks[m];
+  }
+  split_weights_kernel<<<2 * sms, 256, 0, stream>>>(sa);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  swin_block_f32_kernel<<<p.windows, kThreads, smem, stream>>>(p);
+  F32Block blk;
+  blk.p = p;
+  blk.stages = f32_ring_stages(C);
+  err = encode_split_weight(&blk.qkv_map, sa.dst[0], 3 * C, C, 64);
+  if (err == cudaSuccess) err = encode_split_weight(&blk.proj_map, sa.dst[1], C, C, NB);
+  if (err == cudaSuccess) err = encode_split_weight(&blk.fc1_map, sa.dst[2], hid, C, kChunk);
+  if (err == cudaSuccess) err = encode_split_weight(&blk.fc2_map, sa.dst[3], C, hid, NB);
+  if (err != cudaSuccess) return err;
+  int per_sm = 1;  // blocks an SM holds at once
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kF32Threads, smem);
+  if (err != cudaSuccess) return err;
+  const long long groups = (p.windows + kF32G - 1) / kF32G, slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(groups < slots ? groups : slots);  // persistent: as many blocks as fit at once
+  kernel<<<grid, kF32Threads, smem, stream>>>(blk);
   return cudaGetLastError();
+}
+
+template <bool kCosine>
+cudaError_t launch_or_query_f32(const BlockArgs& p, float* split, cudaStream_t stream, int* blocks_per_sm) {
+  switch (proj_width(p.C)) {
+    case 96: return launch_f32<96, kCosine>(p, split, stream, blocks_per_sm);
+    case 128: return launch_f32<128, kCosine>(p, split, stream, blocks_per_sm);
+    default: return launch_f32<192, kCosine>(p, split, stream, blocks_per_sm);
+  }
 }
 
 bool aligned(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
@@ -1228,7 +1722,7 @@ int eqx_swin_block(const void* x, void* out, const void* w_qkv, const void* w_pr
                    const void* ln2_w, const void* ln2_b, const void* b_fc1, const void* b_fc2, const void* bias,
                    const void* gs, int images, int height, int width, int pad_h, int pad_w, int win_h, int win_w,
                    int shift_h, int shift_w, int n_bias, int channels, int hidden, int num_heads, float scale,
-                   float eps, int postnorm, int dtype, int param_dtype, void* stream) {
+                   float eps, int postnorm, int dtype, int param_dtype, void* scratch, void* stream) {
   const int L = win_h * win_w;
   if (images <= 0 || height <= 0 || width <= 0 || win_h <= 0 || win_w <= 0 || pad_h % win_h != 0 ||
       pad_w % win_w != 0 || pad_h < height || pad_h - height >= win_h || pad_w < width || pad_w - width >= win_w ||
@@ -1265,13 +1759,25 @@ int eqx_swin_block(const void* x, void* out, const void* w_qkv, const void* w_pr
   p.eps = eps;
   p.postnorm = postnorm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(p, s);
+  if (dtype == 0) {
+    if (scratch == nullptr || !aligned(scratch)) return cudaErrorInvalidValue;
+    float* split = static_cast<float*>(scratch);
+    return gs != nullptr ? launch_or_query_f32<true>(p, split, s, nullptr)
+                         : launch_or_query_f32<false>(p, split, s, nullptr);
+  }
   return gs != nullptr ? launch_or_query_bf16<true>(p, s, nullptr) : launch_or_query_bf16<false>(p, s, nullptr);
 }
 
 // Dynamic shared memory one block needs; for error messages and reports.
 long long eqx_swin_block_smem_bytes(int channels, int head_dim, int elem_bytes) {
-  return elem_bytes == 2 ? (long long)bf16_smem_bytes(channels) : (long long)make_layout(channels, head_dim).total;
+  (void)head_dim;
+  return elem_bytes == 2 ? (long long)bf16_smem_bytes(channels) : (long long)f32_smem_bytes(channels);
+}
+
+// Floats of device scratch the entry point needs for dtype (0 = float32: the
+// weights split into TF32 hi and lo; bfloat16 needs none).
+long long eqx_swin_block_scratch_floats(int channels, int hidden, int dtype) {
+  return dtype == 0 ? f32_split_floats(channels, hidden) : 0;
 }
 
 // The bf16 design at a C, for reports: info[0] windows a block works on at
@@ -1287,6 +1793,19 @@ int eqx_swin_block_config(int channels, int num_heads, int* info) {
   info[1] = ring_stages(channels);
   info[2] = bf16_smem_bytes(channels);
   return launch_or_query_bf16<false>(p, nullptr, &info[3]);
+}
+
+// The f32 design at a C, as eqx_swin_block_config reports the bf16 one.
+int eqx_swin_block_f32_config(int channels, int num_heads, int* info) {
+  if (channels <= 0 || channels > kMaxC || channels % 16 != 0 || num_heads <= 0 || channels % num_heads != 0)
+    return cudaErrorInvalidValue;
+  BlockArgs p = {};
+  p.C = channels;
+  p.head_dim = channels / num_heads;
+  info[0] = kF32G;
+  info[1] = f32_ring_stages(channels);
+  info[2] = f32_smem_bytes(channels);
+  return launch_or_query_f32<false>(p, nullptr, nullptr, &info[3]);
 }
 
 }  // extern "C"

@@ -162,18 +162,19 @@ def window_qkv_attention_reference(
     ``_packed_window_reference`` does, but kept in f32 where that rounds
     them to the input type: with a logit scale of up to 100, rounding q
     to bf16 moves scores by ~0.1. The probabilities are rounded to the
-    input type before p.V; both products accumulate in f32 and the output
-    is rounded once."""
+    input type before p.V; both products accumulate in f32 (in f64 for an
+    f64 qkv) and the output is rounded once."""
     b, nw, l, three_c = qkv.shape
     c = three_c // 3
     hd = c // num_heads
     q, k, v = (t.reshape(b, nw, l, num_heads, hd).transpose(2, 3) for t in qkv.split(c, dim=-1))
+    ct = torch.float64 if qkv.dtype == torch.float64 else torch.float32  # f64 in, f64 throughout
     if cosine_gs is not None:
-        q = torch.nn.functional.normalize(q.float(), dim=-1, eps=1e-12) * cosine_gs.float().reshape(num_heads, 1, 1)
-        k = torch.nn.functional.normalize(k.float(), dim=-1, eps=1e-12)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias.float()
+        q = torch.nn.functional.normalize(q.to(ct), dim=-1, eps=1e-12) * cosine_gs.to(ct).reshape(num_heads, 1, 1)
+        k = torch.nn.functional.normalize(k.to(ct), dim=-1, eps=1e-12)
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * scale + bias.to(ct)
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
-    o = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    o = torch.matmul(p.to(ct), v.to(ct)).to(qkv.dtype)
     return o.transpose(2, 3).reshape(b, nw, l, c)
 
 

@@ -277,7 +277,7 @@ def fused_swin_block_supported(c: int, hidden: int, num_heads: int, L: int) -> b
 
 
 def _layer_norm_f32(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    return F.layer_norm(t, (t.shape[-1],), w.float(), b.float(), eps)
+    return F.layer_norm(t, (t.shape[-1],), w.to(t.dtype), b.to(t.dtype), eps)
 
 
 def fused_swin_block_reference(
@@ -298,16 +298,18 @@ def fused_swin_block_reference(
     accumulates in f32 with its bias added in f32; the inputs of the four
     products and the attention's q, k, v and p are rounded to the input
     type, and v2's normalised q and k stay in f32; the residual stream
-    stays f32 and the output is rounded once.
+    stays f32 and the output is rounded once. Given f64 windows and
+    parameters it computes in f64 throughout (the f32 kernel's yardstick).
       v1: h = x + proj(attn(LN1 x)); out = h + fc2(gelu(fc1(LN2 h)))
       v2: h = x + LN1(proj(cosattn x)); out = h + LN2(fc2(gelu(fc1 h)))
     """
     p = params
     dt = xw.dtype
-    xf = xw.float()
+    ct = torch.float64 if dt == torch.float64 else torch.float32  # f64 in, f64 throughout
+    xf = xw.to(ct)
 
     def linear(t, w, b):  # t in the input type, f32 accumulation and bias
-        return F.linear(t.float(), w.to(dt).float(), b.float())
+        return F.linear(t.to(ct), w.to(dt).to(ct), b.to(ct))
 
     attn_in = xw if postnorm else _layer_norm_f32(xf, p.norm1_w, p.norm1_b, eps).to(dt)
     qkv = linear(attn_in, p.qkv_w, p.qkv_b).to(dt)
@@ -356,13 +358,17 @@ def _launch_block_kernel(x, params, bias, num_heads, scale, eps, postnorm, cosin
     gs = None if cosine_gs is None else cosine_gs.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
     lib = _native.library()
+    # f32: the weights split into TF32 hi and lo once for the call's windows
+    n_scratch = lib.eqx_swin_block_scratch_floats(c, hidden, _DTYPE_CODES[dt])
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     with torch.cuda.device(dev):
         err = lib.eqx_swin_block(
             x.data_ptr(), out.data_ptr(),
             *(m.data_ptr() for m in mats), *(v.data_ptr() for v in vecs),
             bias.data_ptr(), None if gs is None else gs.data_ptr(),
             n, h, w, geo.ph, geo.pw, wh, ww, geo.sh, geo.sw, bias.shape[0], c, hidden, num_heads, scale, eps,
-            int(postnorm), _DTYPE_CODES[dt], param_code, torch.cuda.current_stream().cuda_stream,
+            int(postnorm), _DTYPE_CODES[dt], param_code, None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         smem = lib.eqx_swin_block_smem_bytes(c, c // num_heads, x.element_size())

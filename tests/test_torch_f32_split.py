@@ -1,8 +1,9 @@
 """The error model of split TF32 ("3xTF32"), emulated in torch on the CPU.
 
-The port's f32 GEMM (``csrc/gemm_bf16.cuh``, under the three fused halves)
-and its f32 attention stage (``csrc/attention_stage.cuh``, under K1, K2 and
-the ViT attention half) multiply f32 operands on the tensor cores by
+The port's f32 GEMM (``csrc/gemm_bf16.cuh``, under the three fused halves),
+its f32 attention stage (``csrc/attention_stage.cuh``, under K1, K2 and
+the ViT attention half) and its f32 whole-block Swin kernel
+(``csrc/swin_block.cu``, K5) multiply f32 operands on the tensor cores by
 splitting each into hi = tf32(x) and lo = tf32(x - hi), both rounded to
 nearest (``cvt.rna.tf32.f32``: the low 13 of the 23 mantissa bits, ties
 away from zero), and summing hi hi + hi lo + lo hi in f32. The card is
@@ -12,7 +13,10 @@ torch's f32 products on the CPU and holds it against f64 within
 versions of the GEMM and attention cases the card checks, including rows
 shifted by 1e3 before a LayerNorm, a head biased 300 log-units down and a
 -inf bias over a whole block of keys; and it holds that a NaN or an
-infinity among the operands gives non-finite outputs where f64 does.
+infinity among the operands gives non-finite outputs where f64 does. The
+whole block is emulated as K5's f32 kernel computes it (each 32-deep
+k-tile's products summed on their own, rows taken about a pivot) and held
+against the port's plain version run in f64.
 """
 import math
 
@@ -222,3 +226,121 @@ def test_split_attention_within_f32_bound(case):
     assert bool(torch.isfinite(out).all())
     err = float((out.double() - ref).abs().max())
     assert err < F32_BOUND, err
+
+
+# ---- the whole Swin block (K5's f32 kernel, csrc/swin_block.cu) ----
+
+
+def split_linear(a, w, k_tile=32, matmul=split_matmul):
+    """a @ w.T as the f32 block kernel computes its four products: split
+    TF32, each 32-deep k-tile's three products summed on their own (on the
+    card the tensor cores' accumulator, which rounds toward zero), then added
+    to the running sum in f32."""
+    out = None
+    for k0 in range(0, a.shape[-1], k_tile):
+        part = matmul(a[..., k0:k0 + k_tile], w[:, k0:k0 + k_tile].t())
+        out = part if out is None else out + part
+    return out
+
+
+def _stats(d, eps):
+    """A row's mean, then its rstd from the variance over the centred values."""
+    mean = d.mean(-1, keepdim=True)
+    return mean, torch.rsqrt(((d - mean) ** 2).mean(-1, keepdim=True) + eps)
+
+
+def split_swin_block(xw, p, bias, heads, scale, eps, postnorm, gs, matmul=split_matmul):
+    """The f32 block kernel's arithmetic on (N, nW, L, C) windows, in f32.
+    Each row is taken about a pivot, its first value: LN1 of x and LN2 of h
+    centre x - pivot and h - pivot (so a row of 1e3 + N(0, 1) keeps its
+    variance and its mean to f32's precision of an O(1) value), h is kept
+    as h - pivot, and the pivot is added back once, to the output. The four
+    products by split_linear with their biases added in f32; per head S and
+    P V by split_matmul, s (v2: times gs / |q| and 1 / |k|) times the scale
+    plus the bias, e = exp(s - max) unnormalised and O divided by the row
+    sum; fc2 summed from zero; gelu exact."""
+    n, nw, length, c = xw.shape
+    dh = c // heads
+    pivot = xw[..., :1]
+
+    def norm(d, w, b):
+        mean, rstd = _stats(d, eps)
+        return (d - mean) * rstd * w + b
+
+    a = xw if postnorm else norm(xw - pivot, p.norm1_w, p.norm1_b)
+    qkv = split_linear(a, p.qkv_w, matmul=matmul) + p.qkv_b
+    q, k, v = (t.reshape(n, nw, length, heads, dh).transpose(2, 3) for t in qkv.split(c, dim=-1))
+    s = matmul(q, k.transpose(-1, -2))
+    if gs is not None:
+        q_scale = gs.reshape(heads, 1, 1) * scale / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        k_inv = 1.0 / k.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        s = s * q_scale * k_inv.transpose(-1, -2) + bias
+    else:
+        s = s * scale + bias
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = matmul(e, v) / e.sum(-1, keepdim=True)
+    o = o.transpose(2, 3).reshape(n, nw, length, c)
+    r = split_linear(o, p.proj_w, matmul=matmul) + p.proj_b
+    h_rel = (xw - pivot) + (norm(r, p.norm1_w, p.norm1_b) if postnorm else r)  # h - pivot
+    mlp_in = pivot + h_rel if postnorm else norm(h_rel, p.norm2_w, p.norm2_b)
+    hidden = F.gelu(split_linear(mlp_in, p.fc1_w, matmul=matmul) + p.fc1_b)
+    y = split_linear(hidden, p.fc2_w, matmul=matmul) + p.fc2_b
+    return pivot + (h_rel + (norm(y, p.norm2_w, p.norm2_b) if postnorm else y))
+
+
+# (C, heads, windows, L, v2, what): small blocks at head dims 32 and 16, L 49
+# and 64; a padding token (a zero row of x, as the map's padding reads); a
+# head biased 300 log-units down; rows shifted by 1e3 before LN1; NaN and
+# inf planted in one token of the second window.
+BLOCK_CASES = {
+    "v1-C96-Dh32-L49": (96, 3, 3, 49, False, None),
+    "v2-C64-Dh16-L64": (64, 4, 2, 64, True, None),
+    "v1-C32-Dh16-L64-padding-token": (32, 2, 4, 64, False, "padding"),
+    "v2-C96-Dh32-L49-padding-token": (96, 3, 2, 49, True, "padding"),
+    "v1-C64-Dh32-L49-head-300-down": (64, 2, 3, 49, False, "low"),
+    "v1-C96-Dh32-L49-shifted-1e3": (96, 3, 2, 49, False, "shift"),
+    "v1-C64-Dh16-L49-nan-in-x": (64, 4, 3, 49, False, "nan"),
+    "v2-C64-Dh32-L64-inf-in-x": (64, 2, 3, 64, True, "inf"),
+}
+
+
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_split_swin_block_within_f32_bound(case):
+    from eqxvision_tpu_torch.ops import window_attention as W
+
+    c, heads, nw, length, v2, what = BLOCK_CASES[case]
+    rng = np.random.default_rng(c + length + nw)
+    hidden = 4 * c
+    p = W.SwinBlockParams(
+        _rand(rng, c, scale=0.1, shift=1.0), _rand(rng, c, scale=0.1), _rand(rng, 3 * c, c, scale=c**-0.5),
+        _rand(rng, 3 * c, scale=0.1), _rand(rng, c, c, scale=c**-0.5), _rand(rng, c, scale=0.1),
+        _rand(rng, c, scale=0.1, shift=1.0), _rand(rng, c, scale=0.1), _rand(rng, hidden, c, scale=c**-0.5),
+        _rand(rng, hidden, scale=0.1), _rand(rng, c, hidden, scale=hidden**-0.5), _rand(rng, c, scale=0.1),
+    )
+    xw = _rand(rng, 1, nw, length, c, scale=0.5, shift=1e3 if what == "shift" else 0.0)
+    bias = _rand(rng, nw, heads, length, length)
+    gs = torch.full((heads,), 10.0) if v2 else None
+    scale = 1.0 if v2 else (c // heads) ** -0.5
+    if what == "padding":
+        xw[0, 1, length - 3:] = 0.0
+    elif what == "low":
+        bias[:, 1] -= 300.0
+    elif what in ("nan", "inf"):
+        xw[0, 1, 7, 5] = math.nan if what == "nan" else math.inf
+
+    out = split_swin_block(xw, p, bias, heads, scale, 1e-5, v2, gs)
+    ref = W.fused_swin_block_reference(xw.double(), W.SwinBlockParams(*(t.double() for t in p)), bias.double(),
+                                       heads, scale, 1e-5, v2, None if gs is None else gs.double())
+    assert out.dtype == torch.float32 and out.shape == xw.shape
+    finite = torch.isfinite(ref)
+    if what in ("nan", "inf"):
+        # the planted value reaches every token of its window and no other
+        assert not bool(finite[0, 1].any()) and bool(finite[0, [0, 2]].all())
+        assert torch.equal(torch.isfinite(out), finite)
+    else:
+        assert bool(finite.all()) and bool(torch.isfinite(out).all())
+    err = float((out.double() - ref)[finite].abs().max())
+    assert err < F32_BOUND, err
+    # and one TF32 product (hi hi) in place of the split would not hold it
+    tf32 = split_swin_block(xw, p, bias, heads, scale, 1e-5, v2, gs, matmul=lambda a, b: tf32_rna(a) @ tf32_rna(b))
+    assert float((tf32.double() - ref)[finite].abs().max()) > F32_BOUND

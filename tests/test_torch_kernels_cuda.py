@@ -508,7 +508,7 @@ def test_block_kernel_refused_launch_raises(cuda):
     bias = kw["relative_position_bias"]
     err = _native.library().eqx_swin_block(
         unaligned.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in mats), *(v.data_ptr() for v in vecs),
-        bias.data_ptr(), None, 1, 14, 14, 14, 14, 7, 7, 3, 3, 1, c, 4 * c, heads, c**-0.5, 1e-5, 0, 1, 0,
+        bias.data_ptr(), None, 1, 14, 14, 14, 14, 7, 7, 3, 3, 1, c, 4 * c, heads, c**-0.5, 1e-5, 0, 1, 0, None,
         torch.cuda.current_stream().cuda_stream,
     )
     torch.cuda.synchronize()
@@ -516,6 +516,94 @@ def test_block_kernel_refused_launch_raises(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         _native.check(err, "eqx_swin_block on an unaligned x")
     assert bool((out == 7.0).all())  # nothing ran
+
+
+# The f32 kernel (split TF32 on wgmma) against the plain version in f64:
+# (C, heads, images, windows per image, L, v2, n_bias). C 96, 128 and 192
+# (proj widths 96, 128 and 192 at C = NC) and C 64 and 160 (C below the
+# proj width), head dims 16, 32, 48 and 64; odd window counts (the last
+# two-window group ragged); n_bias 1 and the windows per image.
+F32_BLOCK_CASES = {
+    "c96-v1-63-windows": (96, 3, 1, 63, 49, False, 63),
+    "c96-v2-nbias1": (96, 3, 2, 16, 64, True, 1),
+    "c128-v1-15-windows-nbias1": (128, 4, 3, 5, 49, False, 1),
+    "c128-v2": (128, 4, 2, 9, 64, True, 9),
+    "c192-v1-9-windows": (192, 6, 1, 9, 49, False, 9),
+    "c192-v2-nbias1": (192, 6, 3, 3, 64, True, 1),
+    "c64-dh16-v1": (64, 4, 1, 5, 49, False, 5),
+    "c160-v2": (160, 5, 1, 7, 64, True, 7),
+    "c96-dh48-v1": (96, 2, 2, 3, 49, False, 3),
+    "c128-dh64-v2": (128, 2, 1, 5, 64, True, 1),
+}
+
+
+def _f32_block_reference(W, x, p, bias, heads, scale, v2, gs):
+    return W.fused_swin_block_reference(x.double(), W.SwinBlockParams(*(t.double() for t in p)), bias.double(), heads,
+                                        scale, 1e-5, v2, None if gs is None else gs.double())
+
+
+@pytest.mark.parametrize("case", list(F32_BLOCK_CASES))
+def test_f32_block_kernel_matches_plain_in_f64(cuda, case):
+    c, heads, n, nw, L, v2, n_bias = F32_BLOCK_CASES[case]
+    x, p, bias, gs = _block_inputs(cuda, c, heads, n, nw, L, torch.float32, v2)
+    bias = bias[:n_bias].contiguous()
+    scale = 1.0 if v2 else (c // heads) ** -0.5
+    before = W.fused_swin_block.launches
+    out = W.fused_swin_block(x, p, bias, heads, scale, 1e-5, v2, gs)
+    ref = _f32_block_reference(W, x, p, bias, heads, scale, v2, gs)
+    torch.cuda.synchronize()
+    assert W.fused_swin_block.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert float((out.double() - ref).abs().max()) < 1e-4
+
+
+# The f32 kernel on the map against the plain NHWC path in f64: a 10 x 10
+# map padded to 14 x 14 (padding tokens in the windows), shifted; v2 on a
+# 12 x 12 map padded to 16 x 16; an unshifted 7 x 21 map of three windows.
+F32_MAP_CASES = {
+    "c96-10x10-padded": (96, 3, 2, (10, 10), 7, 3, False),
+    "c160-12x12-padded-v2": (160, 5, 1, (12, 12), 8, 4, True),
+    "c128-7x21-unshifted": (128, 4, 1, (7, 21), 7, 0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_MAP_CASES))
+def test_f32_block_kernel_on_the_map_matches_plain_in_f64(cuda, case):
+    c, heads, n, hw, win, shift, v2 = F32_MAP_CASES[case]
+    x, kw = _map_inputs(cuda, c, heads, n, hw, win, v2, torch.float32)
+    fn = W.fused_swin_block_v2 if v2 else W.fused_swin_block_v1
+    geometry = dict(window_size=(win, win), shift_size=(shift, shift), num_heads=heads)
+    with torch.no_grad():
+        out = fn(x, **kw, **geometry)
+        ref = fn(x.double().cpu(), **{k: v.double().cpu() for k, v in kw.items()}, **geometry)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    assert float((out.double().cpu() - ref).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("where", ["x", "fc2-weight"])
+@pytest.mark.parametrize("bits", ["nan-7fffffff", "nan-7fc00000", "inf"])
+@pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
+def test_f32_block_kernel_keeps_non_finite_values(cuda, v2, bits, where):
+    """Planted in one token of window 1, the value reaches that window's
+    tokens and no other; planted in fc2's weight, it reaches one output
+    column of every token (v1) or, through LN2, every output (v2)."""
+    c, heads, L = 96, 3, 64 if v2 else 49
+    x, p, bias, gs = _block_inputs(cuda, c, heads, 1, 3, L, torch.float32, v2)
+    if where == "x":
+        _plant(x, (0, 1, 10, 5), NON_FINITE_BITS[bits])
+    else:
+        _plant(p.fc2_w, (2, 7), NON_FINITE_BITS[bits])
+    scale = 1.0 if v2 else (c // heads) ** -0.5
+    out = W.fused_swin_block(x, p, bias, heads, scale, 1e-5, v2, gs)
+    ref = _f32_block_reference(W, x, p, bias, heads, scale, v2, gs)
+    torch.cuda.synchronize()
+    clean = torch.isfinite(ref)
+    if where == "x":
+        assert not bool(clean[0, 1].any()) and bool(clean[0, 0].all()) and bool(clean[0, 2].all())
+    bad = ~clean
+    assert bool(bad.any()) and bool((~torch.isfinite(out))[bad].all())
+    if bool(clean.any()):
+        assert float((out.double() - ref)[clean].abs().max()) < 1e-4
 
 
 # LayerNorm: (rows, D). The zoo's widths (96 at 4 lanes a row, 384, 768,
