@@ -271,15 +271,20 @@ def _stage_build_report(log):
              r"Li(\d+)ELb([01])EE)", name)
 
 
+WINDOW_MODES = {"0": "K3 v1", "1": "K3 cosine", "2": "K2 rows", "3": "K2 rows, no bias"}
+
+
 def _window_build_report(log):
     """The window kernels of csrc/window_attention.cu: the window stage by
-    type, head dim and cosine mode, and the bf16 CUDA-core kernel."""
+    type, head dim and mode (K3/K4 v1 or cosine; K2's rows with a bias or
+    without), and the bf16 CUDA-core kernel."""
     def name(m):
         if m.group(1):
-            return f"window_stage<{'float' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}, {_flag(m.group(3))}>"
+            kind = "float" if m.group(1) == "f" else "bf16"
+            return f"window_stage<{kind}, {m.group(2)}, {WINDOW_MODES[m.group(3)]}>"
         return "window_attention_kernel"
 
-    return _ptxas_report(log, r"window_stageI(f|13__nv_bfloat16)Li(\d+)ELb([01])E|(window_attention_kernel)E", name)
+    return _ptxas_report(log, r"window_stageI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E|(window_attention_kernel)E", name)
 
 
 def check_fused_qkv(attention, lib, log):
@@ -426,8 +431,8 @@ def check_window_attention(attention, lib, log):
                     {r for r in _stage_build_report(log) if r[0].startswith("attention_stage_f32") and "true" in r[0]})
     for kernel, regs, spills in report:
         print(f"{kernel}: {regs} registers, {spills} bytes of spill stores and loads (ptxas -v)")
-    # bf16 at head dims 16, 32, 48 and 64, f32 at 16 and 32, each v1 and v2
-    _check(len({k for k, _, _ in report if k.startswith("window_stage<")}) == 12,
+    # bf16 at head dims 16, 32, 48 and 64, f32 at 16 and 32, each in four modes
+    _check(len({k for k, _, _ in report if k.startswith("window_stage<")}) == 24,
            f"window-stage kernels in the build log: {report}")
     _check(all(spills == 0 for k, _, spills in report if k.startswith("window_stage<")),
            "a window-stage kernel spills")
@@ -1169,7 +1174,8 @@ def _attn_inputs(lead, n, dh, bias_lead, dtype, gen):
 
 # Public attention: (q lead dims, N, Dh, bias lead dims or None). swin_t
 # stage 1 through the op, B = 128 * 64 * 3 with the (192, 49, 49) window and
-# head bias shared over the batch (the short-row kernel); vit_base b256 with
+# head bias shared over the batch (the window stage, one head a window: 192
+# slabs, which the 528 blocks of the bf16 grid do not divide); vit_base b256 with
 # no bias and with a BEiT-style (12, 197, 197) relative-position bias (the
 # attention stage, one pass); vit_base at 384 px b32 (577 tokens: two
 # passes, K and V resident) with and without a (12, 577, 577) bias; a
@@ -1178,25 +1184,42 @@ ATTN_CASES = {"swin_t stage 1": ((128, 192), 49, 32, (1, 192)), "vit_base b256":
               "vit_base b256 rel-pos bias": ((256, 12), 197, 64, (12,)),
               "vit_base 384 px b32": ((32, 12), 577, 64, (12,)),
               "vit_base 384 px b32, no bias": ((32, 12), 577, 64, None), "ragged": ((2, 2), 17, 8, (2,))}
-ATTN_KERNELS = {0: "the attention stage's CUDA-core kernel", 1: "the short-row mma.sync kernel",
-                2: "the attention stage's wgmma kernel", 3: "the attention stage's f32 kernel (split TF32)"}
+ATTN_KERNELS = {0: "the attention stage's CUDA-core kernel", 1: "the bf16 window stage (TMA ring, wgmma)",
+                2: "the attention stage's wgmma kernel", 3: "the attention stage's f32 kernel (split TF32)",
+                4: "the f32 window stage (TMA ring, split TF32 on mma.sync)"}
+# The kernel names torch.profiler must see on each path.
+ATTN_PROFILED = {1: "window_stage", 2: "attention_stage_wgmma", 3: "attention_stage_f32", 4: "window_stage"}
 
 
-def _device_kernels(fn):
-    """Names of the CUDA kernels one call of fn launches (torch.profiler)."""
+def _device_kernels(fn, iters=10):
+    """{name: device ms a call} of the CUDA kernels fn launches (torch.profiler,
+    mean over ``iters`` calls after one warm-up). A trace without kernels is
+    the profiler's loss, not the call's (every call launches one): taken
+    again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+    for _ in range(3):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        found = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total}
+        if found:
+            return found
+    return {}
 
 
 def check_attention(A, lib):
     """The public attention kernel vs its plain version, with the kernel it
-    takes at each case (eqx_attention_config), and for the cases on the
-    wgmma stage or the f32 stage the kernel the profiler saw; returns swin_t stage 1 bf16's
-    numbers with vit_base b256's, without and with the bias, beside them."""
+    takes at each case (eqx_attention_config), the kernels the profiler saw
+    on the window stage (its kernel and no other, so not the short-row kernel
+    it replaced), the wgmma stage or the f32 stage, the device time by
+    torch.profiler beside CUDA events; returns swin_t stage 1 bf16's numbers
+    with vit_base b256's, without and with the bias, beside them."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     main, extra = None, {}
     for name, (lead, n, dh, bias_lead) in ATTN_CASES.items():
@@ -1204,9 +1227,13 @@ def check_attention(A, lib):
             q, k, v, bias = _attn_inputs(lead, n, dh, bias_lead, dtype, gen)
             scale = dh**-0.5
             cfg = (ctypes.c_int * 6)()
-            _check(lib.eqx_attention_config(n, dh, int(dtype == torch.bfloat16), int(bias is not None), cfg) == 0,
-                   f"attention config {name}")
+            batch = q.numel() // (n * dh)
+            _check(lib.eqx_attention_config(n, dh, int(dtype == torch.bfloat16), int(bias is not None), batch, cfg)
+                   == 0, f"attention config {name}")
             design = ATTN_KERNELS[cfg[0]]
+            if cfg[0] in (1, 4):
+                design += (f" ({cfg[3]} blocks of {-(-batch // cfg[3])} rows or fewer, {cfg[1]} an SM, {cfg[2]} bytes "
+                           f"of shared memory a block, a ring of {cfg[4]})")
             if cfg[0] == 2:
                 design += (f" ({cfg[1]} blocks an SM, {cfg[2]} bytes of shared memory, {cfg[3]} key rows, "
                            f"{'one pass' if cfg[4] else 'two passes'}, K and V "
@@ -1215,19 +1242,23 @@ def check_attention(A, lib):
                 out = A.attention(q, k, v, bias, scale)
                 ref = A.attention_reference(q.float(), k.float(), v.float(), bias, scale)
             err = _compare(out, ref, bound, f"attention {name} {dtype}")
-            if cfg[0] in (2, 3):
-                seen = _device_kernels(lambda: A.attention(q, k, v, bias, scale))
-                expected = "attention_stage_wgmma" if cfg[0] == 2 else "attention_stage_f32"
-                _check(any(expected in k for k in seen) and not any("_fma" in k for k in seen),
-                       f"attention {name} {dtype}: kernels {seen}, expected {expected}")
-                design += f"; profiler: {[k for k in seen if 'attention_stage' in k]}"
+            kernels = _device_kernels(lambda: A.attention(q, k, v, bias, scale))
+            device_ms = sum(t for key, t in kernels.items() if "window_stage" in key or "attention_stage" in key)
+            if cfg[0] in ATTN_PROFILED:
+                seen = sorted(kernels)
+                expected = ATTN_PROFILED[cfg[0]]
+                only = cfg[0] in (1, 4)  # the window stage reads the tensors as given: no copy kernel either
+                _check(any(expected in k for k in seen) and not any("_fma" in k for k in seen)
+                       and (not only or all(expected in k for k in seen)),
+                       f"attention {name} {dtype}: kernels {seen}, expected {expected}{' alone' if only else ''}")
+                design += f"; profiler: {[k for k in seen if expected in k]}"
             ms, plain_ms, turns = _turns(
                 lambda: A.attention_reference(q, k, v, bias, scale), lambda: A.attention(q, k, v, bias, scale), 10,
             )
             mask = None if bias is None else bias.to(dtype).expand(*lead, n, n).contiguous()
             with torch.inference_mode():
                 library_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 10)
-            e, batch = q.element_size(), q.numel() // (n * dh)
+            e = q.element_size()
             n_bytes = 4 * q.numel() * e + (0 if bias is None else bias.numel() * 4)
             bound_ms, bound_by = _bound_ms(n_bytes, 4 * batch * n * n * dh, dtype)
             numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1238,7 +1269,8 @@ def check_attention(A, lib):
                 extra[name.replace(" ", "_").replace("-", "_")] = numbers
             how = "no mask" if bias is None else "expanded float mask laid out before the call"
             _report(f"attention {name}", tuple(q.shape), dtype, err, bound, ms, plain_ms, turns,
-                    f"; library (SDPA, {how}) {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); {design}")
+                    f"; kernel device time {device_ms:.4f} ms (profiler); library (SDPA, {how}) {library_ms:.4f} ms; "
+                    f"bound {bound_ms:.4f} ms ({bound_by}); {design}")
 
     # one head biased 300 log-units below the others: finite, and equal to the plain version
     for dtype, bound in ((torch.bfloat16, QKV_BF16_BOUND), (torch.float32, F32_BOUND)):
@@ -1468,7 +1500,8 @@ def main():
         {"name": "layer_norm", "route": "cuda", "source": src + "layer_norm.cu",
          "replaces": ["eqxvision_tpu/ops/layernorm.py:44"],
          "launches": convnext_counts["layer_norm"], **ln_main},
-        {"name": "attention", "route": "cuda", "source": [src + "attention.cu", src + "attention_stage.cuh"],
+        {"name": "attention", "route": "cuda",
+         "source": [src + "attention.cu", src + "window_attention.cu", src + "attention_stage.cuh"],
          "replaces": ["eqxvision_tpu/ops/attention.py:121", "eqxvision_tpu/ops/attention.py:193"],
          "launches": attn_counts["attention"], **attn_main},
         {"name": "fused_mlp_half", "route": "cuda", "source": src + "mlp_half.cu",

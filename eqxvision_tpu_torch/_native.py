@@ -141,7 +141,7 @@ def library() -> ctypes.CDLL:
     lib.eqx_attention.restype = c_int
     lib.eqx_attention_smem_bytes.argtypes = [c_int, c_int, c_int]
     lib.eqx_attention_smem_bytes.restype = ctypes.c_longlong
-    lib.eqx_attention_config.argtypes = [c_int, c_int, c_int, c_int, ctypes.POINTER(c_int)]
+    lib.eqx_attention_config.argtypes = [c_int, c_int, c_int, c_int, ctypes.c_longlong, ctypes.POINTER(c_int)]
     lib.eqx_attention_config.restype = c_int
     lib.eqx_attention_bias_layout.argtypes = [c_int, c_int, c_int, ctypes.POINTER(c_int)]
     lib.eqx_attention_bias_layout.restype = None

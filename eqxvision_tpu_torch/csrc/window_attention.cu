@@ -21,34 +21,46 @@
 // Design. Chosen from the type and the shape (window_path):
 // - L <= 64 (every Swin stage), 16-byte aligned qkv and out, and a head dim
 //   of 16, 32, 48 or 64 in bf16, 16 or 32 in f32 (a box row of at most 128
-//   bytes): the window stage below, window_stage<T, DH, kCosine>. Its work
-//   unit is a tile, one (window, head): 64 query rows (L live), 64 keys and
-//   Dh columns, 12 KB of bf16 q, k and v at Dh = 32. Persistent blocks of
-//   one warpgroup (128 threads), as many as fit the card, walk over the
-//   tiles: block j takes tiles j, j + grid, ... Thread 0 keeps a ring of
-//   kWinStages stages (bf16 two, f32 one) in shared memory filled by TMA
-//   (cp.async.bulk.tensor over one 3-D map of qkv, (3C, L, windows), at
-//   columns h Dh, C + h Dh and 2C + h Dh, guarded by one mbarrier a
-//   stage), so that the next tiles' loads are in flight while a tile
+//   bytes): the window stage below, window_stage<T, DH, kMode>, which the
+//   public attention's (K2) short rows run too, as one head a window
+//   (attention.cu, through window_stage.h; kMode says which caller, v1 or
+//   cosine, with a bias or without). Its work unit is a tile, one (window,
+//   head): 64 query rows (L live), 64 keys and Dh columns, 12 KB of bf16 q,
+//   k and v at Dh = 32. Persistent blocks of one warpgroup (128 threads),
+//   as many as fit the card, walk over the tiles (win_tile_at): K3/K4's
+//   block j takes tiles j, j + grid, ... of the (window, head) order, so
+//   that the blocks resident at once read neighbouring heads of the same
+//   qkv rows; K2's block j takes a contiguous run of a slab-major order
+//   (runs equal to within one tile), so that it copies one or two bias
+//   slabs whatever the grid, where the strided walk copied one almost
+//   every tile when the grid is not a multiple of the slabs.
+//   Thread 0 keeps a ring of kWinStages stages (bf16 two, f32 one) in
+//   shared memory filled by TMA (cp.async.bulk.tensor over three 3-D maps,
+//   q, k and v, each (cols, L, windows) from its own base with its own row
+//   stride: K3 the thirds of one qkv, (C, L, windows) rows 3C apart, K2 its
+//   three tensors; the box at column h Dh), guarded by one mbarrier a
+//   stage, so that the next tiles' loads are in flight while a tile
 //   computes; a tile's stage is refilled with the tile kWinStages further
-//   on once every warp is done with it. The box is exactly Dh columns wide (bf16 Dh = 48: 64, the only
-//   such width) with the swizzle that width allows (32, 64 or 128 bytes):
-//   a wider box would read the next head's columns, bytes a memory-bound
+//   on once every warp is done with it. The box is exactly Dh columns wide
+//   (bf16 Dh = 48: 64, the only such width; columns past a map's own read
+//   as zeros) with the swizzle that width allows (32, 64 or 128 bytes): a
+//   wider box would read the next head's columns, bytes a memory-bound
 //   kernel cannot spare. Rows past L read as zeros, not as the next
-//   window's rows. The tile's (window, head) bias slab, L x L f32, is copied
-//   into shared memory where it differs from the block's last one (at the
-//   served shapes the grid is a multiple of nWb H, so a block's tiles share
-//   one): read from L2 per score, it took 30% of the kernel's time
-//   (scripts/ablate_torch_window_stage.py, PERF.md §6).
+//   window's rows. The tile's (window, head) bias slab, L x L f32, is
+//   copied into shared memory where it differs from the block's last one:
+//   read from L2 per score, it took 30% of the kernel's time
+//   (scripts/ablate_torch_window_stage.py, PERF.md §6). K2's rows without
+//   a bias copy no slab.
 //   A row lives in the four lanes of a quad, 32 f32 scores a thread, keys
 //   >= L -inf by selects, and the softmax runs in those registers.
 //   bf16: S = Q K^T by wgmma m64n64k16 (both operands by descriptor,
-//   K-major, descriptors for the box's swizzle). v1: the accumulators start
-//   at the bias over the scale (the attention stage's kBias method: s =
-//   (bias / scale + q . k) scale). v2: the products start at zero; q's and
-//   k's inverse row norms (two threads a row, from the tile in shared
-//   memory, while the products run) scale the accumulators' rows and
-//   columns in f32, q's by gs[h], then the bias is added. p = e / sum is
+//   K-major, descriptors for the box's swizzle). v1 with a bias: the
+//   accumulators start at the bias over the scale (the attention stage's
+//   kBias method: s = (bias / scale + q . k) scale). v2: the products start
+//   at zero; q's and k's inverse row norms (two threads a row, from the
+//   tile in shared memory, while the products run) scale the accumulators'
+//   rows and columns in f32, q's by gs[h], then the bias is added. Without
+//   a bias the products start at zero too. p = e / sum is
 //   rounded to bf16 in place as the register A operand of wgmma m64nDk16
 //   for P V, with V read MN-major from the stage (the transpose bit).
 //   Nothing that writes a wgmma operand register sits under a branch
@@ -86,6 +98,7 @@
 // cudaErrorInvalidValue outside them.
 
 #include "attention_stage.cuh"
+#include "window_stage.h"
 
 namespace {
 
@@ -102,6 +115,12 @@ constexpr bool kWinIsF32 = std::is_same<T, float>::value;
 // scripts/ablate_torch_window_stage.py; the other blocks hide the loads).
 template <typename T>
 constexpr int kWinStages = kWinIsF32<T> ? 1 : 2;
+
+// What a window-stage kernel computes, and how its blocks walk the tiles:
+// K3/K4's windows, v1 or cosine attention, always with a bias, walked in
+// (window, head) order; K2's rows, one head a window, with a bias or
+// without, walked slab-major (win_tile_at).
+constexpr int kWinV1 = 0, kWinCosine = 1, kRowsBias = 2, kRowsNoBias = 3;
 
 // Columns of a TMA box: the head dim, or 64 for bf16 at Dh = 48 (no
 // swizzle is 96 bytes wide).
@@ -199,25 +218,47 @@ __device__ __forceinline__ void wgmma_win_pv(float (&d)[N / 2], const uint32_t (
 __device__ __forceinline__ float (&win_tile(float* s, int j))[4] { return *reinterpret_cast<float(*)[4]>(s + 4 * j); }
 
 struct WinArgs {
-  CUtensorMap map;     // qkv as (3C, L, windows): boxes of win_box_cols(Dh) x 64 rows x 1, swizzled
+  CUtensorMap map[3];  // q, k, v as (cols, L, windows): boxes of win_box_cols(Dh) x 64 rows x 1, swizzled
   void* out;           // (windows, L, C) in the input's type
-  const float* bias;   // (n_bias, H, L, L) f32: window w, head h reads bias[(w % n_windows) % n_bias, h]
+  const float* bias;   // kBias: (n_bias, H, L, L) f32, window w, head h reads bias[(w % n_windows) % n_bias, h]
   const float* gs;     // kCosine: (H,) f32
-  long long tiles;     // windows x H
+  unsigned tiles;      // windows x H, at most INT_MAX
+  unsigned reps;       // the slab walk's windows a slab: windows / group
+  unsigned group;      // the slab walk's window period (see win_tile_at)
   int seq_len, num_heads, n_windows, n_bias;
   float scale;
   float inv_scale;     // bf16 v1: 1 / scale
   float scale_log2e;   // bf16: scale log2(e)
 };
 
+// Tile i of the walk as (window w, head h). The slab walk (K2's rows):
+// slab-major, i = (wb H + h) reps + r and w = r group + wb, where group is
+// n_bias where it divides n_windows (then window w's slab is (w % group,
+// h)), else n_windows (its slab is a function of (w % group, h)), and 1
+// without a bias; tiles that share a slab are adjacent, so a block's
+// contiguous run of tiles copies one or two slabs whatever the grid.
+// Otherwise (K3/K4) (window, head) order, i = w H + h: blocks resident at
+// once then read neighbouring heads of the same qkv rows, where the slab
+// walk had them read one head's 64 bytes of rows far apart, and took up to
+// 1.6x the time (PERF.md §6, PR 14). In 32 bits, which take fewer registers
+// than 64.
+template <bool kSlabWalk>
+__device__ __forceinline__ void win_tile_at(const WinArgs& a, unsigned i, int& w, int& h) {
+  const unsigned heads = a.num_heads, s = kSlabWalk ? i / a.reps : i;
+  h = (int)(s % heads);
+  w = (int)(kSlabWalk ? (i - s * a.reps) * a.group + s / heads : s / heads);
+}
+
 // Thread (warp w, lane 4 g + t) holds, in register 4 j + e of a tile's
 // scores, query row 16 w + g (e = 0, 1) or 16 w + g + 8 (e = 2, 3) at key
 // 8 j + 2 t + e % 2: the layout of wgmma's accumulators and, tile by tile,
 // of mma.sync's; the output's registers 4 n + e are columns 8 n + 2 t + e %
 // 2 of the same rows.
-template <typename T, int DH, bool kCosine>
-__global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : kCosine ? 3 : 4)
+template <typename T, int DH, int kMode>
+__global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : kMode == kWinCosine ? 3 : 4)
     window_stage(const __grid_constant__ WinArgs a) {
+  constexpr bool kCosine = kMode == kWinCosine, kBias = kMode != kRowsNoBias;
+  constexpr bool kSlabWalk = kMode >= kRowsBias;
   constexpr bool F32 = kWinIsF32<T>;
   constexpr int NS = kWinStages<T>;
   constexpr int BW = win_box_cols(DH), RB = win_row_bytes<T>(DH), BOX = win_box_bytes<T>(DH), U = RB / 16;
@@ -233,8 +274,12 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
 
   const int L = a.seq_len, H = a.num_heads, C = H * DH;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4, r0 = 16 * warp;
-  const long long first = blockIdx.x, step = gridDim.x;
-  const int n_it = first < a.tiles ? (int)((a.tiles - first + step - 1) / step) : 0;  // this block's tiles
+  // this block's tiles, first + it step: the slab walk's a contiguous run
+  // (runs equal to within one tile), else tiles j, j + grid, ...
+  const unsigned per = a.tiles / gridDim.x, extra = a.tiles % gridDim.x;
+  const unsigned first = kSlabWalk ? blockIdx.x * per + min(blockIdx.x, extra) : blockIdx.x;
+  const unsigned step = kSlabWalk ? 1 : gridDim.x;
+  const int n_it = (int)(per + (blockIdx.x < extra));
 
   if (tid == 0) {
     for (int i = 0; i < NS; ++i) mbar_init(&full[i], 1);
@@ -244,49 +289,52 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
 
   // (thread 0) tile it's q, k and v boxes into its stage
   auto issue = [&](int it) {
-    const long long tile = first + it * step;
-    const int h = (int)(tile % H), w = (int)(tile / H);
+    int w, h;
+    win_tile_at<kSlabWalk>(a, first + it * step, w, h);
     unsigned char* dst = ring + (it % NS) * 3 * BOX;
     uint64_t* bar = &full[it % NS];
     mbar_arrive_expect_tx(bar, 3 * BOX);
 #pragma unroll
-    for (int x = 0; x < 3; ++x) tma_load_3d(dst + x * BOX, &a.map, bar, x * C + h * DH, 0, w);
+    for (int x = 0; x < 3; ++x) tma_load_3d(dst + x * BOX, &a.map[x], bar, h * DH, 0, w);
   };
   if (tid == 0 && n_it > 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&a.map)) : "memory");
+#pragma unroll
+    for (int x = 0; x < 3; ++x)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&a.map[x])) : "memory");
     for (int it = 0; it < n_it && it < NS; ++it) issue(it);
   }
 
   // this thread's bias rows in the slab (query rows past L read row L - 1)
-  const float* b0 = sb + min(r0 + g, L - 1) * L;
-  const float* b1 = sb + min(r0 + g + 8, L - 1) * L;
-  long long slab = -1;  // the (window, head) slab sb holds
+  [[maybe_unused]] const float* b0 = sb + min(r0 + g, L - 1) * L;
+  [[maybe_unused]] const float* b1 = sb + min(r0 + g + 8, L - 1) * L;
+  [[maybe_unused]] int slab = -1;  // the (window, head) slab sb holds
   float s[32], o[BW / 2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BW / 2; ++i) o[i] = 0.f;
   for (int it = 0; it < n_it; ++it) {
-    const long long tile = first + it * step;
-    const int h = (int)(tile % H);
-    const long long w = tile / H;
+    int w, h;
+    win_tile_at<kSlabWalk>(a, first + it * step, w, h);
     const int st = it % NS;
     const unsigned char* tq = ring + st * 3 * BOX;
     const unsigned char* tk = tq + BOX;
     const unsigned char* tv = tk + BOX;
 
     // The tile's bias slab into shared memory where it changed (a block's
-    // tiles mostly share one: the grid is a multiple of nWb H at the served
-    // shapes); every thread finished reading the last one before the
-    // previous tile's final barrier.
-    const long long want = (w % a.n_windows) % a.n_bias * H + h;
-    if (want != slab) {
-      const float* src = a.bias + want * L * L;
-      for (int i = tid; i < L * L; i += kWinThreads) sb[i] = __ldg(src + i);
-      named_barrier(1, kWinThreads);
-      slab = want;
+    // run of tiles crosses few slabs: the walk puts a slab's tiles side by
+    // side); every thread finished reading the last one before the previous
+    // tile's final barrier.
+    if constexpr (kBias) {
+      const int want = (w % a.n_windows) % a.n_bias * H + h;
+      if (want != slab) {
+        const float* src = a.bias + (long long)want * L * L;
+        for (int i = tid; i < L * L; i += kWinThreads) sb[i] = __ldg(src + i);
+        named_barrier(1, kWinThreads);
+        slab = want;
+      }
     }
-    if constexpr (!F32 && !kCosine) {  // bf16 v1: the accumulators start at the bias over the scale
+    if constexpr (kBias && !F32 && !kCosine) {  // bf16 v1: the accumulators start at the bias over the scale
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -298,35 +346,9 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
     }
     mbar_wait(&full[st], (it / NS) & 1);
 
-    // S = Q K^T: bf16 on wgmma (onto the bias over the scale in v1, from
-    // zero in v2); f32 by split TF32 on mma.sync, each warp its 16 rows
-    if constexpr (F32) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 8; ++ks) {
-        uint32_t ah[4], al[4];
-        split_tf32_bits(win_f32<RB>(tq, r0 + g, 8 * ks + t), ah[0], al[0]);
-        split_tf32_bits(win_f32<RB>(tq, r0 + g + 8, 8 * ks + t), ah[1], al[1]);
-        split_tf32_bits(win_f32<RB>(tq, r0 + g, 8 * ks + t + 4), ah[2], al[2]);
-        split_tf32_bits(win_f32<RB>(tq, r0 + g + 8, 8 * ks + t + 4), ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32_bits(win_f32<RB>(tk, 8 * j + g, 8 * ks + t), bh0, bl0);
-          split_tf32_bits(win_f32<RB>(tk, 8 * j + g, 8 * ks + t + 4), bh1, bl1);
-          mma_split(win_tile(s, j), ah, al, bh0, bh1, bl0, bl1);
-        }
-      }
-    } else {
-      fence_accumulator(s);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks)
-        wgmma_m64n64k16(s, win_desc<RB>(tq) + 2 * ks, win_desc<RB>(tk) + 2 * ks, !kCosine || ks > 0);
-      wgmma_commit();
-    }
-    if constexpr (kCosine) {  // (bf16: while the products run) two threads a row, each half its columns
+    // kCosine: q's row scales and k's inverse norms into rs, two threads a
+    // row, each half its columns
+    [[maybe_unused]] auto row_scales = [&]() {
       constexpr int UH = DH * (int)sizeof(T) / 32;  // 16-byte units a half row
       const int r = tid / 2, hf = tid % 2;
       float q2 = 0.f, k2 = 0.f;
@@ -356,6 +378,38 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
         rs[r] = a.gs[h] / fmaxf(sqrtf(q2), 1e-12f) * (F32 ? a.scale : a.scale_log2e);
         rs[kWinRows + r] = 1.f / fmaxf(sqrtf(k2), 1e-12f);
       }
+    };
+
+    // S = Q K^T: bf16 on wgmma (onto the bias over the scale in v1, from
+    // zero in v2 and without a bias); f32 by split TF32 on mma.sync, each
+    // warp its 16 rows
+    if constexpr (F32) {
+      if constexpr (kCosine) row_scales();  // first: the products' 32 accumulators are not live yet
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        split_tf32_bits(win_f32<RB>(tq, r0 + g, 8 * ks + t), ah[0], al[0]);
+        split_tf32_bits(win_f32<RB>(tq, r0 + g + 8, 8 * ks + t), ah[1], al[1]);
+        split_tf32_bits(win_f32<RB>(tq, r0 + g, 8 * ks + t + 4), ah[2], al[2]);
+        split_tf32_bits(win_f32<RB>(tq, r0 + g + 8, 8 * ks + t + 4), ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_bits(win_f32<RB>(tk, 8 * j + g, 8 * ks + t), bh0, bl0);
+          split_tf32_bits(win_f32<RB>(tk, 8 * j + g, 8 * ks + t + 4), bh1, bl1);
+          mma_split(win_tile(s, j), ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    } else {
+      fence_accumulator(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DH / 16; ++ks)
+        wgmma_m64n64k16(s, win_desc<RB>(tq) + 2 * ks, win_desc<RB>(tk) + 2 * ks, (kBias && !kCosine) || ks > 0);
+      wgmma_commit();
+      if constexpr (kCosine) row_scales();  // while the products run
     }
     if constexpr (!F32) {
       wgmma_wait<0>();
@@ -381,7 +435,7 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
       for (int e = 0; e < 4; ++e) {
         float v = s[4 * j + e] * qs[e >> 1];
         if constexpr (kCosine) v *= (e & 1) ? ki.y : ki.x;
-        if constexpr (F32 || kCosine) {
+        if constexpr (kBias && (F32 || kCosine)) {
           const float bv = (e >> 1 ? b1 : b0)[min(8 * j + 2 * t + (e & 1), L - 1)];
           v += F32 ? bv : bv * kLog2e;
         }
@@ -455,7 +509,7 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
         if (row < L)
 #pragma unroll
           for (int n = 0; n < DH / 8; ++n)
-            *reinterpret_cast<float2*>(out + (w * L + row) * C + h * DH + 8 * n + 2 * t) =
+            *reinterpret_cast<float2*>(out + ((long long)w * L + row) * C + h * DH + 8 * n + 2 * t) =
                 make_float2(o[4 * n + 2 * hr] * inv[hr], o[4 * n + 2 * hr + 1] * inv[hr]);
       }
     } else {  // O rounded to bf16 through this warp's staging rows, rows < L as 16-byte stores
@@ -474,7 +528,7 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
       for (int i = 0; i < 16 * U / 32; ++i) {
         const int idx = lane + 32 * i, r = idx / U, u = idx % U, row = r0 + r;
         if (row < L && u < DH / 8)
-          *reinterpret_cast<uint4*>(out + (w * L + row) * C + h * DH + 8 * u) =
+          *reinterpret_cast<uint4*>(out + ((long long)w * L + row) * C + h * DH + 8 * u) =
               *reinterpret_cast<const uint4*>(sw + r * RB + (win_unit<RB>(r, u) << 4));
       }
       __syncwarp();  // the staging rows are free again
@@ -482,14 +536,16 @@ __global__ void __launch_bounds__(kWinThreads, kWinIsF32<T> ? 3 : DH > 32 ? 2 : 
   }
 }
 
-// TMA map of qkv (windows, L, cols) in T as (cols, L, windows), in boxes of
-// box_cols x 64 rows x 1 with the swizzle of that width (box_cols
-// sizeof(T) bytes: 32, 64 or 128); rows past L read as zeros.
+// TMA map of a tensor read as (windows, L, cols) with rows `ld` elements
+// apart, in T, as (cols, L, windows), in boxes of box_cols x 64 rows x 1
+// with the swizzle of that width (box_cols sizeof(T) bytes: 32, 64 or 128);
+// rows past L and columns past cols read as zeros.
 template <typename T>
-cudaError_t encode_window_map(CUtensorMap* map, const void* qkv, int windows, int seq_len, int cols, int box_cols) {
+cudaError_t encode_window_map(CUtensorMap* map, const void* base, int windows, int seq_len, int cols, long long ld,
+                              int box_cols) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = (cuuint64_t)cols * sizeof(T);
+  const cuuint64_t row = (cuuint64_t)ld * sizeof(T);
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)seq_len, (cuuint64_t)windows};
   const cuuint64_t strides[2] = {row, row * seq_len};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)kWinRows, 1};
@@ -499,7 +555,7 @@ cudaError_t encode_window_map(CUtensorMap* map, const void* qkv, int windows, in
                                      : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                   : CU_TENSOR_MAP_SWIZZLE_128B;
   const CUtensorMapDataType type = kWinIsF32<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUresult r = encode(map, type, 3, const_cast<void*>(qkv), dims, strides, box, element_strides,
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, element_strides,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -507,10 +563,10 @@ cudaError_t encode_window_map(CUtensorMap* map, const void* qkv, int windows, in
 
 // Blocks of the window stage's kernel an SM holds, found once (its shared
 // memory attribute set first); 0 on an error.
-template <typename T, int DH, bool kCosine>
+template <typename T, int DH, int kMode>
 int window_stage_occupancy() {
   static const int occ = []() {
-    auto kernel = window_stage<T, DH, kCosine>;
+    auto kernel = window_stage<T, DH, kMode>;
     int n = 0;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, win_smem_bytes<T>(DH)) !=
             cudaSuccess ||
@@ -529,56 +585,106 @@ long long window_stage_blocks(long long tiles, int sms, int occupancy) {
   return tiles < resident ? tiles : resident;
 }
 
-template <typename T, int DH, bool kCosine>
+cudaError_t sm_count(int* sms) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  return err == cudaSuccess ? cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device) : err;
+}
+
+template <typename T, int DH, int kMode>
 cudaError_t launch_window_stage(const WinArgs& a, cudaStream_t stream) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  auto kernel = window_stage<T, DH, kCosine>;
+  auto kernel = window_stage<T, DH, kMode>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, win_smem_bytes<T>(DH));
   if (err != cudaSuccess) return err;
-  const int occ = window_stage_occupancy<T, DH, kCosine>();
+  const int occ = window_stage_occupancy<T, DH, kMode>();
   if (occ == 0) return cudaErrorInvalidValue;
   kernel<<<(unsigned)window_stage_blocks(a.tiles, sms, occ), kWinThreads, win_smem_bytes<T>(DH), stream>>>(a);
   return cudaGetLastError();
 }
 
 // The head dims each type's window stage takes: bf16 16, 32, 48, 64 (a box
-// row of at most 128 bytes); f32 16 and 32.
-template <typename T, bool kCosine>
+// row of at most 128 bytes); f32 16 and 32. Instantiated for each mode.
+template <typename T, int kMode>
 cudaError_t launch_window_stage_dh(const WinArgs& a, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch_window_stage<T, 16, kCosine>(a, stream);
-    case 32: return launch_window_stage<T, 32, kCosine>(a, stream);
+    case 16: return launch_window_stage<T, 16, kMode>(a, stream);
+    case 32: return launch_window_stage<T, 32, kMode>(a, stream);
     default: break;
   }
   if constexpr (!kWinIsF32<T>) {
-    if (head_dim == 48) return launch_window_stage<T, 48, kCosine>(a, stream);
-    if (head_dim == 64) return launch_window_stage<T, 64, kCosine>(a, stream);
+    if (head_dim == 48) return launch_window_stage<T, 48, kMode>(a, stream);
+    if (head_dim == 64) return launch_window_stage<T, 64, kMode>(a, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-int window_stage_occupancy_dh(int head_dim, bool cosine) {
-  switch (head_dim * 2 + cosine) {
-    case 32: return window_stage_occupancy<T, 16, false>();
-    case 33: return window_stage_occupancy<T, 16, true>();
-    case 64: return window_stage_occupancy<T, 32, false>();
-    case 65: return window_stage_occupancy<T, 32, true>();
+template <typename T, int kMode>
+int window_stage_occupancy_dh(int head_dim) {
+  switch (head_dim) {
+    case 16: return window_stage_occupancy<T, 16, kMode>();
+    case 32: return window_stage_occupancy<T, 32, kMode>();
     default: break;
   }
   if constexpr (!kWinIsF32<T>) {
-    switch (head_dim * 2 + cosine) {
-      case 96: return window_stage_occupancy<T, 48, false>();
-      case 97: return window_stage_occupancy<T, 48, true>();
-      case 128: return window_stage_occupancy<T, 64, false>();
-      case 129: return window_stage_occupancy<T, 64, true>();
-      default: break;
-    }
+    if (head_dim == 48) return window_stage_occupancy<T, 48, kMode>();
+    if (head_dim == 64) return window_stage_occupancy<T, 64, kMode>();
   }
   return 0;
+}
+
+// The mode of a call: K2's rows (the slab walk) with or without a bias;
+// K3/K4's windows, v1 or cosine, with a bias; -1 for a call no kernel takes.
+int window_mode(bool slab_walk, bool cosine, bool bias) {
+  if (slab_walk) return cosine ? -1 : bias ? kRowsBias : kRowsNoBias;
+  return !bias ? -1 : cosine ? kWinCosine : kWinV1;
+}
+
+template <typename T>
+int window_stage_occupancy_any(int head_dim, int mode) {
+  switch (mode) {
+    case kWinV1: return window_stage_occupancy_dh<T, kWinV1>(head_dim);
+    case kWinCosine: return window_stage_occupancy_dh<T, kWinCosine>(head_dim);
+    case kRowsBias: return window_stage_occupancy_dh<T, kRowsBias>(head_dim);
+    case kRowsNoBias: return window_stage_occupancy_dh<T, kRowsNoBias>(head_dim);
+    default: return 0;
+  }
+}
+
+template <typename T>
+cudaError_t launch_window_stage_any(const eqx_window::Operands& op, cudaStream_t stream) {
+  const bool bias = op.bias != nullptr;
+  const int mode = window_mode(op.slab_walk, op.gs != nullptr, bias);
+  if (mode < 0) return cudaErrorInvalidValue;
+  WinArgs a = {};
+  for (int x = 0; x < 3; ++x) {
+    const cudaError_t err = encode_window_map<T>(&a.map[x], op.src[x], op.windows, op.seq_len, op.cols, op.ld,
+                                                 win_box_cols(op.head_dim));
+    if (err != cudaSuccess) return err;
+  }
+  a.out = op.out;
+  a.bias = op.bias;
+  a.gs = op.gs;
+  const long long tiles = (long long)op.windows * op.num_heads;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  a.tiles = (unsigned)tiles;
+  a.group = !bias ? 1 : op.n_windows % op.n_bias == 0 ? op.n_bias : op.n_windows;
+  a.reps = op.windows / a.group;
+  a.seq_len = op.seq_len;
+  a.num_heads = op.num_heads;
+  a.n_windows = op.n_windows;
+  a.n_bias = op.n_bias;
+  a.scale = op.scale;
+  a.inv_scale = 1.f / op.scale;
+  a.scale_log2e = op.scale * 1.4426950408889634f;
+  switch (mode) {
+    case kWinV1: return launch_window_stage_dh<T, kWinV1>(a, op.head_dim, stream);
+    case kWinCosine: return launch_window_stage_dh<T, kWinCosine>(a, op.head_dim, stream);
+    case kRowsBias: return launch_window_stage_dh<T, kRowsBias>(a, op.head_dim, stream);
+    default: return launch_window_stage_dh<T, kRowsNoBias>(a, op.head_dim, stream);
+  }
 }
 
 // ---- f32 elsewhere: the attention stage's split-TF32 kernel with the window's bias ----
@@ -735,42 +841,54 @@ cudaError_t launch_cuda_cores(const void* qkv, const float* bias, const float* g
 }
 
 // The kernel eqx_window_attention takes: 0 the bf16 CUDA-core kernel, 1 the
-// bf16 window stage (TMA + wgmma), 2 the f32 attention stage (split TF32).
-// The kernel eqx_window_attention takes: 0 the bf16 CUDA-core kernel, 1 the
 // bf16 window stage (TMA ring, wgmma), 2 the f32 attention stage (split
 // TF32, mma.sync), 3 the f32 window stage (TMA ring, split TF32 on mma.sync).
 enum WindowPath { kPathCudaCores = 0, kPathStageBf16 = 1, kPathAttentionStageF32 = 2, kPathStageF32 = 3 };
 WindowPath window_path(int dtype, int seq_len, int head_dim, bool aligned, bool cosine, float scale) {
-  const bool tiles = seq_len <= kWinRows && aligned;
-  if (dtype == 0) return tiles && (head_dim == 16 || head_dim == 32) ? kPathStageF32 : kPathAttentionStageF32;
-  const bool scale_ok = cosine || (isfinite(scale) && isfinite(1.f / scale));  // v1 takes bias / scale
-  return tiles && head_dim % 16 == 0 && scale_ok ? kPathStageBf16 : kPathCudaCores;
-}
-
-template <typename T>
-cudaError_t launch_window_stage_any(const void* qkv, const float* bias, const float* gs, void* out, int windows,
-                                    int n_windows, int n_bias, int seq_len, int num_heads, int head_dim, float scale,
-                                    cudaStream_t stream) {
-  WinArgs a = {};
-  const cudaError_t err =
-      encode_window_map<T>(&a.map, qkv, windows, seq_len, 3 * num_heads * head_dim, win_box_cols(head_dim));
-  if (err != cudaSuccess) return err;
-  a.out = out;
-  a.bias = bias;
-  a.gs = gs;
-  a.tiles = (long long)windows * num_heads;
-  a.seq_len = seq_len;
-  a.num_heads = num_heads;
-  a.n_windows = n_windows;
-  a.n_bias = n_bias;
-  a.scale = scale;
-  a.inv_scale = 1.f / scale;
-  a.scale_log2e = scale * 1.4426950408889634f;
-  return gs != nullptr ? launch_window_stage_dh<T, true>(a, head_dim, stream)
-                       : launch_window_stage_dh<T, false>(a, head_dim, stream);
+  const bool stage = eqx_window::stage_takes(dtype, seq_len, head_dim, aligned, cosine, true, scale);
+  if (dtype == 0) return stage ? kPathStageF32 : kPathAttentionStageF32;
+  return stage ? kPathStageBf16 : kPathCudaCores;
 }
 
 }  // namespace
+
+namespace eqx_window {
+
+bool stage_takes(int dtype, int seq_len, int head_dim, bool aligned, bool cosine, bool bias, float scale) {
+  if (seq_len > kWinRows || !aligned) return false;
+  if (dtype == 0) return head_dim == 16 || head_dim == 32;
+  const bool scale_ok = cosine || !bias || (isfinite(scale) && isfinite(1.f / scale));  // v1 takes bias / scale
+  return dtype == 1 && head_dim % 16 == 0 && head_dim <= kWinMaxHeadDim && scale_ok;
+}
+
+cudaError_t launch_stage(const Operands& op, int dtype, cudaStream_t stream) {
+  const bool aligned = aligned16(op.src[0]) && aligned16(op.src[1]) && aligned16(op.src[2]) && aligned16(op.out);
+  if (op.windows <= 0 || op.n_windows <= 0 || op.n_bias <= 0 || op.num_heads <= 0 || op.windows % op.n_windows != 0 ||
+      !stage_takes(dtype, op.seq_len, op.head_dim, aligned, op.gs != nullptr, op.bias != nullptr, op.scale))
+    return cudaErrorInvalidValue;
+  return dtype == 0 ? launch_window_stage_any<float>(op, stream) : launch_window_stage_any<bf16>(op, stream);
+}
+
+cudaError_t stage_config(int dtype, int head_dim, bool slab_walk, bool cosine, bool bias, long long tiles, int* out) {
+  const bool f32 = dtype == 0;
+  const int mode = window_mode(slab_walk, cosine, bias);
+  const int occ = f32 ? window_stage_occupancy_any<float>(head_dim, mode)
+                      : window_stage_occupancy_any<bf16>(head_dim, mode);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  out[0] = occ;
+  out[1] = (int)stage_smem_bytes(dtype, head_dim);
+  out[2] = (int)window_stage_blocks(tiles, sms, occ);
+  out[3] = f32 ? kWinStages<float> : kWinStages<bf16>;
+  return occ > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+long long stage_smem_bytes(int dtype, int head_dim) {
+  return dtype == 0 ? win_smem_bytes<float>(head_dim) : win_smem_bytes<bf16>(head_dim);
+}
+
+}  // namespace eqx_window
 
 extern "C" {
 
@@ -791,11 +909,26 @@ int eqx_window_attention(const void* qkv, const void* bias, const void* gs, void
   const int C = num_heads * head_dim;
   switch (window_path(dtype, seq_len, head_dim, aligned16(qkv) && aligned16(out), g != nullptr, scale)) {
     case kPathStageBf16:
-      return launch_window_stage_any<bf16>(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads, head_dim,
-                                           scale, s);
-    case kPathStageF32:
-      return launch_window_stage_any<float>(qkv, b, g, out, windows, n_windows, n_bias, seq_len, num_heads,
-                                            head_dim, scale, s);
+    case kPathStageF32: {  // q, k and v as the three thirds of each qkv row
+      const size_t elem = dtype == 0 ? sizeof(float) : sizeof(bf16);
+      const char* base = static_cast<const char*>(qkv);
+      eqx_window::Operands op = {};
+      for (int x = 0; x < 3; ++x) op.src[x] = base + x * (size_t)C * elem;
+      op.ld = 3LL * C;
+      op.cols = C;
+      op.out = out;
+      op.bias = b;
+      op.gs = g;
+      op.windows = windows;
+      op.n_windows = n_windows;
+      op.n_bias = n_bias;
+      op.seq_len = seq_len;
+      op.num_heads = num_heads;
+      op.head_dim = head_dim;
+      op.scale = scale;
+      op.slab_walk = false;
+      return eqx_window::launch_stage(op, dtype, s);
+    }
     case kPathAttentionStageF32: {
       const float* base = static_cast<const float*>(qkv);
       FmaArgs<float> f = {};
@@ -831,18 +964,7 @@ int eqx_window_attention_config(int seq_len, int head_dim, int dtype, int cosine
   for (int i = 0; i < 5; ++i) out[i] = 0;
   out[0] = window_path(dtype, seq_len, head_dim, true, cosine != 0, 1.f / sqrtf((float)head_dim));
   if (out[0] != kPathStageBf16 && out[0] != kPathStageF32) return cudaSuccess;
-  const bool f32 = out[0] == kPathStageF32;
-  const int occ = f32 ? window_stage_occupancy_dh<float>(head_dim, cosine != 0)
-                      : window_stage_occupancy_dh<bf16>(head_dim, cosine != 0);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  out[1] = occ;
-  out[2] = f32 ? win_smem_bytes<float>(head_dim) : win_smem_bytes<bf16>(head_dim);
-  out[3] = (int)window_stage_blocks(tiles, sms, occ);
-  out[4] = f32 ? kWinStages<float> : kWinStages<bf16>;
-  return occ > 0 ? cudaSuccess : cudaErrorInvalidValue;
+  return eqx_window::stage_config(dtype, head_dim, false, cosine != 0, true, tiles, out + 1);
 }
 
 // Dynamic shared memory one block of the kernel eqx_window_attention takes
@@ -851,8 +973,8 @@ int eqx_window_attention_config(int seq_len, int head_dim, int dtype, int cosine
 long long eqx_window_attention_smem_bytes(int seq_len, int head_dim, int elem_bytes) {
   if (seq_len <= 0 || head_dim <= 0 || head_dim > kWinMaxHeadDim) return 0;
   switch (window_path(elem_bytes == 2 ? 1 : 0, seq_len, head_dim, true, false, 1.f / sqrtf((float)head_dim))) {
-    case kPathStageBf16: return win_smem_bytes<bf16>(head_dim);
-    case kPathStageF32: return win_smem_bytes<float>(head_dim);
+    case kPathStageBf16:
+    case kPathStageF32: return eqx_window::stage_smem_bytes(elem_bytes == 2 ? 1 : 0, head_dim);
     case kPathAttentionStageF32: return (long long)f32_stage_smem_bytes((head_dim + 15) / 16 * 16, false);
     default: return (long long)smem_bytes(seq_len, head_dim);
   }

@@ -374,11 +374,13 @@ def attention(
     (Bb, N, N), and row b reads ``bias[b % Bb]``: the kernel never copies it
     over the batch. Any other bias is expanded to (B, N, N), as in the JAX
     package. Counterpart of its ``attention`` and of the Pallas kernels
-    ``_attn_kernel``/``kernel4`` behind it (``csrc/attention.cu``: bf16 rows
-    of at most 64 tokens on a short-row tensor-core kernel, any other N and
-    f32 on the attention stage of ``csrc/attention_stage.cuh``); the
-    padding of N there is the TPU's and has no counterpart: the kernel masks
-    the ragged tail. Any N. ``attention.launches`` counts kernel launches.
+    ``_attn_kernel``/``kernel4`` behind it (``csrc/attention.cu``: rows of
+    at most 64 tokens, bf16 with a head dim of 16, 32, 48 or 64 and f32 with
+    16 or 32, on the window stage of ``csrc/window_attention.cu`` as one head
+    a window, row b reading bias slab b % Bb; every other shape on the
+    attention stage of ``csrc/attention_stage.cuh``); the padding of N
+    there is the TPU's and has no counterpart: the kernels mask the ragged
+    tail. Any N. ``attention.launches`` counts kernel launches.
     """
     if q.ndim < 2 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(

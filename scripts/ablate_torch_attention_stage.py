@@ -12,7 +12,8 @@ For each variant the script copies ``eqxvision_tpu_torch/csrc`` into
 phase or design choice of the bf16 wgmma stage (or, with ``--dtype
 float32``, of the f32 stage) in that copy's header (the outputs may then
 be wrong; only the time is read), compiles that copy's
-entry source alone into a small library with the package's nvcc flags (all
+entry source alone (K2's with ``window_attention.cu``, whose window stage it
+runs for short rows) into a small library with the package's nvcc flags (all
 variants at once, one nvcc each), then times the entry with CUDA events, in
 turns base-first: ``--entry k1`` (the default) K1's
 ``fused_qkv_attention.cu`` on a bf16 qkv of vit_base b256's shape, (256,
@@ -154,9 +155,10 @@ VARIANTS = {  # name: [(whole source line, replacement)]
 }
 BIAS_VARIANTS = ("no_bias_load", "bias_row0", "bias_evict_last", "bias_no_l1")
 SHAPE = (256, 197, 12, 64)  # vit_base b256: B, L, heads, head dim
-# entry: (source, C entry point, mangled name of its one-pass Dh = 64 kernel)
-ENTRIES = {"k1": ("fused_qkv_attention.cu", "eqx_fused_qkv_attention", "attention_stage_wgmmaILi64ELb1ELb0E"),
-           "k2_bias": ("attention.cu", "eqx_attention", "attention_stage_wgmmaILi64ELb1ELb1E")}
+# entry: (sources, C entry point, mangled name of its one-pass Dh = 64 kernel)
+ENTRIES = {"k1": (("fused_qkv_attention.cu",), "eqx_fused_qkv_attention", "attention_stage_wgmmaILi64ELb1ELb0E"),
+           "k2_bias": (("attention.cu", "window_attention.cu"), "eqx_attention",
+                       "attention_stage_wgmmaILi64ELb1ELb1E")}
 F32_KERNEL = "attention_stage_f32ILi64ELb0EE"
 
 
@@ -207,7 +209,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     from eqxvision_tpu_torch import _native
 
-    source, entry, kernel = ENTRIES[args.entry]
+    sources, entry, kernel = ENTRIES[args.entry]
     kernel = F32_KERNEL if f32 else kernel
     dtype, code = (torch.float32, 0) if f32 else (torch.bfloat16, 1)
     headers = {h: (PKG / "csrc" / h).read_text() for h in (HEADER, SPLIT_HEADER)}
@@ -221,7 +223,8 @@ def main():
         for h, text in patch(headers, name).items():
             (root / "csrc" / h).write_text(text)
         lib = root / "libstage.so"
-        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(lib), str(root / "csrc" / source)]
+        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-o", str(lib),
+               *(str(root / "csrc" / src) for src in sources)]
         builds[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     b, l, h, dh = SHAPE
@@ -240,7 +243,8 @@ def main():
             lib.eqx_attention.argtypes = [*([ctypes.c_void_p] * 4), ctypes.c_int, ctypes.c_void_p,
                                           *([ctypes.c_int] * 4), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             cfg = (ctypes.c_int * 6)()
-            lib.eqx_attention_config(l, dh, code, 1, cfg)
+            lib.eqx_attention_config.argtypes = [*([ctypes.c_int] * 4), ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+            lib.eqx_attention_config(l, dh, code, 1, b * h, cfg)
             design = f"kernel {cfg[0]} (2: wgmma, 3: f32), {cfg[1]} blocks an SM, {cfg[2]} bytes of shared memory a block"
         libs[name] = lib
         stage = "attention_stage_f32<64>" if f32 else "attention_stage_wgmma<64, true>"

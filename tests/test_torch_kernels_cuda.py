@@ -6,11 +6,13 @@ Every test here needs a CUDA card and skips without one. On the card, run
 machine need not have). This file imports only torch and the port.
 """
 import copy
+import ctypes
 import importlib
 
 import pytest
 import torch
 
+from eqxvision_tpu_torch import _native
 from eqxvision_tpu_torch.layers import MlpProjection
 from eqxvision_tpu_torch.models.classification import swin as S
 from eqxvision_tpu_torch.nn import Linear
@@ -691,16 +693,21 @@ def test_layer_norm_kernel_refuses(cuda, dtype, param_dtype):
 
 
 # Generic attention: (B, N, Dh, Bb or None). swin_t stage 1's shape through
-# the public op (the short-row mma.sync kernel); ViT-B/16's without a bias
-# and with the per-head bias at ViT width (the attention stage's wgmma
-# kernel, one pass); a ragged one with head dim 8 (the stage's CUDA-core
-# kernel in both types); the short-row limit N = 64 and just past it; head
-# dim 128 at N = 33 (the wgmma stage); 577 tokens without and with a bias
-# (two passes, K and V resident; the shape the CUDA-core design of before
-# could not hold in shared memory); 1025 at head dim 128 (K and V loaded
-# block by block); 300 (two blocks of 256 keys).
+# the public op and at the full slab count, 192 slabs over 3072 rows, which
+# the window stage's grid does not divide (the window stage, one head a
+# window, in both types); ViT-B/16's without a bias and with the per-head
+# bias at ViT width (the attention stage's wgmma kernel, one pass); a ragged
+# one with head dim 8 (the stage's CUDA-core kernel in both types); the
+# window stage's limit N = 64 and just past it; one token a row, a bias a
+# row; head dim 48 (a 64-column box over 48 columns, the rest read as
+# zeros); no bias at head dim 64; head dim 128 at N = 33 (the wgmma stage);
+# 577 tokens without and with a bias (two passes, K and V resident; the
+# shape the CUDA-core design of before could not hold in shared memory);
+# 1025 at head dim 128 (K and V loaded block by block); 300 (two blocks of
+# 256 keys).
 ATTN_SHAPES = [(24, 49, 32, 6), (6, 197, 64, None), (4, 17, 8, 2), (3, 64, 64, 1), (2, 65, 32, 2), (2, 33, 128, None),
-               (24, 197, 64, 12), (6, 577, 64, None), (6, 577, 64, 3), (4, 1025, 128, 2), (4, 300, 64, 2)]
+               (24, 197, 64, 12), (6, 577, 64, None), (6, 577, 64, 3), (4, 1025, 128, 2), (4, 300, 64, 2),
+               (3072, 49, 32, 192), (5, 1, 16, 5), (7, 64, 48, 7), (6, 64, 64, None)]
 
 
 def _attn_inputs(cuda, shape, dtype):
@@ -781,6 +788,47 @@ def test_attention_kernel_takes_any_length(cuda, dtype, bound):
     out = A.attention(q, k, v, bias)
     ref = A.attention_reference(q.float(), k.float(), v.float(), bias)
     torch.cuda.synchronize()
+    assert float((out.float() - ref).abs().max()) < bound
+
+
+# eqx_attention_config's path: 1 the bf16 window stage, 4 the f32 one, 2
+# the attention stage's wgmma kernel, 3 its f32 kernel, 0 its CUDA-core one.
+ATTN_PATHS = [((49, 32, 1, 1), 1), ((49, 32, 1, 0), 1), ((64, 48, 1, 1), 1), ((1, 16, 1, 1), 1), ((64, 64, 1, 0), 1),
+              ((65, 32, 1, 1), 2), ((49, 8, 1, 1), 0), ((49, 80, 1, 1), 2), ((49, 32, 0, 1), 4), ((64, 16, 0, 0), 4),
+              ((49, 64, 0, 1), 3), ((65, 32, 0, 1), 3)]
+
+
+@pytest.mark.parametrize("args,path", ATTN_PATHS,
+                         ids=[f"N{a[0]}-Dh{a[1]}-{'bf16' if a[2] else 'f32'}-{'bias' if a[3] else 'none'}"
+                              for a, _ in ATTN_PATHS])
+def test_attention_config_reports_the_window_stage_for_short_rows(cuda, args, path):
+    """Rows of at most 64 tokens with a head dim the window stage takes (bf16
+    16, 32, 48, 64; f32 16, 32) run it, with its design reported as
+    eqx_window_attention_config reports it; N = 65 runs the attention stage."""
+    lib = _native.library()
+    n, dh, dtype, with_bias = args
+    cfg = (ctypes.c_int * 6)()
+    assert lib.eqx_attention_config(n, dh, dtype, with_bias, 24576, cfg) == 0
+    assert cfg[0] == path
+    if path in (1, 4):
+        blocks_per_sm, smem, blocks, stages = cfg[1:5]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert blocks_per_sm >= 1 and blocks == min(24576, sms * blocks_per_sm)
+        assert smem == lib.eqx_attention_smem_bytes(n, dh, 2 if dtype else 4) and stages == (2 if dtype else 1)
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 0.02), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_attention_kernel_scale_zero(cuda, dtype, bound, with_bias):
+    """Scale 0: every score is the bias (or 0). bf16 with a bias cannot take
+    bias / scale onto the window stage and runs the attention stage;
+    without a bias it stays on the window stage."""
+    q, k, v, bias = _attn_inputs(cuda, (24, 49, 32, 6), dtype)
+    bias = bias if with_bias else None
+    out = A.attention(q, k, v, bias, 0.0)
+    ref = A.attention_reference(q.float(), k.float(), v.float(), bias, 0.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
     assert float((out.float() - ref).abs().max()) < bound
 
 

@@ -23,6 +23,20 @@ windows and one a window, and against the port's plain version at the
 stage shapes of swin_t and swin_v2_t (one image) with the -100 shift mask,
 v2 logit scales up to 100 and a head 300 log-units down. Bounds: bf16 those
 of tests/test_hw_parity.py (0.02 v1, 0.12 v2), f32 1e-4 against f64.
+
+The public attention (K2, ``csrc/attention.cu``) runs its rows of at most
+64 tokens on the same stage as its one-head case: row b of (B, N, Dh) is
+window b of nW = Bb windows reading bias slab b % Bb, or no slab without
+a bias (the products alone, times scale log2(e)). That plan is held
+against the JAX kernels behind the public attention (``_attn_kernel`` and
+``kernel4``, through ``_attention_pallas``) in interpret mode and against
+the port's plain version, at N 1 to 64, head dims 16 to 64, Bb of 1, a
+divisor of B and B, no bias, and scales other than 1/sqrt(Dh); the f32
+plan against f64. The stage's two walks are emulated too: every tile
+once, runs equal to within one tile; K2's slab walk (each block a
+contiguous run of slab-major tiles) changes slab once or twice a block, K3's
+strided walk almost every tile where the grid is not a multiple of the
+slabs.
 """
 import importlib
 from unittest import mock
@@ -70,8 +84,10 @@ def _out(o, qkv):
 def stage_scores(qkv, bias, heads, scale, gs=None):
     """The bf16 window stage's scores, in log2 units (s log2(e))."""
     q, k, _ = _heads(qkv, heads)
-    bt = _bias_slabs(bias, *qkv.shape[:2], heads)
     prod = q @ k.transpose(-1, -2)
+    if bias is None:  # no slab: the products from zero
+        return prod * _f32(scale * LOG2E)
+    bt = _bias_slabs(bias, *qkv.shape[:2], heads)
     if gs is None:
         return (bt * _f32(1.0 / scale) + prod) * _f32(scale * LOG2E)
     qs = gs.float().reshape(heads, 1) / q.norm(dim=-1).clamp_min(1e-12) * _f32(scale * LOG2E)
@@ -107,13 +123,15 @@ def f32_plan(qkv, bias, heads, scale, gs=None):
     row scale gs / |q| times the scale, and k's column scale 1 / |k|), then
     the bias."""
     q, k, v = _heads(qkv, heads)
-    bt = _bias_slabs(bias, *qkv.shape[:2], heads)
     s = _split_matmul(q, k.transpose(-1, -2))
-    if gs is None:
-        s = s * scale + bt
+    if bias is None:
+        s = s * scale
+    elif gs is None:
+        s = s * scale + _bias_slabs(bias, *qkv.shape[:2], heads)
     else:
         qs = gs.float().reshape(heads, 1) / q.norm(dim=-1).clamp_min(1e-12) * scale
-        s = s * qs[..., None] * (1.0 / k.norm(dim=-1).clamp_min(1e-12))[..., None, :] + bt
+        s = s * qs[..., None] * (1.0 / k.norm(dim=-1).clamp_min(1e-12))[..., None, :]
+        s = s + _bias_slabs(bias, *qkv.shape[:2], heads)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     return _out(_split_matmul(e, v) / e.sum(-1, keepdim=True), qkv)
 
@@ -244,3 +262,132 @@ def test_f32_plan_matches_f64(name, stage, nw, L, c, h, shifted):
     assert float((out.double() - ref).abs().max()) < F32_BOUND
     plain = T.window_qkv_attention_reference(qkv, bias, h, scale, gs)
     assert float((plain.double() - ref).abs().max()) < F32_BOUND
+
+
+# ---- the public attention's (K2) short rows: the stage's one-head case ----
+
+
+def _k2_as_windows(q, k, v, bias):
+    """K2's rows (B, N, Dh) as the stage's windows: qkv (B / Bb, Bb, N, 3 Dh)
+    with one head, so that row b is window b of nW = Bb windows and reads
+    slab (b % nW) % nWb = b % Bb of the bias (Bb, 1, N, N)."""
+    b, n, dh = q.shape
+    bb = 1 if bias is None else bias.shape[0]
+    qkv = torch.cat([q, k, v], dim=-1).reshape(b // bb, bb, n, 3 * dh)
+    return qkv, None if bias is None else bias.reshape(bb, 1, n, n)
+
+
+def k2_plan(q, k, v, bias, scale, plan=stage_plan):
+    """The window stage's output on K2's rows, back as (B, N, Dh)."""
+    qkv, slabs = _k2_as_windows(q, k, v, bias)
+    return plan(qkv, slabs, 1, scale).reshape(q.shape)
+
+
+def _k2_inputs(b, n, dh, bb, seed, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(_rand(rng, b, n, dh)).to(dtype) for _ in range(3))
+    bias = None if bb is None else torch.from_numpy(_rand(rng, bb, n, n))
+    return q, k, v, bias
+
+
+# (B, N, Dh, Bb or None, scale or None for 1/sqrt(Dh)): the JAX kernel
+# test's case (Bb a divisor of B, scale 0.17), Bb = B, Bb = 1 at the stage's
+# 64 rows, one token a row without a bias, head dim 48 (the stage's 64-column
+# box), no bias at head dim 64.
+K2_CASES = [(6, 49, 32, 3, 0.17), (4, 17, 16, 4, None), (4, 64, 64, 1, None), (3, 1, 48, None, None),
+            (4, 64, 48, 2, 0.3), (2, 17, 64, None, 0.25)]
+
+
+@pytest.mark.parametrize("b,n,dh,bb,scale", K2_CASES,
+                         ids=[f"B{c[0]}-N{c[1]}-Dh{c[2]}-Bb{c[3] or 'none'}" for c in K2_CASES])
+def test_k2_short_rows_plan_matches_jax_kernels_and_plain(b, n, dh, bb, scale):
+    """The bf16 plan on K2's rows against the JAX kernels (``kernel4`` with a
+    bias, ``_attn_kernel`` without) in interpret mode on the same bf16
+    inputs, and against the port's plain version."""
+    q, k, v, bias = _k2_inputs(b, n, dh, bb, seed=b * n + dh)
+    scale = dh**-0.5 if scale is None else scale
+    with mock.patch.object(pl, "pallas_call", _interpret(pl.pallas_call)):
+        ref = A._attention_pallas(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+                                  None if bias is None else jnp.asarray(bias.numpy()), scale)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    plan = k2_plan(q, k, v, bias, scale).float()
+    lead = (b,) if bias is None else (b // bb, bb)
+    plain = T.attention(*(t.reshape(*lead, n, dh) for t in (q, k, v)), bias, scale).reshape(b, n, dh).float()
+    assert plan.shape == (b, n, dh) and bool(torch.isfinite(plan).all())
+    assert float((plan - ref).abs().max()) < BF16_BOUND[False]
+    assert float((plan - plain).abs().max()) < BF16_BOUND[False]
+
+
+@pytest.mark.parametrize("bb", [192, None], ids=["Bb192", "no-bias"])
+def test_k2_short_rows_plan_at_swin_t_stage_1(bb):
+    """swin_t stage 1's call through the public op, cut to two images (768
+    rows of 49 x 32, 192 slabs), with the -100 shift mask in half the
+    slabs: the plan against the plain version."""
+    q, k, v, bias = _k2_inputs(768, 49, 32, bb, seed=7)
+    if bias is not None:
+        bias[96:, :24, 24:] -= 100.0
+    plan = k2_plan(q, k, v, bias, 32**-0.5).float()
+    plain = T._attention_flat_reference(q, k, v, bias, 32**-0.5).float()
+    assert float((plan - plain).abs().max()) < BF16_BOUND[False]
+
+
+@pytest.mark.parametrize("b,n,dh,bb,scale", [(6, 49, 32, 3, 0.17), (4, 64, 16, 1, None), (3, 17, 32, None, 0.5),
+                                             (4, 1, 16, 4, None)],
+                         ids=["B6-N49-Dh32-Bb3", "B4-N64-Dh16-Bb1", "B3-N17-Dh32-none", "B4-N1-Dh16-Bb4"])
+def test_k2_short_rows_f32_plan_matches_f64(b, n, dh, bb, scale):
+    """The f32 stage's split TF32 on K2's rows within 1e-4 of f64."""
+    q, k, v, bias = _k2_inputs(b, n, dh, bb, seed=3 * n + dh, dtype=torch.float32)
+    scale = dh**-0.5 if scale is None else scale
+    out = k2_plan(q, k, v, bias, scale, plan=f32_plan)
+    ref = T._attention_flat_reference(q.double(), k.double(), v.double(),
+                                      None if bias is None else bias.double(), scale)
+    assert float((out.double() - ref).abs().max()) < F32_BOUND
+
+
+def walk(tiles, grid, windows, heads, group, slab_walk):
+    """The stage's walk (win_tile_at in csrc/window_attention.cu): block j's
+    tiles as (window, head). The slab walk (K2's rows): a contiguous run of
+    the slab-major order; else (K3/K4) tiles j, j + grid, ... of the
+    (window, head) order."""
+    per, extra = divmod(tiles, grid)
+    reps = windows // group
+    runs = []
+    for j in range(grid):
+        first, step = (j * per + min(j, extra), 1) if slab_walk else (j, grid)
+        run = []
+        for it in range(per + (j < extra)):
+            i = first + it * step
+            s = i // reps if slab_walk else i
+            w = (i - s * reps) * group + s // heads if slab_walk else s // heads
+            run.append((w, s % heads))
+        runs.append(run)
+    return runs
+
+
+# (what, windows, H, nW, nWb, grid, slab walk): K2 at swin_t stage 1 (192
+# slabs, the bf16 grid of 528 blocks), with a bias a row and without one;
+# K3 at swin_t stage 3 shifted (a bias a window; the grid a multiple of the
+# 48 slabs) and stage 1 (192 slabs, which 528 blocks do not divide).
+WALKS = [("K2 swin_t s1", 24576, 1, 192, 192, 528, True), ("K2 Bb = B", 48, 1, 48, 48, 10, True),
+         ("K2 no bias", 1000, 1, 1, 1, 132, True), ("K3 swin_t s3", 512, 12, 4, 4, 528, False),
+         ("K3 swin_t s1", 8192, 3, 64, 64, 528, False)]
+
+
+@pytest.mark.parametrize("what,windows,heads,nw,nwb,grid,slab_walk", WALKS, ids=[w[0] for w in WALKS])
+def test_walk_covers_every_tile_and_crosses_few_slabs(what, windows, heads, nw, nwb, grid, slab_walk):
+    """Every (window, head) once, runs equal to within one tile. The slab
+    walk changes slab at most as often as a run's length over a slab's
+    tiles, plus one; the strided walk keeps one slab a block where the grid
+    is a multiple of the slabs, and changes it almost every tile where not."""
+    group = nwb if nw % nwb == 0 else nw
+    runs = walk(windows * heads, grid, windows, heads, group, slab_walk)
+    assert sorted(t for run in runs for t in run) == [(w, h) for w in range(windows) for h in range(heads)]
+    assert max(map(len, runs)) - min(map(len, runs)) <= 1
+    changes = [sum(a != b for a, b in zip(sl, sl[1:])) for sl in ([((w % nw) % nwb, h) for w, h in run]
+                                                                  for run in runs)]
+    if slab_walk:
+        assert all(c <= len(run) // (windows // group) + 1 for c, run in zip(changes, runs))
+    elif grid % (nwb * heads) == 0:
+        assert max(changes) == 0
+    else:
+        assert sum(changes) > 0.9 * sum(len(run) - 1 for run in runs)
