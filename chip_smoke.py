@@ -50,18 +50,31 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    Swin v1 attention half at swin_t stages 3 and 4 and swin_b stage 2
    (b128), a ragged map whose windows hold padding tokens and a head 300
    log-units down, beside the unfused composition (with SDPA) it replaces.
-   Then ``Linear`` and ``Conv2d`` (plain, strided, depthwise) with f32 and
-   with bf16 parameters on a bf16 input against the same function in f64:
-   the bias is added to the f32 accumulator and rounded once.
+   Then ``Linear`` and ``Conv2d`` (plain, strided, depthwise, and ResNet's
+   7x7 stride-2 stem, a 1x1 and ResNeXt's grouped 3x3, each with the bias
+   of a folded BatchNorm) with f32 and with bf16 parameters on a bf16 input
+   against the same function in f64: the bias is added to the f32
+   accumulator and rounded once. Then ``nn.BatchNorm`` at inference at
+   resnet50 b128 stage shapes, bf16 and f32, against the JAX layer's
+   formula spelled out in f32 (f64 for f32), with its time beside it.
 4. Serves ``vit_base``, ``swin_t`` (224 px), ``swin_v2_t`` (256 px) and
    ``convnext_tiny``, random weights from a seed: f32 logits of a batch of
    2 against the same weights on the CPU's plain path and the f32 forward's
    time at the largest batch, then bf16 requests
    of several batch sizes with every kernel's launch count set to 0 before
-   each path and read after it, then images/s at the largest batch. Then
+   each path and read after it, then each request's ms and images/s. Then
    runs a vit_base forward in training mode with drop path and dropout
    active, which takes the fused-qkv attention in every block, and calls
    the public attention as a user would, counts reset the same way.
+5. Serves the conv trunks, which run no kernel of the port (cuDNN
+   convolutions, ``F.batch_norm``, torch's pools): ``resnet50`` at b1, b8
+   and b128, ``alexnet`` at b1 and b8 and ``vgg16_bn`` at b8, every launch
+   count 0. A BatchNorm built fresh normalises nothing, so the models with
+   BatchNorms first take their running statistics from one training-mode
+   forward on a seeded batch, and the f32 card-vs-CPU check sees every
+   BatchNorm. Then resnet50 with its BatchNorms folded into its
+   convolutions (``ops.fold_batchnorm``): folded against unfolded f32
+   logits, and both bf16 forwards at b128 timed in turns.
 
 Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
@@ -123,6 +136,13 @@ SWIN_BATCH = 128
 VIT_REQUESTS = (1, 8, 256)
 SWIN_REQUESTS = (1, 8, 128)
 CONVNEXT_REQUESTS = (1, 8, 128)
+RESNET_REQUESTS = (1, 8, 128)
+ALEXNET_REQUESTS = (1, 8)
+VGG_REQUESTS = (8,)
+CALIBRATION_BATCH = 16
+# resnet50 b128 BatchNorm inputs: stage 1's 3x3 output, stage 1's and stage 4's block outputs
+BN_CASES = {"resnet50 b128 layer1 bn2": (128, 56, 56, 64), "resnet50 b128 layer1 bn3": (128, 56, 56, 256),
+            "resnet50 b128 layer4 bn3": (128, 7, 7, 2048)}
 # LayerNorm (rows, D): vit_base b256 (197 tokens), convnext_tiny b128 stage 1
 # (56 x 56) and stage 3 (14 x 14), and the 128-row classifier norm.
 LN_CASES = {"vit_base b256": (50432, 768), "convnext_tiny b128 stage 1": (401408, 96),
@@ -1115,15 +1135,34 @@ def check_gemm(M, AH, W, WH, log):
             del x, params, operands, call
 
 
+def _folded_conv(cin, cout, k, stride, padding, groups, gen):
+    """A bias-free Conv2d and a BatchNorm with running statistics and affine
+    away from (0, 1), folded by ``ops.fold_batchnorm`` into one conv whose
+    bias, beta - mean g, is large beside its products (means about 8)."""
+    from eqxvision_tpu_torch.nn import BatchNorm, Conv2d
+    from eqxvision_tpu_torch.ops import fold_batchnorm
+
+    conv = Conv2d(cin, cout, k, stride, padding, groups=groups, use_bias=False, generator=gen, device="cuda")
+    bn = BatchNorm(cout, device="cuda")
+    with torch.no_grad():
+        bn.running_mean.copy_(8.0 * torch.randn(cout, generator=gen))
+        bn.running_var.copy_(torch.rand(cout, generator=gen) * 1.5 + 0.5)
+        bn.weight.copy_(1.0 + 0.3 * torch.randn(cout, generator=gen))
+        bn.bias.copy_(0.2 * torch.randn(cout, generator=gen))
+    return fold_batchnorm(torch.nn.Sequential(conv, bn).eval())[0]
+
+
 def check_bias_layers():
     """Linear and Conv2d (plain, strided, depthwise) on a bf16 input, with
-    f32 parameters and with bf16 ones, at Swin's and ConvNeXt's shapes,
-    against the same function in f64 on the same operands: each output is
-    the f32 accumulator plus the bias, rounded once, so within half a bf16
-    step of the f64 value. Prints the share of outputs that differ from the
-    f64 value rounded once to bf16. A bf16 Conv2d with a bf16 bias is one
-    cuDNN call that rounds twice, a standing choice (ROADMAP C.9): its
-    steps and share are printed, not bounded."""
+    f32 parameters and with bf16 ones, at Swin's and ConvNeXt's shapes, and
+    ResNet's convolutions with a folded BatchNorm's bias (the 7x7 stride-2
+    stem, a 1x1, ResNeXt's grouped 3x3), against the same function in f64
+    on the same operands: each output is the f32 accumulator plus the bias,
+    rounded once, so within half a bf16 step of the f64 value. Prints the
+    share of outputs that differ from the f64 value rounded once to bf16. A
+    bf16 Conv2d with a bf16 bias is one cuDNN call that rounds twice, a
+    standing choice (ROADMAP C.9): its steps and share are printed, not
+    bounded."""
     from eqxvision_tpu_torch.nn import Conv2d, Linear
 
     gen = torch.Generator().manual_seed(10)
@@ -1134,9 +1173,16 @@ def check_bias_layers():
         "Conv2d 7x7 depthwise (convnext_tiny stage 1)": (
             Conv2d(96, 96, 7, 1, 3, groups=96, generator=gen, device="cuda"), (8, 56, 56, 96)),
     }
-    for name, (layer, shape) in layers.items():
-        with torch.no_grad():
+    with torch.no_grad():
+        for layer, _ in layers.values():
             layer.bias.mul_(64.0)  # biases large beside the products, where rounding them first shows most
+    layers.update({
+        "Conv2d 7x7 stride 2 + folded BN (resnet50 stem)": (_folded_conv(3, 64, 7, 2, 3, 1, gen), (8, 224, 224, 3)),
+        "Conv2d 1x1 + folded BN (resnet50 layer1 conv3)": (_folded_conv(64, 256, 1, 1, 0, 1, gen), (8, 56, 56, 64)),
+        "Conv2d 3x3 groups 32 + folded BN (resnext50 layer1 conv2)": (
+            _folded_conv(128, 128, 3, 1, 1, 32, gen), (8, 56, 56, 128)),
+    })
+    for name, (layer, shape) in layers.items():
         for params in (torch.float32, torch.bfloat16):
             layer = layer.to(params)
             with torch.no_grad():
@@ -1164,6 +1210,60 @@ def check_bias_layers():
             if not twice:
                 _check(steps <= BIAS_LAYER_STEPS,
                        f"{what}: {steps} bf16 steps from the f64 value (bound {BIAS_LAYER_STEPS})")
+
+
+def check_batchnorm():
+    """``nn.BatchNorm`` at inference (one ``F.batch_norm`` call) on the
+    resnet50 b128 shapes, against the JAX layer's formula spelled out:
+    scale = rsqrt(var + eps) w and shift = b - mean scale in f32, x scale +
+    shift in f32, rounded once (in f64 for an f32 input). bf16 outputs at
+    most one bf16 step (at 1 below magnitude 1) from it, the share that
+    differs printed; f32 within 1e-5 of f64. Both timed in turns: the
+    formula makes three passes over the map, the call one."""
+    from eqxvision_tpu_torch.nn import BatchNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for name, shape in BN_CASES.items():
+        c = shape[-1]
+        bn = BatchNorm(c, device="cuda").eval()
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.randn(c, device="cuda", generator=gen))
+            bn.running_var.copy_(torch.rand(c, device="cuda", generator=gen) + 0.5)
+            bn.weight.copy_(1.0 + 0.3 * torch.randn(c, device="cuda", generator=gen))
+            bn.bias.copy_(0.2 * torch.randn(c, device="cuda", generator=gen))
+        x32 = torch.randn(*shape, device="cuda", generator=gen) * 2.0 + 1.0
+        for dtype in (torch.bfloat16, torch.float32):
+            layer, x = bn.to(dtype), x32.to(dtype)
+
+            def formula(wide=torch.float32):
+                scale = torch.rsqrt(layer.running_var.to(wide) + layer.eps) * layer.weight.to(wide)
+                shift = layer.bias.to(wide) - layer.running_mean.to(wide) * scale
+                return (x.to(wide) * scale + shift).to(dtype)
+
+            with torch.inference_mode():
+                out, ref = layer(x), formula()
+                ms, plain_ms, turns = _turns(formula, lambda: layer(x), 10)
+                if dtype == torch.float32:
+                    ref = formula(torch.float64)
+            torch.cuda.synchronize()
+            _check(out.shape == ref.shape and out.dtype == dtype and out.is_contiguous(), f"BatchNorm {name} malformed")
+            if dtype == torch.bfloat16:
+                # one bf16 step at each output's magnitude, taken at 1 below it: both sides compute
+                # x * scale + shift-sized terms in f32, whose rounding errs in absolute terms
+                refd = ref.double()
+                step = torch.exp2(torch.floor(torch.log2(refd.abs().clamp_min(1.0))) - 7)
+                steps = ((out.double() - refd).abs() / step).max().item()
+                share = (out != ref).double().mean().item()
+                _check(steps <= 1.0, f"BatchNorm {name} bf16: {steps} bf16 steps from the JAX formula")
+                err = f"at most {steps:.4f} bf16 steps from the JAX formula, {share:.4%} of outputs differ"
+            else:
+                diff = (out.double() - ref.double()).abs().max().item()
+                _check(diff < 1e-5, f"BatchNorm {name} f32: {diff} from the formula in f64")
+                err = f"max|diff| {diff:.3e} from the formula in f64 (bound 1e-5)"
+            bound_ms = _bound_ms(2 * x.numel() * x.element_size(), 0, dtype)[0]
+            print(f"BatchNorm {name} {tuple(shape)} {str(dtype)[6:]}: {err}; F.batch_norm {ms:.4f} ms, the formula "
+                  f"in f32 (three passes) {plain_ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)}); bound "
+                  f"{bound_ms:.4f} ms (bytes)")
 
 
 def _attn_inputs(lead, n, dh, bias_lead, dtype, gen):
@@ -1338,11 +1438,33 @@ def _reset(counters):
         fn.launches = 0
 
 
-def serve(create_model, name, size, requests, counters, expected, **model_kwargs):
+def calibrate_batchnorm(model, size):
+    """Running statistics from one training-mode f32 forward on a seeded
+    batch (momentum 1 for that forward): a BatchNorm built fresh has mean 0
+    and variance 1 and normalises nothing, and through resnet50's 16 blocks
+    the logits would grow until an absolute bound means little."""
+    from eqxvision_tpu_torch.nn import BatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    x = torch.randn(CALIBRATION_BATCH, size, size, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
+    for m in norms:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(x)
+    for m in norms:
+        m.momentum = 0.1
+    return model.eval()
+
+
+def serve(create_model, name, size, requests, counters, expected, prepare=None, **model_kwargs):
     """``name`` as a server. ``counters`` are every kernel wrapper; the path
     must raise their ``launches`` by ``expected`` per forward (0 for the
-    kernels it does not run); returns the counts of the request run."""
+    kernels it does not run); returns the counts of the request run.
+    ``prepare(model, size)`` runs on the f32 card model before anything
+    else (``calibrate_batchnorm``)."""
     model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda", **model_kwargs).eval()
+    if prepare is not None:
+        model = prepare(model, size)
     x2 = torch.randn(2, size, size, 3, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         card = model(x2.cuda()).cpu()
@@ -1379,10 +1501,46 @@ def serve(create_model, name, size, requests, counters, expected, **model_kwargs
     _check(all(counts[fn.__name__] for fn, n in zip(counters, expected) if n),
            f"{name}: a kernel of the path was never launched: {counts}")
 
-    b = requests[-1]
+    for b in requests:
+        with torch.inference_mode():
+            ms = _time_ms(lambda: model(batches[b]), 10)
+        print(f"{name} b{b} bf16: {ms:.3f} ms per forward, {b / ms * 1000:.1f} images/s")
+    return counts
+
+
+def serve_folded(create_model, counters, batch=RESNET_REQUESTS[-1]):
+    """resnet50 with its BatchNorms folded into its convolutions
+    (``ops.fold_batchnorm`` on the calibrated f32 model, then cast): f32
+    logits against the unfolded model's, then the unfolded and the folded
+    bf16 forwards at ``batch`` timed in turns, no kernel of the port
+    launched by the folded one."""
+    from eqxvision_tpu_torch.ops import fold_batchnorm
+
+    model = calibrate_batchnorm(create_model("resnet50", generator=torch.Generator().manual_seed(0), device="cuda"), 224)
+    folded = fold_batchnorm(model)
+    x2 = torch.randn(2, 224, 224, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
     with torch.inference_mode():
-        ms = _time_ms(lambda: model(batches[b]), 10)
-    print(f"{name} b{b} bf16: {ms:.3f} ms per forward, {b / ms * 1000:.1f} images/s")
+        ref, out = model(x2), folded(x2)
+    err = (out - ref).abs().max().item()
+    print(f"resnet50 folded f32 b2 logits against unfolded: max|diff| {err:.3e} (bound {LOGIT_BOUND}), "
+          f"max|logit| {ref.abs().max().item():.3f}")
+    _check(out.shape == (2, 1000) and bool(torch.isfinite(out).all()), "resnet50 folded logits malformed")
+    _check(err < LOGIT_BOUND, f"resnet50: folded and unfolded logits differ by {err}")
+    model, folded = model.to(torch.bfloat16), folded.to(torch.bfloat16)
+    x = torch.randn(batch, 224, 224, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(2))
+    x = x.to(torch.bfloat16)
+    _reset(counters)
+    with torch.inference_mode():
+        logits = folded(x)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counters}
+        _check(logits.shape == (batch, 1000) and bool(torch.isfinite(logits).all()), "resnet50 folded bf16 malformed")
+        _check(not any(counts.values()), f"resnet50 folded: launches {counts}")
+        t = [_time_ms(lambda: m(x), 10) for m in (model, folded, folded, model)]
+    unfolded_ms, folded_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    print(f"resnet50 b{batch} bf16, turns unfolded/folded/folded/unfolded {', '.join(f'{v:.3f}' for v in t)} ms: "
+          f"unfolded {unfolded_ms:.3f} ms, {batch / unfolded_ms * 1000:.1f} images/s; folded {folded_ms:.3f} ms, "
+          f"{batch / folded_ms * 1000:.1f} images/s; launches {counts}")
     return counts
 
 
@@ -1466,6 +1624,7 @@ def main():
     attn_half_main = check_attention_half(AH)
     window_half_main = check_window_attention_half(W, WH)
     check_bias_layers()
+    check_batchnorm()
 
     # per forward: fused-qkv, window attention, whole block, LayerNorm, public attention, MLP half, attention half,
     # Swin attention half
@@ -1482,6 +1641,12 @@ def main():
     # norm1 and norm2 of every block and the final norm on K6
     train_counts = train_vit(create_model, counters, (12, 0, 0, 25, 0, 0, 0, 0))
     attn_counts = serve_attention(attention, counters)
+    # the conv trunks run no kernel of the port
+    zeros = (0,) * len(counters)
+    serve(create_model, "resnet50", 224, RESNET_REQUESTS, counters, zeros, prepare=calibrate_batchnorm)
+    serve_folded(create_model, counters)
+    serve(create_model, "alexnet", 224, ALEXNET_REQUESTS, counters, zeros)
+    serve(create_model, "vgg16_bn", 224, VGG_REQUESTS, counters, zeros, prepare=calibrate_batchnorm)
 
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)

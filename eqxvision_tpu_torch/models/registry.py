@@ -7,37 +7,42 @@ from typing import Any, Callable, Dict, List
 
 from torch import nn
 
-from .classification import (
-    convnext_base,
-    convnext_large,
-    convnext_small,
-    convnext_tiny,
-    swin_b,
-    swin_s,
-    swin_t,
-    swin_v2_b,
-    swin_v2_s,
-    swin_v2_t,
-    vit_base,
-    vit_small,
-    vit_tiny,
-)
+from . import classification as C
 
-_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
-    "convnext_base": convnext_base,
-    "convnext_large": convnext_large,
-    "convnext_small": convnext_small,
-    "convnext_tiny": convnext_tiny,
-    "swin_b": swin_b,
-    "swin_s": swin_s,
-    "swin_t": swin_t,
-    "swin_v2_b": swin_v2_b,
-    "swin_v2_s": swin_v2_s,
-    "swin_v2_t": swin_v2_t,
-    "vit_base": vit_base,
-    "vit_small": vit_small,
-    "vit_tiny": vit_tiny,
-}
+_NAMES = (
+    "alexnet",
+    "convnext_base",
+    "convnext_large",
+    "convnext_small",
+    "convnext_tiny",
+    "resnet18",
+    "resnet34",
+    "resnet50",
+    "resnet101",
+    "resnet152",
+    "resnext50_32x4d",
+    "resnext101_32x8d",
+    "swin_b",
+    "swin_s",
+    "swin_t",
+    "swin_v2_b",
+    "swin_v2_s",
+    "swin_v2_t",
+    "vgg11",
+    "vgg11_bn",
+    "vgg13",
+    "vgg13_bn",
+    "vgg16",
+    "vgg16_bn",
+    "vgg19",
+    "vgg19_bn",
+    "vit_base",
+    "vit_small",
+    "vit_tiny",
+    "wide_resnet50_2",
+    "wide_resnet101_2",
+)
+_REGISTRY: Dict[str, Callable[..., nn.Module]] = {name: getattr(C, name) for name in _NAMES}
 
 
 def list_models() -> List[str]:

@@ -2,7 +2,25 @@
 from .activations import Identity, Lambda, gelu
 from .conv import Conv2d
 from .dropout import Dropout
+from .flatten import FlattenCHW, flatten_chw
 from .linear import Linear
-from .norm import LayerNorm
+from .norm import BatchNorm, LayerNorm
+from .pool import AdaptiveAvgPool2d, AdaptiveMaxPool2d, AvgPool2d, MaxPool2d, adaptive_avg_pool2d
 
-__all__ = ["Conv2d", "Dropout", "Identity", "Lambda", "LayerNorm", "Linear", "gelu"]
+__all__ = [
+    "AdaptiveAvgPool2d",
+    "AdaptiveMaxPool2d",
+    "AvgPool2d",
+    "BatchNorm",
+    "Conv2d",
+    "Dropout",
+    "FlattenCHW",
+    "Identity",
+    "Lambda",
+    "LayerNorm",
+    "Linear",
+    "MaxPool2d",
+    "adaptive_avg_pool2d",
+    "flatten_chw",
+    "gelu",
+]

@@ -1,15 +1,20 @@
-"""Last-axis LayerNorm (eqxvision_tpu/nn/norm.py).
+"""Last-axis LayerNorm and channels-last BatchNorm (eqxvision_tpu/nn/norm.py).
 
-The forward is ``ops.layer_norm``, as the JAX layer's is: the mean and the
-centred variance in f32, the affine parameters read in their stored type
-and applied in f32, and one rounding to the input's type at the end. On a
-CUDA tensor that is the hand-written kernel (``csrc/layer_norm.cu``).
+LayerNorm's forward is ``ops.layer_norm``, as the JAX layer's is: the mean
+and the centred variance in f32, the affine parameters read in their stored
+type and applied in f32, and one rounding to the input's type at the end.
+On a CUDA tensor that is the hand-written kernel (``csrc/layer_norm.cu``).
+
+BatchNorm normalises over every axis but the last. Its running statistics
+are buffers with torchvision's names and stay f32 whatever the module is
+cast to, as the JAX package's ``State`` stays f32 when the model is cast.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.layernorm import layer_norm
@@ -31,3 +36,86 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+_STATS = ("running_mean", "running_var")
+
+
+class BatchNorm(nn.Module):
+    """torch.nn.BatchNorm2d/1d semantics on channels-last input (..., C).
+
+    Inference (``eval()``): ``scale = rsqrt(var + eps) * weight`` and ``shift
+    = bias - mean * scale`` in f32, ``y = x * scale + shift`` in f32, rounded
+    once to x's type: one ``F.batch_norm`` call, whose f32 arithmetic runs
+    in one pass over x. Training (``train()``): the JAX layer's one-pass
+    statistics, sums taken about the batch's first element in f32, normalise
+    with the biased batch variance, and the running statistics move by
+    ``momentum`` towards the mean and the unbiased variance. ``momentum``
+    is a float, as in the JAX layer, which has no cumulative mode;
+    ``num_batches_tracked`` counts the training forwards, as torch's does.
+    """
+
+    def __init__(
+        self, num_features: int, eps: float = 1e-5, momentum: float = 0.1, affine: bool = True, *,
+        device: Optional[torch.device] = None,
+    ):
+        super().__init__()
+        self.num_features = int(num_features)
+        self.eps = float(eps)
+        self.momentum = float(momentum)
+        if affine:
+            self.weight = nn.Parameter(torch.ones(self.num_features, device=device))
+            self.bias = nn.Parameter(torch.zeros(self.num_features, device=device))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+        self.register_buffer("running_mean", torch.zeros(self.num_features, device=device))
+        self.register_buffer("running_var", torch.ones(self.num_features, device=device))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long, device=device))
+
+    def _apply(self, fn, recurse=True):
+        """Move the statistics with the module but keep them f32: a cast
+        (``.to(torch.bfloat16)``, ``.half()``) reaches the affine only."""
+        stats = {name: self._buffers[name] for name in _STATS}
+        super()._apply(fn, recurse)
+        for name, old in stats.items():
+            new = self._buffers[name]
+            if new.dtype != torch.float32:
+                self._buffers[name] = old.to(new.device)
+        return self
+
+    def _affine(self):
+        w = None if self.weight is None else self.weight.float()
+        b = None if self.bias is None else self.bias.float()
+        return w, b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            w, b = self._affine()
+            y = F.batch_norm(x.movedim(-1, 1), self.running_mean, self.running_var, w, b, False, 0.0, self.eps)
+            return y.movedim(1, -1)
+        return self._train_forward(x)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(x.ndim - 1))
+        n = x[..., 0].numel()
+        xf = x.float()
+        pivot = xf[(0,) * (x.ndim - 1)].detach()
+        xs = xf - pivot
+        mean_s = xs.sum(axes) / n
+        var = torch.clamp_min((xs * xs).sum(axes) / n - mean_s * mean_s, 0.0)
+        mean = mean_s + pivot
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * (n / max(n - 1, 1))
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps)
+        w, b = self._affine()
+        if w is not None:
+            scale = scale * w
+        shift = -mean * scale
+        if b is not None:
+            shift = shift + b
+        return (xf * scale + shift).to(x.dtype)

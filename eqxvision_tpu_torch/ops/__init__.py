@@ -1,4 +1,5 @@
-"""Ops with a hand-written CUDA kernel and their plain torch versions."""
+"""Ops with a hand-written CUDA kernel and their plain torch versions, and
+the plain ops around them (the BatchNorm fold, window partitioning)."""
 from .attention import (
     attention,
     attention_reference,
@@ -9,6 +10,7 @@ from .attention import (
     window_qkv_attention_reference,
 )
 from .attention_half import attention_half_reference, fused_attention_half
+from .fold_bn import fold_batchnorm
 from .layernorm import layer_norm, layer_norm_reference
 from .mlp_half import fused_mlp_half, mlp_half_reference
 from .window_attention import (
@@ -18,6 +20,8 @@ from .window_attention import (
     fused_swin_block_v1,
     fused_swin_block_v2,
     shifted_window_attention,
+    window_partition,
+    window_unpartition,
 )
 from .window_attention_half import fused_window_attention_half, window_attention_half_reference
 
@@ -26,6 +30,7 @@ __all__ = [
     "attention_half_reference",
     "attention_reference",
     "attention_stage_reference",
+    "fold_batchnorm",
     "fused_attention_half",
     "fused_mlp_half",
     "fused_qkv_attention",
@@ -42,5 +47,7 @@ __all__ = [
     "shifted_window_attention",
     "window_qkv_attention",
     "window_attention_half_reference",
+    "window_partition",
     "window_qkv_attention_reference",
+    "window_unpartition",
 ]

@@ -21,13 +21,18 @@ Where the JAX model's tree differs from torchvision's:
 
 A rename applies only where the plain name is not the model's and the
 renamed one is. Buffers that the JAX model does not hold
-(``relative_position_index``, ``relative_coords_table``) keep the values
-the port computed; the load stays strict over parameters.
+(``relative_position_index``, ``relative_coords_table``,
+``num_batches_tracked``) keep the values the port computed; the load stays
+strict over parameters. A BatchNorm's running statistics live in the JAX
+model's ``State``: ``eqxvision_tpu.weights.serialize.state_to_paths`` keys
+them by the layer's path (``.layer1.layers[0].downsample.layers[1]``), and
+``load_jax_params(..., state=)`` maps that path by the same rules onto the
+port's ``BatchNorm`` (``layer1.0.downsample.1``).
 """
 from __future__ import annotations
 
 import re
-from typing import Collection, Dict, Mapping
+from typing import Collection, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +40,7 @@ from torch import nn
 
 from ..nn.conv import Conv2d
 from ..nn.linear import Linear
+from ..nn.norm import BatchNorm
 
 _RENAMES = (
     (re.compile(r"^features\.0\.1\."), "features.0.2."),
@@ -81,13 +87,38 @@ def state_dict_from_jax(model: nn.Module, params: Mapping[str, np.ndarray]) -> D
     return out
 
 
-def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> nn.Module:
-    """Load JAX parameters into ``model`` with ``strict=True``, keeping the
-    model's own buffers where the JAX model has none; returns it."""
-    state = state_dict_from_jax(model, params)
+def _running_stats_from_jax(
+    model: nn.Module, state: Mapping[str, Tuple[np.ndarray, np.ndarray]]
+) -> Dict[str, torch.Tensor]:
+    """``{path: (mean, var)}`` -> the ``running_mean``/``running_var``
+    entries of the port's BatchNorms; raises on a path that names none."""
+    modules = dict(model.named_modules())
+    names = set(model.state_dict())
+    out = {}
+    for path, (mean, var) in state.items():
+        name = _torch_name(path + ".running_mean", names).rpartition(".")[0]
+        if not isinstance(modules.get(name), BatchNorm):
+            raise KeyError(f"state path {path!r} names no BatchNorm of the model (mapped to {name!r})")
+        for leaf, value in (("running_mean", mean), ("running_var", var)):
+            out[f"{name}.{leaf}"] = torch.tensor(np.asarray(value, np.float32))
+    return out
+
+
+def load_jax_params(
+    model: nn.Module,
+    params: Mapping[str, np.ndarray],
+    state: Optional[Mapping[str, Tuple[np.ndarray, np.ndarray]]] = None,
+) -> nn.Module:
+    """Load JAX parameters into ``model`` with ``strict=True``, and the
+    running statistics of ``state`` (``{path: (mean, var)}``, as
+    ``state_to_paths`` gives them) where given, keeping the model's own
+    buffers where the JAX model has none; returns it."""
+    loaded = state_dict_from_jax(model, params)
+    if state is not None:
+        loaded.update(_running_stats_from_jax(model, state))
     param_names = {n for n, _ in model.named_parameters()}
     for name, value in model.state_dict().items():
         if name not in param_names:
-            state.setdefault(name, value)
-    model.load_state_dict(state, strict=True)
+            loaded.setdefault(name, value)
+    model.load_state_dict(loaded, strict=True)
     return model

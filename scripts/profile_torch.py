@@ -3,9 +3,9 @@
 Run from the root of the repository on a machine with a CUDA card:
 
     python3 scripts/profile_torch.py [--model convnext_tiny --model vit_base ...] [--forwards 3] [--dtype float32]
-        [--widen-bf16-conv] [--no-cudnn-tf32]
+        [--widen-bf16-conv] [--no-cudnn-tf32] [--fold-bn]
 
-For each ``--model`` (default: convnext_tiny, vit_base, swin_t, swin_v2_t),
+For each ``--model`` (default: convnext_tiny, vit_base, swin_t, swin_v2_t, resnet50),
 in one process, at the size and batch ``chip_smoke.py`` serves it (224 px,
 256 for Swin v2; b256 for vit_base, b128 for the others; ``--batch``
 overrides): builds the model with random weights from seed 0 in ``--dtype``
@@ -22,7 +22,9 @@ operands widened to f32, the f32 convolution plus the bias rounded once)
 where a bf16 bias takes one cuDNN call that rounds twice; the profile names
 the cuDNN kernels each path runs. ``--no-cudnn-tf32`` sets
 ``torch.backends.cudnn.allow_tf32 = False`` first, as ``chip_smoke.py``
-does. Imports nothing of JAX.
+does. ``--fold-bn`` profiles each model with its BatchNorms folded into its
+convolutions (``ops.fold_batchnorm`` on the f32 model, then cast), beside
+the unfolded model in the same process. Imports nothing of JAX.
 """
 import argparse
 import subprocess
@@ -34,7 +36,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-DEFAULT_MODELS = ("convnext_tiny", "vit_base", "swin_t", "swin_v2_t")
+DEFAULT_MODELS = ("convnext_tiny", "vit_base", "swin_t", "swin_v2_t", "resnet50")
 
 
 def _forward_ms(model, x, iters=10):
@@ -58,12 +60,15 @@ def widen_conv_biases(model):
             m.bias.data = m.bias.data.float()
 
 
-def profile_model(create_model, name, batch, forwards, top, dtype, widen=False):
+def profile_model(create_model, name, batch, forwards, top, dtype, widen=False, fold=False):
     from torch.profiler import ProfilerActivity, profile
+
+    from eqxvision_tpu_torch.ops import fold_batchnorm
 
     size = 256 if name.startswith("swin_v2") else 224
     batch = batch or (256 if name.startswith("vit") else 128)
-    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda").eval().to(dtype)
+    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda").eval()
+    model = (fold_batchnorm(model) if fold else model).to(dtype)
     x = torch.randn(batch, size, size, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
     x = x.to(dtype)
     if widen:
@@ -82,7 +87,7 @@ def profile_model(create_model, name, batch, forwards, top, dtype, widen=False):
         if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
     ]
     device_ms = sum(r[1] for r in rows) * forwards
-    label = " (bf16 convs widened)" if widen else ""
+    label = (" (bf16 convs widened)" if widen else "") + (" (BatchNorm folded)" if fold else "")
     print(f"\n{name} {size}px b{batch} {str(dtype)[6:]}{label}: {ms:.3f} ms per forward, {batch / ms * 1e3:.1f} images/s (CUDA events, "
           f"10 forwards)")
     print(f"profile, {forwards} forwards: wall {wall_ms:.2f} ms, device kernel time {device_ms:.2f} ms, "
@@ -103,6 +108,7 @@ def main():
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--widen-bf16-conv", action="store_true", help="Conv2d biases in f32: one rounding (ROADMAP C.9)")
     ap.add_argument("--no-cudnn-tf32", action="store_true", help="cuDNN's TF32 off, as chip_smoke.py sets it")
+    ap.add_argument("--fold-bn", action="store_true", help="also each model with its BatchNorms folded")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
@@ -119,8 +125,9 @@ def main():
     print(f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")
     for name in args.model or DEFAULT_MODELS:
-        profile_model(create_model, name, args.batch, args.forwards, args.top, getattr(torch, args.dtype),
-                      args.widen_bf16_conv)
+        for fold in (False, True) if args.fold_bn else (False,):
+            profile_model(create_model, name, args.batch, args.forwards, args.top, getattr(torch, args.dtype),
+                          args.widen_bf16_conv, fold)
     return 0
 
 

@@ -166,3 +166,23 @@ def test_training_with_drop_path_runs_unfused_and_draws(monkeypatch):
     assert len(fused) == 4
     assert not torch.allclose(a, b)
     assert not torch.allclose(a, ref)
+
+
+def test_jax_imports_port_state_dict():
+    """The north star's direction: the port's ``state_dict()`` (its own
+    weights, another seed, layer scale 0.5 so that the blocks count) goes
+    into the JAX model through ``eqxvision_tpu.weights.import_torch_weights``,
+    as a torchvision file would, and the JAX logits equal the port's."""
+    from eqxvision_tpu.weights.torch_import import import_torch_weights
+
+    setting = [CNBlockConfig(128, 256, 1), CNBlockConfig(256, None, 1)]
+    port = ConvNeXt(setting, layer_scale=0.5, num_classes=10, generator=torch.Generator().manual_seed(3),
+                    device="cpu").eval()
+    model, _, _ = _pair()
+    sd = {k: v.detach().numpy() for k, v in port.state_dict().items()}
+    model, state = import_torch_weights(model, sd, init_state(model), strict=True)
+    x = np.random.RandomState(4).randn(BATCH, 32, 32, 3).astype(np.float32)
+    ref, _ = jax.jit(lambda m, t, s: m(t, s))(tree_inference(model, True), jnp.asarray(x), state)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(np.asarray(ref), out, atol=1e-4, rtol=1e-4)

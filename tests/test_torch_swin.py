@@ -129,3 +129,26 @@ def test_state_dict_matches_manifest(name):
     model = create_model(doc["model"], device=torch.device("meta"), **doc.get("kwargs", {}))
     got = [[k, list(v.shape)] for k, v in model.state_dict().items()]
     assert got == doc["entries"]
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_jax_imports_port_state_dict(config):
+    """The north star's direction: the port's ``state_dict()`` (its own
+    weights, another seed) goes into the JAX model through
+    ``eqxvision_tpu.weights.import_torch_weights``, the computed buffers
+    skipped as for a torchvision file, and the JAX logits equal the port's."""
+    from eqxvision_tpu.weights.torch_import import import_torch_weights
+
+    name, size, kwargs, _ = CONFIGS[config]
+    port = create_model(name, generator=torch.Generator().manual_seed(3), device="cpu", **kwargs).eval()
+    model, state = _jax_model(config)
+    sd = {k: v.detach().numpy() for k, v in port.state_dict().items()}
+    model, state = import_torch_weights(
+        model, sd, state, strict=True,
+        skip_patterns=(r"relative_position_index", r"relative_coords_table", r"attn_mask"),
+    )
+    x = np.random.RandomState(4).randn(2, size, size, 3).astype(np.float32)
+    ref, _ = jax.jit(lambda m, t, s: m(t, s))(model, jnp.asarray(x), state)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(np.asarray(ref), out, atol=1e-4, rtol=1e-4)

@@ -102,13 +102,16 @@ def test_same_seed_same_weights_and_registry():
     b = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
     assert list_models() == [
-        "convnext_base", "convnext_large", "convnext_small", "convnext_tiny",
-        "swin_b", "swin_s", "swin_t", "swin_v2_b", "swin_v2_s", "swin_v2_t", "vit_base", "vit_small", "vit_tiny",
+        "alexnet", "convnext_base", "convnext_large", "convnext_small", "convnext_tiny",
+        "resnet101", "resnet152", "resnet18", "resnet34", "resnet50", "resnext101_32x8d", "resnext50_32x4d",
+        "swin_b", "swin_s", "swin_t", "swin_v2_b", "swin_v2_s", "swin_v2_t",
+        "vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "vgg16", "vgg16_bn", "vgg19", "vgg19_bn",
+        "vit_base", "vit_small", "vit_tiny", "wide_resnet101_2", "wide_resnet50_2",
     ]
     with pytest.raises(NotImplementedError):
         create_model("vit_base", pretrained=True)
     with pytest.raises(ValueError):
-        create_model("resnet50")
+        create_model("googlenet")
 
 
 def test_torch_weights_file_round_trip(tmp_path):
@@ -227,3 +230,23 @@ def test_attention_half_fused_at_eval_and_unfused_in_training(monkeypatch, kwarg
     assert len(calls["fused_qkv_attention"]) == 2 * k1_in_training
     assert not torch.allclose(a, b)
     assert not torch.allclose(a, ref)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_jax_imports_port_state_dict(config):
+    """The north star's direction: the port's ``state_dict()`` (its own
+    weights, another seed) goes into the JAX model through
+    ``eqxvision_tpu.weights.import_torch_weights``, as a torchvision file
+    would, and the JAX logits equal the port's."""
+    from eqxvision_tpu.weights.torch_import import import_torch_weights
+
+    name, kwargs = CONFIGS[config]
+    port = create_model(name, generator=torch.Generator().manual_seed(3), device="cpu", **kwargs).eval()
+    model, state = jax_create_model(name, **kwargs)
+    sd = {k: v.detach().numpy() for k, v in port.state_dict().items()}
+    model, _ = import_torch_weights(model, sd, state, strict=True)
+    x = np.random.RandomState(4).randn(2, 32, 32, 3).astype(np.float32) * 0.5
+    ref, _ = jax.jit(tree_inference(model, True).__call__)(jnp.asarray(x))
+    with torch.no_grad():
+        out = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(np.asarray(ref), out, atol=1e-4, rtol=1e-4)
