@@ -75,6 +75,16 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    BatchNorm. Then resnet50 with its BatchNorms folded into its
    convolutions (``ops.fold_batchnorm``): folded against unfolded f32
    logits, and both bf16 forwards at b128 timed in turns.
+6. Serves the mobile families, which run no kernel of the port either
+   (cuDNN depthwise and grouped convolutions, squeeze-excitation, the
+   mobile activations as torch ops): ``mobilenet_v3_large`` and
+   ``efficientnet_b0`` at b1, b8 and b256 (the JAX bench's rows),
+   ``mobilenet_v2`` and ``regnet_y_400mf`` at b8, each calibrated as above
+   (each BatchNorm keeps its own momentum), every launch count 0.
+
+Every device time read from a profiler trace comes from a trace that holds
+the kernels asked for: an empty one is taken again, and fails the run if it
+stays empty.
 
 Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
@@ -139,6 +149,7 @@ CONVNEXT_REQUESTS = (1, 8, 128)
 RESNET_REQUESTS = (1, 8, 128)
 ALEXNET_REQUESTS = (1, 8)
 VGG_REQUESTS = (8,)
+MOBILE_REQUESTS = (1, 8, 256)  # mobilenet_v3_large and efficientnet_b0: b256 is the JAX bench's batch
 CALIBRATION_BATCH = 16
 # resnet50 b128 BatchNorm inputs: stage 1's 3x3 output, stage 1's and stage 4's block outputs
 BN_CASES = {"resnet50 b128 layer1 bn2": (128, 56, 56, 64), "resnet50 b128 layer1 bn3": (128, 56, 56, 256),
@@ -398,18 +409,13 @@ NON_FINITE_BITS = {torch.float32: {"nan-7fffffff": 0x7FFFFFFF, "nan-7fc00000": 0
 
 def _device_ms(fn, names=None, iters=10):
     """Device time of one call of ``fn`` (torch.profiler, mean over ``iters``
-    calls): its kernels whose names hold one of ``names``, or all of them."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.inference_mode():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_time_total and (names is None or any(n in e.key for n in names))) / 1e3 / iters
+    calls): its CUDA kernels whose names hold one of ``names``, or all of
+    them. Fails where the trace holds no such kernel after
+    ``_device_kernels``' retries: an empty trace is no measurement."""
+    kernels = _device_kernels(fn, iters, names)
+    _check(bool(kernels), f"the profiler saw no kernel{'' if names is None else f' named like {names}'} in "
+                          f"{iters + 1} calls, three times")
+    return sum(kernels.values())
 
 
 def _window_f64(qkv, bias, h, scale, gs=None):
@@ -1291,11 +1297,12 @@ ATTN_KERNELS = {0: "the attention stage's CUDA-core kernel", 1: "the bf16 window
 ATTN_PROFILED = {1: "window_stage", 2: "attention_stage_wgmma", 3: "attention_stage_f32", 4: "window_stage"}
 
 
-def _device_kernels(fn, iters=10):
-    """{name: device ms a call} of the CUDA kernels fn launches (torch.profiler,
-    mean over ``iters`` calls after one warm-up). A trace without kernels is
-    the profiler's loss, not the call's (every call launches one): taken
-    again, up to three times."""
+def _device_kernels(fn, iters=10, names=None):
+    """{name: device ms a call} of the CUDA kernels fn launches whose names
+    hold one of ``names`` (all where None; torch.profiler, mean over
+    ``iters`` calls after one warm-up). A trace without them is the
+    profiler's loss, not the call's (every call launches one): taken again,
+    up to three times; {} if it stays empty."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -1307,7 +1314,8 @@ def _device_kernels(fn, iters=10):
                     fn()
                 torch.cuda.synchronize()
         found = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total}
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total
+                 and (names is None or any(n in e.key for n in names))}
         if found:
             return found
     return {}
@@ -1343,6 +1351,7 @@ def check_attention(A, lib):
                 ref = A.attention_reference(q.float(), k.float(), v.float(), bias, scale)
             err = _compare(out, ref, bound, f"attention {name} {dtype}")
             kernels = _device_kernels(lambda: A.attention(q, k, v, bias, scale))
+            _check(bool(kernels), f"attention {name} {dtype}: the profiler saw no kernel, three times")
             device_ms = sum(t for key, t in kernels.items() if "window_stage" in key or "attention_stage" in key)
             if cfg[0] in ATTN_PROFILED:
                 seen = sorted(kernels)
@@ -1445,14 +1454,14 @@ def calibrate_batchnorm(model, size):
     the logits would grow until an absolute bound means little."""
     from eqxvision_tpu_torch.nn import BatchNorm
 
-    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    norms = {m: m.momentum for m in model.modules() if isinstance(m, BatchNorm)}
     x = torch.randn(CALIBRATION_BATCH, size, size, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
     for m in norms:
         m.momentum = 1.0
     with torch.no_grad():
         model.train()(x)
-    for m in norms:
-        m.momentum = 0.1
+    for m, momentum in norms.items():  # each its own: MobileNetV3's and EfficientNet b5-b7's are 0.01
+        m.momentum = momentum
     return model.eval()
 
 
@@ -1647,6 +1656,11 @@ def main():
     serve_folded(create_model, counters)
     serve(create_model, "alexnet", 224, ALEXNET_REQUESTS, counters, zeros)
     serve(create_model, "vgg16_bn", 224, VGG_REQUESTS, counters, zeros, prepare=calibrate_batchnorm)
+    print(f"mobile families on {smi}")
+    for name in ("mobilenet_v3_large", "efficientnet_b0"):
+        serve(create_model, name, 224, MOBILE_REQUESTS, counters, zeros, prepare=calibrate_batchnorm)
+    for name in ("mobilenet_v2", "regnet_y_400mf"):
+        serve(create_model, name, 224, (8,), counters, zeros, prepare=calibrate_batchnorm)
 
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)

@@ -3,7 +3,9 @@
 One Bernoulli draw per sample, kept with probability 1 - p and scaled by
 1 / (1 - p): torchvision's ``StochasticDepth(mode="row")``. A no-op at p=0
 and in eval mode. The mask comes from torch's default generator of the
-input's device. The per-channel mode lands with the model that uses it.
+input's device. Every JAX model that drops paths, EfficientNet's stochastic
+depth included, uses this mode; the JAX layer's per-channel mode has no user
+and no counterpart here yet.
 """
 from __future__ import annotations
 

@@ -15,13 +15,42 @@ _NAMES = (
     "convnext_large",
     "convnext_small",
     "convnext_tiny",
+    "efficientnet_b0",
+    "efficientnet_b1",
+    "efficientnet_b2",
+    "efficientnet_b3",
+    "efficientnet_b4",
+    "efficientnet_b5",
+    "efficientnet_b6",
+    "efficientnet_b7",
+    "efficientnet_v2_l",
+    "efficientnet_v2_m",
+    "efficientnet_v2_s",
+    "mobilenet_v2",
+    "mobilenet_v3_large",
+    "mobilenet_v3_small",
+    "regnet_x_16gf",
+    "regnet_x_1_6gf",
+    "regnet_x_32gf",
+    "regnet_x_3_2gf",
+    "regnet_x_400mf",
+    "regnet_x_800mf",
+    "regnet_x_8gf",
+    "regnet_y_128gf",
+    "regnet_y_16gf",
+    "regnet_y_1_6gf",
+    "regnet_y_32gf",
+    "regnet_y_3_2gf",
+    "regnet_y_400mf",
+    "regnet_y_800mf",
+    "regnet_y_8gf",
+    "resnet101",
+    "resnet152",
     "resnet18",
     "resnet34",
     "resnet50",
-    "resnet101",
-    "resnet152",
-    "resnext50_32x4d",
     "resnext101_32x8d",
+    "resnext50_32x4d",
     "swin_b",
     "swin_s",
     "swin_t",
@@ -39,8 +68,8 @@ _NAMES = (
     "vit_base",
     "vit_small",
     "vit_tiny",
-    "wide_resnet50_2",
     "wide_resnet101_2",
+    "wide_resnet50_2",
 )
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {name: getattr(C, name) for name in _NAMES}
 

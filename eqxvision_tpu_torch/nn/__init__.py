@@ -1,5 +1,5 @@
 """Layers the ported models need, with torch's parameter names and layouts."""
-from .activations import Identity, Lambda, gelu
+from .activations import Identity, Lambda, gelu, hard_sigmoid, hard_swish, relu, relu6, sigmoid, silu, tanh
 from .conv import Conv2d
 from .dropout import Dropout
 from .flatten import FlattenCHW, flatten_chw
@@ -23,4 +23,11 @@ __all__ = [
     "adaptive_avg_pool2d",
     "flatten_chw",
     "gelu",
+    "hard_sigmoid",
+    "hard_swish",
+    "relu",
+    "relu6",
+    "sigmoid",
+    "silu",
+    "tanh",
 ]

@@ -47,7 +47,7 @@ class BatchNorm(nn.Module):
     Inference (``eval()``): ``scale = rsqrt(var + eps) * weight`` and ``shift
     = bias - mean * scale`` in f32, ``y = x * scale + shift`` in f32, rounded
     once to x's type: one ``F.batch_norm`` call, whose f32 arithmetic runs
-    in one pass over x. Training (``train()``): the JAX layer's one-pass
+    in one pass over x (an f64 x is computed in f32 and cast back). Training (``train()``): the JAX layer's one-pass
     statistics, sums taken about the batch's first element in f32, normalise
     with the biased batch variance, and the running statistics move by
     ``momentum`` towards the mean and the unbiased variance. ``momentum``
@@ -92,8 +92,11 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             w, b = self._affine()
-            y = F.batch_norm(x.movedim(-1, 1), self.running_mean, self.running_var, w, b, False, 0.0, self.eps)
-            return y.movedim(1, -1)
+            # F.batch_norm takes f32, bf16 or f16 beside f32 statistics and
+            # refuses a wider x: that one computes in f32, as the JAX layer does
+            xc = x.float() if x.dtype.itemsize > 4 else x
+            y = F.batch_norm(xc.movedim(-1, 1), self.running_mean, self.running_var, w, b, False, 0.0, self.eps)
+            return y.movedim(1, -1).to(x.dtype)
         return self._train_forward(x)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:

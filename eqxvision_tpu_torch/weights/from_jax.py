@@ -17,10 +17,21 @@ Where the JAX model's tree differs from torchvision's:
   ``pwconv1``, ``pwconv2``, torchvision's ``block.0``, ``block.2``,
   ``block.3``, ``block.5``; ``classifier_norm``/``classifier_fc`` are
   ``classifier.0``/``classifier.2``; ``layer_scale`` goes from (C,) to
-  (C, 1, 1).
+  (C, 1, 1);
+- a JAX ``ConvNormActivation`` names its layers ``conv`` and ``norm``; the
+  port's is torchvision's ``nn.Sequential``, indices 0 and 1. The renames
+  are anchored on the leaf (``.conv.weight``, ``.norm.running_mean``), so
+  MobileNetV2's block Sequential, itself a field named ``conv``, keeps its
+  name;
+- RegNet: the JAX trunk is a Sequential of Sequentials,
+  ``trunk_output.layers[i].layers[j]``, torchvision's
+  ``trunk_output.block{i+1}.block{i+1}-{j}``.
 
-A rename applies only where the plain name is not the model's and the
-renamed one is. Buffers that the JAX model does not hold
+A path may need more than one rename (a RegNet block's CNA: the stage and
+the CNA's layer). The renames are tried alone, then two at a time, and so
+on; the first round that gives names of the model gives the name, and a
+round that gives two raises. A path no round maps keeps its plain name,
+which the strict load then refuses. Buffers that the JAX model does not hold
 (``relative_position_index``, ``relative_coords_table``,
 ``num_batches_tracked``) keep the values the port computed; the load stays
 strict over parameters. A BatchNorm's running statistics live in the JAX
@@ -32,7 +43,7 @@ port's ``BatchNorm`` (``layer1.0.downsample.1``).
 from __future__ import annotations
 
 import re
-from typing import Collection, Dict, Mapping, Optional, Tuple
+from typing import AbstractSet, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +54,10 @@ from ..nn.linear import Linear
 from ..nn.norm import BatchNorm
 
 _RENAMES = (
+    (re.compile(r"(^|\.)conv\.(weight|bias)$"), r"\g<1>0.\2"),
+    (re.compile(r"(^|\.)norm\.(weight|bias|running_mean|running_var)$"), r"\g<1>1.\2"),
+    (re.compile(r"^trunk_output\.(\d+)\.(\d+)\."),
+     lambda m: "trunk_output.block{0}.block{0}-{1}.".format(int(m[1]) + 1, m[2])),
     (re.compile(r"^features\.0\.1\."), "features.0.2."),
     (re.compile(r"\.mlp\.fc1\."), ".mlp.0."),
     (re.compile(r"\.mlp\.fc2\."), ".mlp.3."),
@@ -55,17 +70,19 @@ _RENAMES = (
 )
 
 
-def _torch_name(path: str, names: Collection[str]) -> str:
+def _torch_name(path: str, names: AbstractSet[str]) -> str:
     """``.features.layers[1].layers[0].mlp.fc1.weight`` -> ``features.1.0.mlp.0.weight``."""
     name = re.sub(r"\.layers\[(\d+)\]", r".\1", path)
     name = re.sub(r"\[(\d+)\]", r".\1", name).lstrip(".")
-    if name in names:
-        return name
-    for pattern, repl in _RENAMES:
-        renamed = pattern.sub(repl, name)
-        if renamed in names:
-            return renamed
-    return name
+    seen, tier = {name}, {name}
+    found = tier & names
+    while tier and not found:
+        tier = {pattern.sub(repl, n) for n in tier for pattern, repl in _RENAMES} - seen
+        seen |= tier
+        found = tier & names
+    if len(found) > 1:
+        raise ValueError(f"JAX path {path!r} maps onto several names of the model: {sorted(found)}")
+    return found.pop() if found else name
 
 
 def state_dict_from_jax(model: nn.Module, params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
