@@ -81,6 +81,18 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    ``efficientnet_b0`` at b1, b8 and b256 (the JAX bench's rows),
    ``mobilenet_v2`` and ``regnet_y_400mf`` at b8, each calibrated as above
    (each BatchNorm keeps its own momentum), every launch count 0.
+7. Serves the rest of the model zoo, which runs no kernel of the port
+   either: ``googlenet`` (``transform_input``) and ``shufflenet_v2_x1_0``
+   at b1 and b8, ``densenet121`` and ``squeezenet1_1`` at b8 (224 px), then
+   the segmentation models at 520 px: ``deeplabv3`` as the JAX bench's row
+   builds it (dilated ResNet-50 tapped at layer3 and layer4, the FCN aux
+   head on 1024 channels) at b1 and b8, ``fcn`` (the same taps and aux
+   head) and ``lraspp_mobilenet_v3_large`` at b8; each calibrated, every
+   launch count 0. A segmentation model's f32 maps are held against the
+   CPU at b1 and 260 px (full width and depth; the CPU forward of a
+   dilated ResNet-50 at 520 px would take much of the run's time), and
+   each bf16 request's maps must be finite, (b, 520, 520, 21) each, the
+   aux map beside the main one where there is an aux head.
 
 Every device time read from a profiler trace comes from a trace that holds
 the kernels asked for: an empty one is taken again, and fails the run if it
@@ -150,6 +162,12 @@ RESNET_REQUESTS = (1, 8, 128)
 ALEXNET_REQUESTS = (1, 8)
 VGG_REQUESTS = (8,)
 MOBILE_REQUESTS = (1, 8, 256)  # mobilenet_v3_large and efficientnet_b0: b256 is the JAX bench's batch
+ZOO_REQUESTS = (1, 8)
+SEG_SIZE, SEG_CHECK_SIZE, SEG_CLASSES = 520, 260, 21
+# deeplabv3 and fcn as the JAX bench's deeplabv3_r50_520 row builds them: the
+# default taps (layer3, layer4) with the FCN aux head on layer3's 1024 channels
+SEG_MODELS = {"deeplabv3": ((1, 8), dict(aux_in_channels=1024)), "fcn": ((8,), dict(aux_in_channels=1024)),
+              "lraspp_mobilenet_v3_large": ((8,), {})}
 CALIBRATION_BATCH = 16
 # resnet50 b128 BatchNorm inputs: stage 1's 3x3 output, stage 1's and stage 4's block outputs
 BN_CASES = {"resnet50 b128 layer1 bn2": (128, 56, 56, 64), "resnet50 b128 layer1 bn3": (128, 56, 56, 256),
@@ -1553,6 +1571,64 @@ def serve_folded(create_model, counters, batch=RESNET_REQUESTS[-1]):
     return counts
 
 
+def _maps(out):
+    """A segmentation model's maps: ``(aux, out)`` (aux None without an aux
+    head), or LR-ASPP's map alone."""
+    return [m for m in out if m is not None] if isinstance(out, tuple) else [out]
+
+
+def serve_segmentation(create_model, name, requests, counters, n_maps, **model_kwargs):
+    """``name`` at ``SEG_SIZE`` as a server, every port launch count 0:
+    calibrated; f32 maps at b1 and ``SEG_CHECK_SIZE`` against the same
+    weights on the CPU; the f32 forward at the largest batch; bf16
+    requests, each map finite and (b, SEG_SIZE, SEG_SIZE, SEG_CLASSES)."""
+    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda", **model_kwargs).eval()
+    model = calibrate_batchnorm(model, SEG_CHECK_SIZE)
+    x1 = torch.randn(1, SEG_CHECK_SIZE, SEG_CHECK_SIZE, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        card = [m.cpu() for m in _maps(model(x1.cuda()))]
+        cpu_model = create_model(name, generator=torch.Generator().manual_seed(0), device="cpu", **model_kwargs).eval()
+        cpu_model.load_state_dict(model.state_dict())
+        cpu = _maps(cpu_model(x1))
+    shape = (1, SEG_CHECK_SIZE, SEG_CHECK_SIZE, SEG_CLASSES)
+    _check(len(card) == len(cpu) == n_maps and all(m.shape == shape and bool(torch.isfinite(m).all()) for m in card),
+           f"{name} f32 maps malformed: {[tuple(m.shape) for m in card]}")
+    err = max((a - b).abs().max().item() for a, b in zip(card, cpu))
+    print(f"{name} f32 b1 {SEG_CHECK_SIZE} px maps ({n_maps}), card vs CPU plain path: max|diff| {err:.3e} "
+          f"(bound {LOGIT_BOUND}), max|map| {max(m.abs().max().item() for m in cpu):.3f}")
+    _check(err < LOGIT_BOUND, f"{name}: card vs CPU maps differ by {err}")
+    del cpu_model
+    b = requests[-1]
+    x32 = torch.randn(b, SEG_SIZE, SEG_SIZE, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.inference_mode():
+        ms = _time_ms(lambda: model(x32), 5)
+    print(f"{name} b{b} {SEG_SIZE} px f32: {ms:.3f} ms per forward, {b / ms * 1000:.1f} images/s")
+    del x32
+
+    model = model.to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batches = {b: torch.randn(b, SEG_SIZE, SEG_SIZE, 3, device="cuda", generator=gen).to(torch.bfloat16)
+               for b in requests}
+    _reset(counters)
+    for b in requests:
+        with torch.inference_mode():
+            maps = _maps(model(batches[b]))
+        torch.cuda.synchronize()
+        shape = (b, SEG_SIZE, SEG_SIZE, SEG_CLASSES)
+        print(f"{name} request b={b} {SEG_SIZE} px bf16: maps {[tuple(m.shape) for m in maps]} "
+              f"finite={all(bool(torch.isfinite(m).all()) for m in maps)}")
+        _check(len(maps) == n_maps and all(m.shape == shape and bool(torch.isfinite(m).all()) for m in maps),
+               f"{name} b={b} maps malformed")
+    counts = {fn.__name__: fn.launches for fn in counters}
+    print(f"{name} requests {list(requests)}: launches {counts}")
+    _check(not any(counts.values()), f"{name}: launches {counts}, expected none")
+    for b in requests:
+        with torch.inference_mode():
+            ms = _time_ms(lambda: model(batches[b]), 10)
+        print(f"{name} b{b} {SEG_SIZE} px bf16: {ms:.3f} ms per forward, {b / ms * 1000:.1f} images/s")
+    return counts
+
+
 def train_vit(create_model, counters, expected, batch=8):
     """A vit_base bf16 forward in training mode with drop path and dropout
     active, under no_grad: every block's dropout keeps it off the fused
@@ -1661,6 +1737,14 @@ def main():
         serve(create_model, name, 224, MOBILE_REQUESTS, counters, zeros, prepare=calibrate_batchnorm)
     for name in ("mobilenet_v2", "regnet_y_400mf"):
         serve(create_model, name, 224, (8,), counters, zeros, prepare=calibrate_batchnorm)
+    print(f"model zoo on {smi}")
+    serve(create_model, "googlenet", 224, ZOO_REQUESTS, counters, zeros, prepare=calibrate_batchnorm,
+          transform_input=True)
+    serve(create_model, "shufflenet_v2_x1_0", 224, ZOO_REQUESTS, counters, zeros, prepare=calibrate_batchnorm)
+    serve(create_model, "densenet121", 224, (8,), counters, zeros, prepare=calibrate_batchnorm)
+    serve(create_model, "squeezenet1_1", 224, (8,), counters, zeros)  # no BatchNorm
+    for name, (requests, kwargs) in SEG_MODELS.items():
+        serve_segmentation(create_model, name, requests, counters, 2 if kwargs else 1, **kwargs)
 
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)

@@ -21,8 +21,14 @@ def ensure_nhwc(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     return x, False
 
 
-def debatch(out: torch.Tensor, was_single: bool) -> torch.Tensor:
-    return out[0] if was_single else out
+def debatch(out, was_single: bool):
+    """Drop the batch axis of a single sample's output: of a tensor, of each
+    tensor of a tuple; ``None`` stays."""
+    if not was_single:
+        return out
+    if isinstance(out, tuple):
+        return tuple(debatch(o, True) for o in out)
+    return None if out is None else out[0]
 
 
 def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:

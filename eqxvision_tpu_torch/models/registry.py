@@ -1,5 +1,6 @@
-"""Model registry: ``create_model("vit_base")`` over the ported factories
-(eqxvision_tpu/models/registry.py). Returns the ``nn.Module``, built on the
+"""Model registry: ``create_model("vit_base")`` over the ported factories,
+the JAX registry's 74 (eqxvision_tpu/models/registry.py): 71 classifiers
+and the three segmentation models. Returns the ``nn.Module``, built on the
 card unless ``device=`` names another device."""
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Any, Callable, Dict, List
 from torch import nn
 
 from . import classification as C
+from . import segmentation as S
 
 _NAMES = (
     "alexnet",
@@ -15,6 +17,10 @@ _NAMES = (
     "convnext_large",
     "convnext_small",
     "convnext_tiny",
+    "densenet121",
+    "densenet161",
+    "densenet169",
+    "densenet201",
     "efficientnet_b0",
     "efficientnet_b1",
     "efficientnet_b2",
@@ -26,6 +32,7 @@ _NAMES = (
     "efficientnet_v2_l",
     "efficientnet_v2_m",
     "efficientnet_v2_s",
+    "googlenet",
     "mobilenet_v2",
     "mobilenet_v3_large",
     "mobilenet_v3_small",
@@ -51,6 +58,12 @@ _NAMES = (
     "resnet50",
     "resnext101_32x8d",
     "resnext50_32x4d",
+    "shufflenet_v2_x0_5",
+    "shufflenet_v2_x1_0",
+    "shufflenet_v2_x1_5",
+    "shufflenet_v2_x2_0",
+    "squeezenet1_0",
+    "squeezenet1_1",
     "swin_b",
     "swin_s",
     "swin_t",
@@ -71,7 +84,9 @@ _NAMES = (
     "wide_resnet101_2",
     "wide_resnet50_2",
 )
+_SEGMENTATION = ("deeplabv3", "fcn", "lraspp_mobilenet_v3_large")
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {name: getattr(C, name) for name in _NAMES}
+_REGISTRY.update({name: getattr(S, name) for name in _SEGMENTATION})
 
 
 def list_models() -> List[str]:

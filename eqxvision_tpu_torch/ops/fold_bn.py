@@ -9,6 +9,13 @@ function folds it: (a) adjacent in an ``nn.Sequential``, (b) fields
 (c) fields named ``conv`` and ``norm``. The folded BatchNorm's slot holds an
 ``nn.Identity``, so every other name stays. A BatchNorm in training mode is
 left as it is. The fold is an op the user calls: no factory applies it.
+
+No BatchNorm that comes before its conv folds (ROADMAP C.14): DenseNet's
+dense layers name theirs ``norm1``/``conv1`` (no ``bn*`` pair), and its
+transition is a named ``nn.Sequential`` (``norm``, ``relu``, ``conv``,
+``pool``), which rule (a) alone reads, so of a DenseNet only the stem's
+``norm0`` folds, into ``conv0``. The JAX fold pairs the JAX transition's
+fields ``conv`` and ``norm`` by rule (c) and raises.
 """
 from __future__ import annotations
 

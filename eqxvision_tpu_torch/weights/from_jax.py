@@ -25,7 +25,20 @@ Where the JAX model's tree differs from torchvision's:
   name;
 - RegNet: the JAX trunk is a Sequential of Sequentials,
   ``trunk_output.layers[i].layers[j]``, torchvision's
-  ``trunk_output.block{i+1}.block{i+1}-{j}``.
+  ``trunk_output.block{i+1}.block{i+1}-{j}``;
+- DenseNet: the JAX ``features`` is a plain Sequential, torchvision's a
+  named one: ``features.layers[0]``/``[1]`` are ``conv0``/``norm0``, from
+  index 4 on the blocks and transitions alternate (``denseblock{k}``,
+  ``transition{k}``) and the last BatchNorm is ``norm5``; a block's
+  ``layers[j]`` is ``denselayer{j+1}``. A transition's ``norm`` keeps its
+  name (the ConvNormActivation and ConvNeXt renames of ``norm`` give no
+  name of a DenseNet);
+- segmentation: the JAX getter wraps the backbone (``backbone.model.``) and
+  each tapped layer (``.inner.``); the port's getter shares the backbone's
+  names, so both drop out (``backbone.model.layer3.inner.0.conv1`` ->
+  ``backbone.layer3.0.conv1``). DeepLabV3's ``ASPPPooling`` names its conv
+  and BatchNorm ``conv`` and ``bn``, torchvision's Sequential ``1`` and
+  ``2`` (``classifier.0.convs.4.1.weight``).
 
 A path may need more than one rename (a RegNet block's CNA: the stage and
 the CNA's layer). The renames are tried alone, then two at a time, and so
@@ -53,6 +66,19 @@ from ..nn.conv import Conv2d
 from ..nn.linear import Linear
 from ..nn.norm import BatchNorm
 
+
+def _densenet_features(m: re.Match) -> str:
+    i, rest = int(m[1]), m[2]
+    if i < 2:
+        return f"features.{('conv0', 'norm0')[i]}.{rest}"
+    if "." not in rest:
+        return f"features.norm5.{rest}"
+    k = (i - 4) // 2 + 1
+    if (i - 4) % 2:
+        return f"features.transition{k}.{rest}"
+    return f"features.denseblock{k}." + re.sub(r"^(\d+)\.", lambda j: f"denselayer{int(j[1]) + 1}.", rest)
+
+
 _RENAMES = (
     (re.compile(r"(^|\.)conv\.(weight|bias)$"), r"\g<1>0.\2"),
     (re.compile(r"(^|\.)norm\.(weight|bias|running_mean|running_var)$"), r"\g<1>1.\2"),
@@ -67,6 +93,10 @@ _RENAMES = (
     (re.compile(r"\.pwconv2\."), ".block.5."),
     (re.compile(r"^classifier_norm\."), "classifier.0."),
     (re.compile(r"^classifier_fc\."), "classifier.2."),
+    (re.compile(r"^features\.(\d+)\.(.+)$"), _densenet_features),
+    (re.compile(r"^backbone\.model\.(.+)$"), lambda m: "backbone." + m[1].replace(".inner.", ".")),
+    (re.compile(r"(^|\.)convs\.(\d+)\.conv\.(weight|bias)$"), r"\g<1>convs.\2.1.\3"),
+    (re.compile(r"(^|\.)convs\.(\d+)\.bn\.(weight|bias|running_mean|running_var)$"), r"\g<1>convs.\2.2.\3"),
 )
 
 

@@ -7,9 +7,11 @@ Run from the root of the repository on a machine with a CUDA card:
 
 For each ``--model`` (default: convnext_tiny, vit_base, swin_t, swin_v2_t, resnet50;
 any name of ``create_model``), in one process, at the size and batch
-``chip_smoke.py`` serves it (224 px, 256 for Swin v2; b256 for vit_base,
-mobilenet_v3_large and efficientnet_b0, b128 for the others; ``--batch``
-overrides): builds the model with random weights from seed 0 in ``--dtype``
+``chip_smoke.py`` serves it (224 px, 256 for Swin v2, 520 for the
+segmentation models; b256 for vit_base, mobilenet_v3_large and
+efficientnet_b0, b8 for the segmentation models, b128 for the others;
+``--batch`` overrides; deeplabv3 and fcn with the aux head on layer3, as
+chip_smoke serves them): builds the model with random weights from seed 0 in ``--dtype``
 (bfloat16 by default; in float32 torch's defaults hold: TF32 off for its
 matmuls, on for cuDNN's convolutions), warms
 up, times 10 forwards with CUDA events (ms per forward, images/s), then
@@ -46,6 +48,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 DEFAULT_MODELS = ("convnext_tiny", "vit_base", "swin_t", "swin_v2_t", "resnet50")
 BATCH_256 = ("vit", "mobilenet_v3_large", "efficientnet_b0")
+SEGMENTATION = {"deeplabv3": dict(aux_in_channels=1024), "fcn": dict(aux_in_channels=1024),
+                "lraspp_mobilenet_v3_large": {}}
 LAYER_RANGE = "layer: "
 
 
@@ -153,9 +157,10 @@ def profile_model(create_model, name, batch, forwards, top, dtype, widen=False, 
 
     from eqxvision_tpu_torch.ops import fold_batchnorm
 
-    size = 256 if name.startswith("swin_v2") else 224
-    batch = batch or (256 if name.startswith(BATCH_256) else 128)
-    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda").eval()
+    size = 256 if name.startswith("swin_v2") else 520 if name in SEGMENTATION else 224
+    batch = batch or (256 if name.startswith(BATCH_256) else 8 if name in SEGMENTATION else 128)
+    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda",
+                         **SEGMENTATION.get(name, {})).eval()
     model = (fold_batchnorm(model) if fold else model).to(dtype)
     x = torch.randn(batch, size, size, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
     x = x.to(dtype)

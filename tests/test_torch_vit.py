@@ -102,14 +102,18 @@ def test_same_seed_same_weights_and_registry():
     b = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
     assert list_models() == [
-        "alexnet", "convnext_base", "convnext_large", "convnext_small", "convnext_tiny",
+        "alexnet", "convnext_base", "convnext_large", "convnext_small", "convnext_tiny", "deeplabv3",
+        "densenet121", "densenet161", "densenet169", "densenet201",
         "efficientnet_b0", "efficientnet_b1", "efficientnet_b2", "efficientnet_b3", "efficientnet_b4",
         "efficientnet_b5", "efficientnet_b6", "efficientnet_b7", "efficientnet_v2_l", "efficientnet_v2_m",
-        "efficientnet_v2_s", "mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small",
+        "efficientnet_v2_s", "fcn", "googlenet", "lraspp_mobilenet_v3_large",
+        "mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small",
         "regnet_x_16gf", "regnet_x_1_6gf", "regnet_x_32gf", "regnet_x_3_2gf", "regnet_x_400mf", "regnet_x_800mf",
         "regnet_x_8gf", "regnet_y_128gf", "regnet_y_16gf", "regnet_y_1_6gf", "regnet_y_32gf", "regnet_y_3_2gf",
         "regnet_y_400mf", "regnet_y_800mf", "regnet_y_8gf",
         "resnet101", "resnet152", "resnet18", "resnet34", "resnet50", "resnext101_32x8d", "resnext50_32x4d",
+        "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0",
+        "squeezenet1_0", "squeezenet1_1",
         "swin_b", "swin_s", "swin_t", "swin_v2_b", "swin_v2_s", "swin_v2_t",
         "vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "vgg16", "vgg16_bn", "vgg19", "vgg19_bn",
         "vit_base", "vit_small", "vit_tiny", "wide_resnet101_2", "wide_resnet50_2",
@@ -117,7 +121,7 @@ def test_same_seed_same_weights_and_registry():
     with pytest.raises(NotImplementedError):
         create_model("vit_base", pretrained=True)
     with pytest.raises(ValueError):
-        create_model("googlenet")
+        create_model("no_such_model")
 
 
 def test_torch_weights_file_round_trip(tmp_path):
