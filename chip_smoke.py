@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's inference paths once on one NVIDIA card.
+"""Drive the PyTorch port's inference and training paths once on one NVIDIA card.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs a
 CUDA card and exits non-zero without one; it imports nothing of JAX.
@@ -63,9 +63,7 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    time at the largest batch, then bf16 requests
    of several batch sizes with every kernel's launch count set to 0 before
    each path and read after it, then each request's ms and images/s. Then
-   runs a vit_base forward in training mode with drop path and dropout
-   active, which takes the fused-qkv attention in every block, and calls
-   the public attention as a user would, counts reset the same way.
+   calls the public attention as a user would, counts reset the same way.
 5. Serves the conv trunks, which run no kernel of the port (cuDNN
    convolutions, ``F.batch_norm``, torch's pools): ``resnet50`` at b1, b8
    and b128, ``alexnet`` at b1 and b8 and ``vgg16_bn`` at b8, every launch
@@ -93,6 +91,23 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    dilated ResNet-50 at 520 px would take much of the run's time), and
    each bf16 request's maps must be finite, (b, 520, 520, 21) each, the
    aux map beside the main one where there is an aux head.
+8. Trains, through ``parallel.make_train_step`` with bf16 compute and f32
+   masters, three steps each at b64 from uint8 256 px canvases augmented on
+   the card as the training CLI does (crop 224, flip, label smoothing 0.1,
+   mixup 0.2 or cutmix 1.0): ``resnet50`` with SGD (no kernel of the port),
+   ``vit_base`` with drop path 0.1, remat and AdamW (K1 in blocks 1-11, the
+   two fused halves in block 0, K6; the recompute's launches counted), and
+   ``swin_t`` with AdamW (K3 and K6 in every block). Each step's loss must
+   be finite and its launches the expected ones; each model's forward and
+   backward + optimiser ms by CUDA events, images/s, peak memory, and a
+   fourth step's device time with its kernels' plain recompute in the
+   backward (torch.profiler). Around resnet50's fourth step, one EMA update
+   against its closed form, then the EMA weights through the eval step with
+   ten-crop TTA against the crops' averaged softmax. Then the cost of
+   ``Linear.preactivation``'s widening to f32 under grad at vit_base's fc1,
+   and one f32 vit_base b4 step on the card (kernels on, TF32 off) against
+   the same step on the CPU's plain path: the loss and every updated
+   parameter within their stated bounds.
 
 Every device time read from a profiler trace comes from a trace that holds
 the kernels asked for: an empty one is taken again, and fails the run if it
@@ -102,6 +117,7 @@ Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
 """
 import ctypes
+import functools
 import importlib
 import json
 import math
@@ -227,6 +243,36 @@ GEMM_CASES = [
     ("qkv + LayerNorm, padding rows masked, rounded bias", "swin_t b128 stage 3 attention, ragged 10 x 10",
      "<true, 3, true,", 25088, 1152, 384),
 ]
+# Training: TRAIN_STEPS bf16 steps a model at b TRAIN_BATCH, uint8 canvases of
+# TRAIN_CANVAS px cropped to TRAIN_CROP on the card. Each model: its
+# optimiser, learning rate and weight decay, remat, the launches a step (with
+# remat the forward's twice) of fused-qkv, window attention, whole block,
+# LayerNorm, public attention, MLP half, attention half, Swin attention half,
+# and its factory's arguments. vit_base with drop path 0.1: block 0 (drop
+# path 0) on the two fused halves, blocks 1-11 on K1 between K6s, the final
+# norm on K6. swin_t in training runs every block unfused: K3 in all 12, K6 in
+# the 24 block norms, the stem, 3 mergings and the final norm.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CANVAS, TRAIN_CROP = 64, 3, 256, 224
+TRAIN = {
+    "resnet50": dict(opt="sgd", lr=0.025, weight_decay=1e-4, remat=False, expected=(0,) * 8, ema=True),
+    "vit_base": dict(opt="adamw", lr=1e-3, weight_decay=0.05, remat=True, expected=(22, 0, 0, 46, 0, 2, 2, 0),
+                     drop_path_rate=0.1),
+    "swin_t": dict(opt="adamw", lr=1e-3, weight_decay=0.05, remat=False, expected=(0, 12, 0, 29, 0, 0, 0, 0)),
+}
+# The backward nodes of the kernels' autograd functions, each of which
+# recomputes through the kernel's plain version.
+KERNEL_BACKWARDS = ("_FusedQkvAttentionBackward", "_WindowQkvAttentionBackward", "_FusedSwinBlockBackward",
+                    "_LayerNormBackward", "_AttentionBackward", "_FusedMlpHalfBackward", "_FusedAttentionHalfBackward",
+                    "_FusedWindowAttentionHalfBackward")
+# The f32 train step on the card against the CPU: each gradient within 1e-3
+# of its tensor's largest, the logit bound's relative size (the same f32 sums
+# in another order on two devices, through the same 12 blocks and back).
+TRAIN_F32_BATCH, TRAIN_GRAD_BOUND = 4, 1e-3
+# Two f32 forwards of one image at other batch sizes (80 crops at once, 8 at
+# a time) differ by about 1e-6 of a probability; a random resnet50's ten-crop
+# averages lie near 1/1000 and within 1e-4 of each other, so a tie is a gap
+# below 1e-5 of the top probability.
+EVAL_TIE = 1e-5
 # Linear and Conv2d with f32 parameters on a bf16 input, against the same
 # function in f64: one rounding of the f32 accumulator plus the bias is at
 # most half a bf16 step (taken at magnitude 1 for the smaller outputs), and
@@ -1629,24 +1675,201 @@ def serve_segmentation(create_model, name, requests, counters, n_maps, **model_k
     return counts
 
 
-def train_vit(create_model, counters, expected, batch=8):
-    """A vit_base bf16 forward in training mode with drop path and dropout
-    active, under no_grad: every block's dropout keeps it off the fused
-    halves, so its attention runs the fused-qkv kernel. Drop path alone
-    would leave the first block (drop path 0) on the fused attention half."""
-    model = create_model("vit_base", generator=torch.Generator().manual_seed(0), device="cuda", drop_path_rate=0.1,
-                         drop_rate=0.1).to(torch.bfloat16).train()
-    x = torch.randn(batch, 224, 224, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
-    _reset(counters)
+def _recompute_ms(fn):
+    """Device ms of one call of ``fn`` (a train step) in all, and in the
+    backward of each kernel's autograd function, which recomputes through
+    the plain version (torch.profiler: a backward node's device time holds
+    the kernels of the node and of the nodes it runs). An empty trace is
+    taken again up to three times, then fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prefix = "autograd::engine::evaluate_function: "
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        total = sum(e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total:
+            recompute = {e.key[len(prefix):]: e.device_time_total / 1e3 for e in events
+                         if e.key.startswith(prefix) and e.key[len(prefix):] in KERNEL_BACKWARDS}
+            return total / 1e3, recompute
+    _check(False, "the profiler saw no kernel of a train step, three times")
+
+
+def _linear_widening_ms(rows, d_in, d_out):
+    """``Linear.preactivation`` under grad on the card widens a bf16 input
+    and weight to f32 (``nn/linear.py``): its forward and backward at
+    (rows, d_in) x (d_out, d_in) in f32 against the same product in bf16,
+    CUDA events over 5 calls each, in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(rows, d_in, device="cuda", generator=gen).to(torch.bfloat16).requires_grad_(True)
+    w = (torch.randn(d_out, d_in, device="cuda", generator=gen) * 0.02).to(torch.bfloat16).requires_grad_(True)
+    g = torch.randn(rows, d_out, device="cuda", generator=gen)
+
+    def widened():
+        F.linear(x.float(), w.float()).backward(g)
+
+    def bf16():
+        F.linear(x, w).backward(g.to(torch.bfloat16))
+
+    t = [_time_ms(fn, 5) for fn in (bf16, widened, widened, bf16)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def check_ema_eval(model, run_step):
+    """One EMA update across ``run_step()`` (decay 0.999: the closed form
+    d p0 + (1 - d) p1 of every floating parameter and buffer in f32), then
+    the EMA's weights through ``make_eval_step`` with ten-crop TTA (224 of
+    256, f32) on b8, against the ten crops' softmax averaged one forward at
+    a time: labels set to each image's top class (top-1 and top-5 all
+    correct) and to its fifth (top-1 none, top-5 all), an image whose
+    averaged probability lies within ``EVAL_TIE`` of the next class's
+    excused."""
+    from eqxvision_tpu_torch.ops import normalize, ten_crop
+    from eqxvision_tpu_torch.parallel import ema_init, ema_params, ema_update, make_eval_step
+
+    decay = 0.999
+    ema = ema_init(model)
+    before = {k: v.clone() for k, v in ema.items()}
+    run_step()
+    ema_update(ema, model, decay)
+    now = dict(model.state_dict())
+    err = max(((ema[k] - (before[k] * decay + now[k].float() * (1 - decay))).abs().max() /
+               before[k].abs().max().clamp_min(1e-30)).item() for k in ema)
+    print(f"EMA update of {len(ema)} tensors (decay {decay}) against its closed form: max relative |diff| {err:.2e}")
+    _check(err <= 1e-6, f"EMA update off its closed form by {err}")
+
+    eval_model = ema_params(ema, model).eval()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = normalize(torch.randint(0, 256, (8, TRAIN_CANVAS, TRAIN_CANVAS, 3), dtype=torch.uint8, device="cuda",
+                                generator=gen))
     with torch.no_grad():
-        logits = model(x.to(torch.bfloat16))
+        probs = torch.stack([torch.softmax(eval_model(c).float(), -1) for c in ten_crop(x, TRAIN_CROP)]).mean(0)
+    p, order = probs.sort(-1, descending=True)
+    step = make_eval_step(functools.partial(ten_crop, crop_h=TRAIN_CROP))
+    top = step(eval_model, x, order[:, 0])
+    fifth = step(eval_model, x, order[:, 4])
+    tie = EVAL_TIE * p[:, 0]
+    slack1 = int(((p[:, 0] - p[:, 1]) < tie).sum())
+    slack5 = int(((p[:, 3] - p[:, 4]) < tie).sum() + ((p[:, 4] - p[:, 5]) < tie).sum())
+    got = [int(v) for v in (*top[:2], *fifth[:2])]
+    print(f"eval step, ten-crop TTA, EMA weights, b8: labels at the top class top-1/top-5 {got[0]}/{got[1]}, at the "
+          f"fifth {got[2]}/{got[3]} (expected 8/8 and 0/8; near-ties excused {slack1}, {slack5})")
+    _check(got[0] >= 8 - slack1 and got[1] == 8 and got[2] <= slack1 and got[3] >= 8 - slack5,
+           f"eval step counts {got}")
+
+
+def train(create_model, counters, name, opt, lr, weight_decay, remat, expected, ema=False, **model_kwargs):
+    """``name`` trained for ``TRAIN_STEPS`` bf16 mixed-precision steps at
+    b``TRAIN_BATCH`` (f32 masters, ``make_train_step``), each from uint8
+    canvases (the CLI's seeded ``synthetic_batches``, copied to the card by
+    ``data.device_prefetch`` and checked against the host's) through the
+    CLI's on-device augmentation: crop 224 of 256, flip, label smoothing
+    0.1, mixup 0.2 or cutmix 1.0. Every step must
+    give a finite loss and launch ``expected`` kernels (with remat, the
+    recompute's too). Prints each step's forward (augmentation included)
+    and backward + optimiser ms by CUDA events, the mean of steps 2 on with
+    images/s, the peak memory, and a fourth step's device time with the
+    share of each kernel's plain recompute in its backward. With ``ema``,
+    ``check_ema_eval`` around that fourth step. Returns the launches of the
+    timed steps."""
+    from eqxvision_tpu_torch.cli.train_imagenet import build_optimizer, make_augment_fn, synthetic_batches
+    from eqxvision_tpu_torch.data import device_prefetch
+    from eqxvision_tpu_torch.parallel import make_train_step
+
+    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda", **model_kwargs).train()
+    optimizer = build_optimizer(model, opt, lr, weight_decay)
+    step = make_train_step(compute_dtype=torch.bfloat16, remat=remat,
+                           augment_fn=make_augment_fn(1000, TRAIN_CROP, 0.1, 0.2, 1.0))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    host = list(synthetic_batches(TRAIN_STEPS, TRAIN_BATCH, TRAIN_CANVAS, 1000, seed=8))
+    batches = list(device_prefetch(host, 2, "cuda"))
+    _check(all(torch.equal(t.cpu(), torch.from_numpy(a)) for b, hb in zip(batches, host) for t, a in zip(b, hb)),
+           "device_prefetch: the batches on the card differ from the host's")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    times = []
+    for i, (x, y) in enumerate(batches):
+        before = [fn.launches for fn in counters]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        loss = step.loss(model, x, y, gen)
+        events[1].record()
+        step.update(optimizer, loss)
+        events[2].record()
+        events[2].synchronize()
+        launched = [fn.launches - n for fn, n in zip(counters, before)]
+        fwd, bwd = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+        times.append((fwd, bwd))
+        launches = dict(zip((fn.__name__ for fn in counters), launched))
+        print(f"{name} b{TRAIN_BATCH} bf16 train step {i + 1}: loss {loss.item():.4f}, {fwd + bwd:.3f} ms (forward "
+              f"{fwd:.3f}, backward + optimiser {bwd:.3f}), launches {launches}")
+        _check(math.isfinite(loss.item()), f"{name} train step {i + 1}: loss {loss.item()}")
+        _check(launched == list(expected), f"{name} train step {i + 1}: launches {launched}, expected {list(expected)}")
     counts = {fn.__name__: fn.launches for fn in counters}
-    print(f"vit_base training forward b={batch} bf16, drop path 0.1, dropout 0.1: logits {tuple(logits.shape)} "
-          f"finite={bool(torch.isfinite(logits).all())} launches {counts}")
-    _check(logits.shape == (batch, 1000) and bool(torch.isfinite(logits).all()), "vit_base training logits malformed")
-    _check(list(counts.values()) == list(expected), f"vit_base training: launches {counts}, expected {list(expected)}")
+    _check(all(counts[fn.__name__] for fn, n in zip(counters, expected) if n),
+           f"{name}: a kernel of the training path was never launched: {counts}")
+    _check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in model.parameters()),
+           f"{name}: the masters are not all finite f32 after training")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd = sum(t[0] for t in times[1:]) / (len(times) - 1)
+    ms = sum(t[0] + t[1] for t in times[1:]) / (len(times) - 1)
+    print(f"{name} b{TRAIN_BATCH} bf16 train step ({opt}{', remat' if remat else ''}): {ms:.3f} ms, "
+          f"{TRAIN_BATCH / ms * 1000:.1f} images/s; forward {fwd / ms:.1%}, backward + optimiser {1 - fwd / ms:.1%} "
+          f"(steps 2-{TRAIN_STEPS}; step 1 {sum(times[0]):.3f} ms); peak memory {peak:.2f} GiB")
+
+    def fourth_step():
+        total, recompute = _recompute_ms(lambda: step(model, optimizer, *batches[0], gen))
+        share = sum(recompute.values()) / total
+        print(f"{name} b{TRAIN_BATCH} train step, device time (torch.profiler): {total:.3f} ms; the kernels' plain "
+              f"recompute in the backward {sum(recompute.values()):.3f} ms ({share:.1%}): "
+              + (", ".join(f"{k} {v:.3f}" for k, v in sorted(recompute.items())) or "none"))
+
+    if ema:
+        check_ema_eval(model, fourth_step)
+    else:
+        fourth_step()
+    del model, optimizer
+    torch.cuda.empty_cache()
     return counts
+
+
+def check_train_f32(create_model, counters, lr=1.0):
+    """One f32 SGD step (lr ``lr``) of vit_base b``TRAIN_F32_BATCH``, no
+    dropout or drop path, on the card (the fused halves and K6, TF32 off)
+    and on the CPU's plain path, from the same weights and batch: the loss
+    within 2 ``LOGIT_BOUND`` (cross-entropy moves at most twice its largest
+    logit error), and every updated parameter within ``lr *
+    TRAIN_GRAD_BOUND`` of its tensor's largest CPU gradient, plus two f32
+    steps of its largest value for the update's rounding."""
+    from eqxvision_tpu_torch.parallel import make_train_step
+
+    models = [create_model("vit_base", generator=torch.Generator().manual_seed(0), device=d).train()
+              for d in ("cuda", "cpu")]
+    models[1].load_state_dict(models[0].state_dict())
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(TRAIN_F32_BATCH, 224, 224, 3, generator=gen)
+    y = torch.randint(0, 1000, (TRAIN_F32_BATCH,), generator=gen)
+    step = make_train_step()
+    _reset(counters)
+    losses = [step(m, torch.optim.SGD(m.parameters(), lr=lr), x.to(d), y.to(d)).item()
+              for m, d in zip(models, ("cuda", "cpu"))]
+    counts = {fn.__name__: fn.launches for fn in counters}
+    worst, worst_name = 0.0, None
+    for (name, p), q in zip(models[0].named_parameters(), models[1].parameters()):
+        bound = lr * TRAIN_GRAD_BOUND * q.grad.abs().max().item() + 2 ** -22 * q.detach().abs().max().item()
+        ratio = (p.detach().cpu() - q.detach()).abs().max().item() / bound
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    print(f"vit_base b{TRAIN_F32_BATCH} f32 train step, card vs CPU plain path: loss {losses[0]:.6f} vs "
+          f"{losses[1]:.6f} (bound {2 * LOGIT_BOUND}); updated parameters at most {worst:.3f} of their bound "
+          f"({worst_name}); launches {counts}")
+    _check(abs(losses[0] - losses[1]) <= 2 * LOGIT_BOUND, f"f32 train step: losses {losses}")
+    _check(worst <= 1.0, f"f32 train step: {worst_name} off by {worst} of its bound")
+    _check(list(counts.values()) == [0, 0, 0, 1, 0, 12, 12, 0], f"f32 train step: launches {counts}")
 
 
 def serve_attention(A, counters):
@@ -1723,8 +1946,6 @@ def main():
     # and the card-vs-CPU comparison would not see the blocks
     convnext_counts = serve(create_model, "convnext_tiny", 224, CONVNEXT_REQUESTS, counters,
                             (0, 0, 0, 5, 0, 18, 0, 0), layer_scale=0.5)
-    # norm1 and norm2 of every block and the final norm on K6
-    train_counts = train_vit(create_model, counters, (12, 0, 0, 25, 0, 0, 0, 0))
     attn_counts = serve_attention(attention, counters)
     # the conv trunks run no kernel of the port
     zeros = (0,) * len(counters)
@@ -1745,13 +1966,20 @@ def main():
     serve(create_model, "squeezenet1_1", 224, (8,), counters, zeros)  # no BatchNorm
     for name, (requests, kwargs) in SEG_MODELS.items():
         serve_segmentation(create_model, name, requests, counters, 2 if kwargs else 1, **kwargs)
+    print(f"training on {smi}")
+    train_counts = {name: train(create_model, counters, name, **cfg) for name, cfg in TRAIN.items()}
+    wide, narrow = _linear_widening_ms(TRAIN_BATCH * 197, 768, 3072)
+    print(f"Linear.preactivation under grad (vit_base b{TRAIN_BATCH} fc1, 11 blocks a forward in training): f32 "
+          f"forward + backward {wide:.3f} ms against {narrow:.3f} in bf16, {11 * (wide - narrow):.3f} ms a step "
+          f"(without remat's second forward)")
+    check_train_f32(create_model, counters)
 
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "fused_qkv_attention", "route": "cuda", "source": src + "attention_stage.cuh",
          "replaces": ["eqxvision_tpu/ops/attention.py:245", "eqxvision_tpu/ops/attention.py:276"],
-         "launches": train_counts["fused_qkv_attention"], **qkv_main},
+         "launches": train_counts["vit_base"]["fused_qkv_attention"], **qkv_main},
         {"name": "window_qkv_attention", "route": "cuda",
          "source": [src + "window_attention.cu", src + "attention_stage.cuh"],
          "replaces": ["eqxvision_tpu/ops/attention.py:445", "eqxvision_tpu/ops/attention.py:682",

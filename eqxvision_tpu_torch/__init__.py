@@ -12,7 +12,8 @@ never imports JAX.
 
 __version__ = "0.1.0"
 
-from . import core, experimental, layers, models, nn, ops, weights
+from . import core, data, experimental, layers, models, nn, ops, parallel, weights
 from .models import create_model, list_models
 
-__all__ = ["core", "create_model", "experimental", "layers", "list_models", "models", "nn", "ops", "weights"]
+__all__ = ["core", "create_model", "data", "experimental", "layers", "list_models", "models", "nn", "ops", "parallel",
+           "weights"]
