@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's inference and training paths once on one NVIDIA card.
+"""Drive the PyTorch port's inference, training and serving paths once on one NVIDIA card.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs a
 CUDA card and exits non-zero without one; it imports nothing of JAX.
@@ -108,6 +108,23 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    and one f32 vit_base b4 step on the card (kernels on, TF32 off) against
    the same step on the CPU's plain path: the loss and every updated
    parameter within their stated bounds.
+
+9. Serves through the eval CLI (``cli.eval_imagenet``'s ``build_model`` and
+   ``make_step``, seeded uint8 256 px canvases cropped to 224, bf16, full
+   width and depth): resnet50 ``--int8`` (BatchNorm folded, every conv and
+   the fc int8) at b128, its f32 scores against the CPU's and its bf16
+   logits against the unquantized model's; vit_base (LayerNorm affines drawn
+   away from 1 and 0) ``--fold-ln`` (f32 against unfolded within 1e-3, then
+   b1/8/128 on both fused halves), ``--int8`` (K1 12 and K6 25 launches a
+   forward, the halves none) and ``--int8 --int8-act`` (cuBLAS's int8 GEMM
+   kernels by profiler name) at b1/8/128; swin_t ``--int8`` at b8 and one
+   ten-crop step; ``resize_pos_embed(vit_base, 384)`` (f32 card against CPU,
+   b32 bf16 on the halves at 577 tokens); ``get_last_self_attention`` at b8
+   against the CPU; vit_base b8 bf16 and resnet50 b8 behind a baked uint8
+   preprocess exported, saved, loaded and run, equal to eager, the loaded
+   ViT launching the port's kernels (counts and profiler names); and
+   ``checked_call`` naming the conv with a planted NaN. Each request's ms
+   and images/s beside the card's name and power limit.
 
 Every device time read from a profiler trace comes from a trace that holds
 the kernels asked for: an empty one is taken again, and fails the run if it
@@ -1675,6 +1692,309 @@ def serve_segmentation(create_model, name, requests, counters, n_maps, **model_k
     return counts
 
 
+SERVE_CANVAS, SERVE_CROP = 256, 224
+SERVE_REQUESTS = (1, 8, 128)
+# the port's kernels by the names torch.profiler gives them
+PORT_KERNELS = ("attention_stage", "gemm_bf16", "gemm_f32", "layer_norm", "row_stats", "swin_block", "window_stage",
+                "window_attention_kernel", "stage_halves", "split_weights")
+# int8 weights against the unquantized bf16 model: per-channel rounding of every weight moves the logits by a
+# share of their spread; bound on max|int8 - bf16| over the std of the bf16 logits
+INT8_LOGIT_SHARE = 0.5
+PROBS_BOUND = 1e-4  # f32 attention probabilities, card vs CPU
+
+
+def _canvases(b, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, (b, SERVE_CANVAS, SERVE_CANVAS, 3), dtype=torch.uint8, device="cuda", generator=gen)
+
+
+def _cli_args(model, *flags, device="cuda"):
+    from eqxvision_tpu_torch.cli import eval_imagenet as cli
+
+    return cli.build_argparser().parse_args(["--model", model, "--data-dir", "-", "--device", device, *flags])
+
+
+def _cli_model(model, weights, *flags, device="cuda"):
+    """The eval CLI's model and step for ``flags``, weights from the file."""
+    from eqxvision_tpu_torch.cli import eval_imagenet as cli
+
+    args = _cli_args(model, "--torch-weights", weights, *flags, device=device)
+    return cli.build_model(args), cli.make_step(args)
+
+
+def _serve_requests(tag, model, step, counters, expected, smi, requests=SERVE_REQUESTS):
+    """bf16 requests of uint8 canvases through the CLI's step, every count 0
+    before and each request's launches checked (``expected`` per forward);
+    then each request's ms and images/s. Returns the counts."""
+    batches = {b: _canvases(b, 5) for b in requests}
+    _reset(counters)
+    for b in requests:
+        before = [fn.launches for fn in counters]
+        scores = step.scores(model, batches[b])
+        torch.cuda.synchronize()
+        launched = [fn.launches - n for fn, n in zip(counters, before)]
+        print(f"{tag} request b={b}: scores {tuple(scores.shape)} finite={bool(torch.isfinite(scores).all())} "
+              f"launches {dict(zip((fn.__name__ for fn in counters), launched))}")
+        _check(scores.shape == (b, 1000) and bool(torch.isfinite(scores).all()), f"{tag} b={b} scores malformed")
+        _check(launched == list(expected), f"{tag} b={b}: launches {launched}, expected {list(expected)} a forward")
+    counts = {fn.__name__: fn.launches for fn in counters}
+    _check(all(counts[fn.__name__] for fn, n in zip(counters, expected) if n),
+           f"{tag}: a kernel of the path was never launched: {counts}")
+    for b in requests:
+        ms = _time_ms(lambda: step.scores(model, batches[b]), 10)
+        print(f"{tag} b{b}: {ms:.3f} ms a request (uint8 {SERVE_CANVAS} px canvases, crop {SERVE_CROP}), "
+              f"{b / ms * 1000:.1f} images/s on {smi}")
+    return counts
+
+
+def _card_vs_cpu(tag, model, weights, *flags):
+    """The CLI's f32 model for ``flags`` on the card and on the CPU, the
+    same uint8 b2 canvases through each one's step: scores within
+    ``LOGIT_BOUND`` of their largest magnitude (of 1 where that is less;
+    image-like canvases give resnet50 logits of ~40, randn input ~2)."""
+    card, step = _cli_model(model, weights, *flags)
+    cpu, cpu_step = _cli_model(model, weights, *flags, device="cpu")
+    u8 = _canvases(2, 6)
+    a, b = step.scores(card, u8).cpu(), cpu_step.scores(cpu, u8.cpu())
+    err = (a - b).abs().max().item()
+    bound = LOGIT_BOUND * max(1.0, b.abs().max().item())
+    print(f"{tag} f32 b2, card vs CPU plain path: max|diff| {err:.3e} (bound {bound:.3e}), max|score| "
+          f"{b.abs().max().item():.3f}")
+    _check(a.shape == b.shape and bool(torch.isfinite(a).all()) and err < bound, f"{tag}: card vs CPU {err}")
+
+
+def _int8_against_bf16(tag, q, ref, step, b=8):
+    """int8 scores against the unquantized bf16 model's on one batch."""
+    u8 = _canvases(b, 7)
+    a, r = step.scores(q, u8).float(), step.scores(ref, u8).float()
+    share = ((a - r).abs().max() / r.std()).item()
+    agree = (a.argmax(-1) == r.argmax(-1)).float().mean().item()
+    print(f"{tag} b{b} bf16 against the unquantized bf16 model: max|diff| {(a - r).abs().max().item():.4f}, "
+          f"{share:.3f} of the logits' std (bound {INT8_LOGIT_SHARE}), top-1 agreement {agree:.3f}")
+    _check(bool(torch.isfinite(a).all()) and share < INT8_LOGIT_SHARE, f"{tag}: int8 logits off by {share} std")
+
+
+def _perturbed_layernorms(model, seed):
+    """LayerNorm affines drawn away from 1 and 0 (a fresh model's fold is a no-op)."""
+    from eqxvision_tpu_torch.nn import LayerNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LayerNorm) and m.weight is not None:
+                m.weight.copy_(1 + 0.2 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=gen))
+    return model
+
+
+def _int8_gemm_kernels(fn):
+    """Names of the int8 GEMM kernels ``fn`` launches (cuBLAS's i8/imma)."""
+    names = _device_kernels(fn, iters=2)
+    return sorted(k for k in names if re.search(r"gemm|imma|xmma|cutlass", k, re.I)
+                  and re.search(r"i8|s8|int8|imma", k, re.I))
+
+
+def serve_transforms(create_model, counters, smi):
+    """The serving path through the eval CLI (``cli.eval_imagenet``'s
+    ``build_model`` and ``make_step``) on seeded uint8 canvases, full width
+    and depth, bf16: resnet50 ``--int8``; vit_base ``--fold-ln``,
+    ``--int8`` and ``--int8 --int8-act``; swin_t ``--int8`` and a ten-crop
+    step; ``resize_pos_embed`` to 384 px; ``get_last_self_attention``;
+    ``export_inference`` of vit_base and of resnet50 with a baked uint8
+    preprocess, saved, loaded and run; ``checked_call`` on a planted NaN.
+    Returns the counts of the int8 vit_base requests."""
+    import tempfile
+
+    from eqxvision_tpu_torch.cli import eval_imagenet as cli
+    from eqxvision_tpu_torch.export import export_inference, load_exported, save_exported
+    from eqxvision_tpu_torch.models.classification import resize_pos_embed
+    from eqxvision_tpu_torch.nn import BatchNorm
+    from eqxvision_tpu_torch.observability import checked_call
+    from eqxvision_tpu_torch.ops import imagenet_eval_pipeline
+    from eqxvision_tpu_torch.quantize import DynActInt8Linear, QuantConv2d, QuantLinear
+
+    print(f"serving transforms on {smi}")
+    none = (0,) * len(counters)
+    tmp = tempfile.TemporaryDirectory()
+    r50_file, vit_file, swin_file = (f"{tmp.name}/{n}.pt" for n in ("resnet50", "vit_base", "swin_t"))
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    r50 = calibrate_batchnorm(create_model("resnet50", generator=gen(), device="cuda"), SERVE_CROP)
+    torch.save(r50.state_dict(), r50_file)
+    vit = _perturbed_layernorms(create_model("vit_base", generator=gen(), device="cuda").eval(), 8)
+    torch.save(vit.state_dict(), vit_file)
+    torch.save(create_model("swin_t", generator=gen(), device="cuda").state_dict(), swin_file)
+
+    # resnet50 --int8: BatchNorm folded, every conv and the fc quantized
+    q, step = _cli_model("resnet50", r50_file, "--bf16", "--int8")
+    kinds = {type(m).__name__ for m in q.modules()}
+    _check("QuantConv2d" in kinds and "QuantLinear" in kinds and "BatchNorm" not in kinds and "Conv2d" not in kinds,
+           f"resnet50 --int8 layers: {sorted(kinds)}")
+    _card_vs_cpu("resnet50 --int8", "resnet50", r50_file, "--int8")
+    ref, _ = _cli_model("resnet50", r50_file, "--bf16")
+    _int8_against_bf16("resnet50 --int8", q, ref, step)
+    _serve_requests("resnet50 --bf16 --int8", q, step, counters, none, smi, requests=(SERVE_REQUESTS[-1],))
+    del q, ref
+
+    # vit_base --fold-ln: f32 folded against unfolded on the card, then bf16 requests on both fused halves
+    plain, step32 = _cli_model("vit_base", vit_file)
+    folded, _ = _cli_model("vit_base", vit_file, "--fold-ln")
+    _check(all(b.norm1.weight is None and b.norm2.weight is None for b in folded.blocks), "vit_base not folded")
+    u8 = _canvases(8, 9)
+    a, r = step32.scores(folded, u8), step32.scores(plain, u8)
+    err = (a - r).abs().max().item()
+    print(f"vit_base --fold-ln f32 b8 against unfolded on the card: max|diff| {err:.3e} (bound {LOGIT_BOUND}), "
+          f"max|logit| {r.abs().max().item():.3f}")
+    _check(err < LOGIT_BOUND, f"vit_base --fold-ln: folded and unfolded logits differ by {err}")
+    del plain, folded
+    m, step = _cli_model("vit_base", vit_file, "--bf16", "--fold-ln")
+    _serve_requests("vit_base --bf16 --fold-ln", m, step, counters, (0, 0, 0, 1, 0, 12, 12, 0), smi)
+    ref, _ = _cli_model("vit_base", vit_file, "--bf16")
+    _serve_requests("vit_base --bf16", ref, step, counters, (0, 0, 0, 1, 0, 12, 12, 0), smi, requests=(1, 8))
+
+    # vit_base --int8: the blocks call the quantized layers, K6 -> qkv -> K1 -> proj, K6 -> MLP
+    _card_vs_cpu("vit_base --int8", "vit_base", vit_file, "--int8")
+    q, step = _cli_model("vit_base", vit_file, "--bf16", "--int8")
+    _check(all(isinstance(getattr(b.attn, n), QuantLinear) for b in q.blocks for n in ("qkv", "proj"))
+           and isinstance(q.patch_embed.proj, QuantConv2d), "vit_base --int8 layers")
+    _int8_against_bf16("vit_base --int8", q, ref, step)
+    int8_counts = _serve_requests("vit_base --bf16 --int8", q, step, counters, (12, 0, 0, 25, 0, 0, 0, 0), smi)
+
+    # vit_base --int8 --int8-act: w8a8 Linears on cuBLAS's int8 GEMM, weight-only int8 convs
+    qa, step = _cli_model("vit_base", vit_file, "--bf16", "--int8", "--int8-act")
+    linears = [m for m in qa.modules() if isinstance(m, QuantLinear)]
+    _check(len(linears) == 49 and all(isinstance(m, DynActInt8Linear) for m in linears)
+           and isinstance(qa.patch_embed.proj, QuantConv2d), "vit_base --int8 --int8-act layers")
+    _int8_against_bf16("vit_base --int8 --int8-act", qa, ref, step)
+    _serve_requests("vit_base --bf16 --int8 --int8-act", qa, step, counters, (12, 0, 0, 25, 0, 0, 0, 0), smi)
+    u8 = _canvases(8, 10)
+    int8_gemms = _int8_gemm_kernels(lambda: step.scores(qa, u8))
+    print(f"vit_base --int8 --int8-act b8: int8 GEMM kernels {int8_gemms}")
+    _check(bool(int8_gemms), "vit_base --int8 --int8-act: the profiler saw no int8 GEMM kernel")
+    del q, qa
+
+    # swin_t --int8: the fused kernels read the dequantized weights; then a ten-crop step
+    _card_vs_cpu("swin_t --int8", "swin_t", swin_file, "--int8")
+    q, step = _cli_model("swin_t", swin_file, "--bf16", "--int8")
+    _serve_requests("swin_t --bf16 --int8", q, step, counters, (0, 0, 4, 5, 0, 8, 0, 8), smi, requests=(8,))
+    tta = cli.make_step(_cli_args("swin_t", "--torch-weights", swin_file, "--bf16", "--int8", "--tta", "ten_crop"))
+    u8, labels = _canvases(8, 11), torch.arange(8, device="cuda")
+    _reset(counters)
+    probs = tta.scores(q, u8)
+    top1, top5 = tta(q, u8, labels)
+    counts = {fn.__name__: fn.launches for fn in counters}
+    rows = probs.sum(-1)
+    print(f"swin_t --int8 --tta ten_crop b8 (80 crops a forward): probs {tuple(probs.shape)}, row sums "
+          f"[{rows.min().item():.6f}, {rows.max().item():.6f}], top1 {int(top1)} top5 {int(top5)}, launches {counts}")
+    _check(probs.shape == (8, 1000) and bool(torch.isfinite(probs).all()) and (rows - 1).abs().max() < 1e-4,
+           "swin_t ten-crop probabilities malformed")
+    _check([counts[fn.__name__] for fn in counters] == [0, 0, 8, 10, 0, 16, 0, 16], f"swin_t ten-crop: {counts}")
+    ms = _time_ms(lambda: tta(q, u8, labels), 5)
+    print(f"swin_t --bf16 --int8 --tta ten_crop b8: {ms:.3f} ms a request, {8 / ms * 1000:.1f} images/s on {smi}")
+    del q
+
+    # resize_pos_embed to 384 px (577 tokens): f32 card against CPU, then bf16 b32 on the fused halves
+    vit = create_model("vit_base", device="cuda", torch_weights=vit_file).eval()
+    big = resize_pos_embed(vit, 384)
+    cpu_big = resize_pos_embed(create_model("vit_base", device="cpu", torch_weights=vit_file).eval(), 384)
+    x2 = torch.randn(2, 384, 384, 3, generator=torch.Generator().manual_seed(12))
+    with torch.inference_mode():
+        pe_err = (big.pos_embed.cpu() - cpu_big.pos_embed).abs().max().item()
+        err = (big(x2.cuda()).cpu() - cpu_big(x2)).abs().max().item()
+    print(f"resize_pos_embed(vit_base, 384): pos_embed {tuple(big.pos_embed.shape)} card vs CPU {pe_err:.3e}; f32 b2 "
+          f"logits card vs CPU plain path: max|diff| {err:.3e} (bound {LOGIT_BOUND})")
+    _check(tuple(big.pos_embed.shape) == (1, 577, 768) and err < LOGIT_BOUND, f"resize_pos_embed: {err}")
+    del cpu_big
+    big = big.to(torch.bfloat16)
+    x32 = torch.randn(32, 384, 384, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(13))
+    x32 = x32.to(torch.bfloat16)
+    _reset(counters)
+    with torch.inference_mode():
+        logits = big(x32)
+    counts = {fn.__name__: fn.launches for fn in counters}
+    print(f"vit_base 384 px b32 bf16: logits {tuple(logits.shape)}, launches {counts}")
+    _check([counts[fn.__name__] for fn in counters] == [0, 0, 0, 1, 0, 12, 12, 0], f"vit_base 384 px: {counts}")
+    with torch.inference_mode():
+        ms = _time_ms(lambda: big(x32), 10)
+    print(f"vit_base 384 px b32 bf16: {ms:.3f} ms a request, {32 / ms * 1000:.1f} images/s on {smi}")
+    del big, x32
+
+    # get_last_self_attention at b8: f32 card against CPU
+    cpu_vit = create_model("vit_base", device="cpu", torch_weights=vit_file).eval()
+    x8 = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(14))
+    with torch.inference_mode():
+        card = vit.get_last_self_attention(x8.cuda()).cpu()
+        cpu = cpu_vit.get_last_self_attention(x8)
+    err = (card - cpu).abs().max().item()
+    print(f"get_last_self_attention vit_base b8 f32 {tuple(card.shape)}: card vs CPU max|diff| {err:.3e} "
+          f"(bound {PROBS_BOUND})")
+    _check(card.shape == (8, 12, 197, 197) and err < PROBS_BOUND, f"get_last_self_attention: {err}")
+    del cpu_vit
+
+    # export: vit_base b8 bf16, and resnet50 b8 behind a baked uint8 preprocess; saved, loaded, run
+    x = torch.randn(8, 224, 224, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(15))
+    x = x.to(torch.bfloat16)
+    t0 = time.perf_counter()
+    program = export_inference(vit, 8, 224, dtype=torch.bfloat16)
+    save_exported(program, f"{tmp.name}/vit_base.pt2")
+    loaded = load_exported(f"{tmp.name}/vit_base.pt2").module()
+    print(f"vit_base b8 bf16 exported, saved and loaded in {time.perf_counter() - t0:.1f} s")
+    eager = vit.to(torch.bfloat16)
+    with torch.inference_mode():
+        want = eager(x)
+        _reset(counters)
+        got = loaded(x)
+        torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counters}
+    names = sorted({k for k in _device_kernels(lambda: loaded(x), iters=2) if any(n in k for n in PORT_KERNELS)})
+    print(f"loaded vit_base program b8: equal to eager {torch.equal(got, want)} (max|diff| "
+          f"{(got.float() - want.float()).abs().max().item():.3e}), launches {counts}, the port's kernels in its "
+          f"trace {names}")
+    _check(torch.equal(got, want), "the loaded vit_base program's logits differ from eager")
+    _check([counts[fn.__name__] for fn in counters] == [0, 0, 0, 1, 0, 12, 12, 0], f"loaded vit_base: {counts}")
+    _check(all(any(n in k for k in names) for n in ("attention_stage", "gemm_bf16", "layer_norm")),
+           f"the loaded vit_base program's trace lacks the port's kernels: {names}")
+    for tag, fn in (("eager", lambda: eager(x)), ("loaded program", lambda: loaded(x))):
+        with torch.inference_mode():
+            ms = _time_ms(fn, 10)
+        print(f"vit_base b8 bf16 {tag}: {ms:.3f} ms a request, {8 / ms * 1000:.1f} images/s on {smi}")
+    del program, loaded, eager, vit
+
+    preprocess = functools.partial(imagenet_eval_pipeline, resize_size=SERVE_CANVAS, crop_size=SERVE_CROP,
+                                   dtype=torch.bfloat16)
+    program = export_inference(r50, 8, SERVE_CANVAS, dtype=torch.bfloat16, input_dtype=torch.uint8,
+                               preprocess_fn=preprocess)
+    save_exported(program, f"{tmp.name}/resnet50.pt2")
+    loaded = load_exported(f"{tmp.name}/resnet50.pt2").module()
+    eager, step = _cli_model("resnet50", r50_file, "--bf16")
+    u8 = _canvases(8, 16)
+    with torch.inference_mode():
+        got, want = loaded(u8), step.scores(eager, u8)
+    print(f"loaded resnet50 program b8 (uint8 {SERVE_CANVAS} px in, preprocess baked): {tuple(got.shape)}, equal to "
+          f"the eager step {torch.equal(got, want)} (max|diff| {(got.float() - want.float()).abs().max().item():.3e})")
+    _check(torch.equal(got, want), "the loaded resnet50 program's logits differ from the eager step")
+    for tag, fn in (("eager step", lambda: step.scores(eager, u8)), ("loaded program", lambda: loaded(u8))):
+        with torch.inference_mode():
+            ms = _time_ms(fn, 10)
+        print(f"resnet50 b8 uint8 bf16 {tag}: {ms:.3f} ms a request, {8 / ms * 1000:.1f} images/s on {smi}")
+    del program, loaded, eager
+
+    # checked_call: a NaN planted in one convolution's weight is named
+    x = torch.randn(2, 224, 224, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(17))
+    with torch.no_grad():
+        _check(torch.equal(checked_call(r50, x), r50(x)), "checked_call changed the output")
+        r50.layer2[0].conv1.weight[0, 0, 0, 0] = float("nan")
+        try:
+            checked_call(r50, x)
+            _check(False, "checked_call let a planted NaN through")
+        except FloatingPointError as e:
+            print(f"checked_call on resnet50 with a NaN planted in layer2.0.conv1.weight: {e}")
+            _check("layer2.0.conv1 " in str(e), f"checked_call named another module: {e}")
+    _check(not any(isinstance(m, BatchNorm) and m.training for m in r50.modules()), "resnet50 left in training")
+    del r50
+    tmp.cleanup()
+    return int8_counts
+
+
 def _recompute_ms(fn):
     """Device ms of one call of ``fn`` (a train step) in all, and in the
     backward of each kernel's autograd function, which recomputes through
@@ -1973,6 +2293,7 @@ def main():
           f"forward + backward {wide:.3f} ms against {narrow:.3f} in bf16, {11 * (wide - narrow):.3f} ms a step "
           f"(without remat's second forward)")
     check_train_f32(create_model, counters)
+    serve_transforms(create_model, counters, smi)
 
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)

@@ -42,6 +42,6 @@ class MlpProjection(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # ViT's blocks take this path only in training with dropout or drop
-        # path; otherwise they run ops.fused_mlp_half, which rounds as
-        # mlp_forward does.
+        # path, or with quantized Linears; otherwise they run
+        # ops.fused_mlp_half, which rounds as mlp_forward does.
         return mlp_forward(self.fc1, self.act, self.drop1, self.fc2, self.drop2, x)

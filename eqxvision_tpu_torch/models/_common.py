@@ -50,9 +50,30 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# Buffers that torchvision's Swin checkpoints carry and the port computes from
+# the window size; a load skips exactly these (the JAX loader's list).
+DERIVED_BUFFERS = ("relative_position_index", "relative_coords_table", "attn_mask")
+
+
+def load_state(torch_weights: str) -> dict:
+    """A torch ``state_dict`` from a local file, or from a URL through
+    ``torch.hub.load_state_dict_from_url`` (torch's checkpoint cache)."""
+    if str(torch_weights).startswith(("http://", "https://")):
+        return torch.hub.load_state_dict_from_url(torch_weights, map_location="cpu", weights_only=True)
+    return torch.load(torch_weights, map_location="cpu", weights_only=True)
+
+
 def maybe_load_state_dict(model: nn.Module, torch_weights: Optional[str]) -> nn.Module:
-    """Factory tail: load a local torch ``state_dict`` file, strictly."""
-    if torch_weights is not None:
-        state = torch.load(torch_weights, map_location="cpu", weights_only=True)
-        model.load_state_dict(state)
+    """Factory tail: load a torch ``state_dict`` (a local file or a URL)
+    strictly, but for the derived buffers (``DERIVED_BUFFERS``), which the
+    model keeps as it computed them."""
+    if torch_weights is None:
+        return model
+    derived = lambda key: key.rsplit(".", 1)[-1] in DERIVED_BUFFERS  # noqa: E731
+    state = {k: v for k, v in load_state(torch_weights).items() if not derived(k)}
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not derived(k)]
+    if missing or unexpected:
+        raise RuntimeError(f"checkpoint {torch_weights} does not fit {type(model).__name__}: "
+                           f"missing keys {missing}, unexpected keys {unexpected}")
     return model

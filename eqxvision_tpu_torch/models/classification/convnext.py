@@ -40,7 +40,8 @@ class CNBlock(nn.Module):
     layer scale, plus the residual. Everything after the depthwise conv is
     one ``ops.fused_mlp_half`` call (the MLP-half kernel on the card), save
     in training with an active stochastic depth, which drops the branch
-    before the residual add and so runs the layers one by one."""
+    before the residual add, and with quantized Linears (``quantize``),
+    which are called as in the JAX block: those run the layers one by one."""
 
     def __init__(self, dim: int, layer_scale: float, stochastic_depth_prob: float, *, generator, device=None):
         super().__init__()
@@ -58,11 +59,15 @@ class CNBlock(nn.Module):
         self.stochastic_depth = DropPath(stochastic_depth_prob)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.stochastic_depth.p > 0.0:
-            # stochastic depth drops the branch before the residual add
-            out = self.block(x) * self.layer_scale.reshape(-1).to(x.dtype)
-            return x + self.stochastic_depth(out)
         norm, fc1, fc2 = self.block[2], self.block[3], self.block[5]
+        quantized = not (isinstance(fc1, Linear) and isinstance(fc2, Linear))
+        if quantized or self.training and self.stochastic_depth.p > 0.0:
+            # the JAX block's order: gelu on fc1's f32 accumulator, rounded once; stochastic
+            # depth drops the branch before the residual add
+            out = norm(self.block[0](x))
+            out = self.block[4](fc1.preactivation(out)).to(out.dtype)
+            out = fc2(out) * self.layer_scale.reshape(-1).to(out.dtype)
+            return x + self.stochastic_depth(out)
         return fused_mlp_half(
             self.block[0](x), x, norm.weight, norm.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
             self.layer_scale.reshape(-1), norm.eps,

@@ -14,7 +14,11 @@ package; the other v1 blocks (C > 192) run two fused halves,
 ``ops.fused_window_attention_half`` then ``ops.fused_mlp_half``, the
 counterpart of the prototype scripts/ablate_swin4.py; every other block
 (training, v2 with C > 192) runs norm -> qkv -> the window-attention kernel
--> proj -> residual -> MLP.
+-> proj -> residual -> MLP. The fused kernels read the Linears' ``weight``:
+of an int8 model (``quantize``) the dequantized one, cast to the input's
+type in the kernel's wrapper, as the JAX model reads it.
+``remat_blocks=True`` recomputes each block in the backward
+(``vit.remat_call``).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from ...ops import window_attention as wa
 from ...ops import window_attention_half as wah
 from ...ops.mlp_half import fused_mlp_half
 from .._common import debatch, default_generator, ensure_nhwc, maybe_load_state_dict, resolve_device
+from .vit import remat_call
 
 
 def _merge(x: torch.Tensor) -> torch.Tensor:
@@ -255,6 +260,7 @@ class SwinTransformer(nn.Module):
         num_classes: int = 1000,
         block: Optional[Callable[..., nn.Module]] = None,
         downsample_layer: Callable[..., nn.Module] = _PatchMerging,
+        remat_blocks: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
         device: Union[str, torch.device] = "cuda",
@@ -263,6 +269,7 @@ class SwinTransformer(nn.Module):
         generator = default_generator(generator)
         device = resolve_device(device)
         kw = dict(generator=generator, device=device)
+        self.remat_blocks = bool(remat_blocks)
         block = block or _SwinTransformerBlock
         layers = [
             nn.Sequential(
@@ -295,9 +302,17 @@ class SwinTransformer(nn.Module):
         self.norm = LayerNorm(num_features, device=device)
         self.head = Linear(num_features, num_classes, **kw)
 
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.remat_blocks:
+            return self.features(x)
+        for layer in self.features:
+            stage = isinstance(layer, nn.Sequential) and all(isinstance(b, _SwinTransformerBlock) for b in layer)
+            x = functools.reduce(lambda t, blk: remat_call(blk, t), layer, x) if stage else layer(x)
+        return x
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, single = ensure_nhwc(x)
-        x = self.norm(self.features(x))
+        x = self.norm(self._features(x))
         return debatch(self.head(x.mean(dim=(1, 2))), single)
 
 

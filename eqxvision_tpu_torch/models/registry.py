@@ -8,8 +8,20 @@ from typing import Any, Callable, Dict, List
 
 from torch import nn
 
+from ..weights.urls import CLASSIFICATION_URLS, SEGMENTATION_URLS
 from . import classification as C
 from . import segmentation as S
+
+# registry name -> URL-table key where they differ
+_PRETRAINED_KEYS = {
+    "shufflenet_v2_x0_5": "shufflenetv2_x0.5",
+    "shufflenet_v2_x1_0": "shufflenetv2_x1.0",
+    "vit_small": "vit_small_patch16_224_dino",
+    "vit_base": "vit_base_patch16_224_dino",
+    "fcn": "fcn_resnet50",
+    "deeplabv3": "deeplabv3_resnet50",
+    "lraspp_mobilenet_v3_large": "lraspp_mobilenetv3_large",
+}
 
 _NAMES = (
     "alexnet",
@@ -95,12 +107,18 @@ def list_models() -> List[str]:
 
 def create_model(name: str, pretrained: bool = False, **kwargs: Any) -> nn.Module:
     """Build a model by name. Factory keywords pass through, including
-    ``generator=``, ``device=`` and ``torch_weights=<local state_dict file>``."""
+    ``generator=``, ``device=`` and ``torch_weights=<state_dict file or
+    URL>``. ``pretrained=True`` takes the checkpoint URL from
+    ``weights.urls`` (a DINO checkpoint is headless: ``num_classes=0``
+    unless given)."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; see list_models()")
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained=True needs the checkpoint URL registry, which is not ported yet; "
-            "pass torch_weights=<path to a local state_dict file> instead"
-        )
+    if pretrained and "torch_weights" not in kwargs:
+        key = _PRETRAINED_KEYS.get(name, name)
+        url = CLASSIFICATION_URLS.get(key) or SEGMENTATION_URLS.get(key)
+        if url is None:
+            raise ValueError(f"no pretrained weights registered for {name!r}")
+        kwargs["torch_weights"] = url
+        if "dino" in key:
+            kwargs.setdefault("num_classes", 0)
     return _REGISTRY[name](**kwargs)

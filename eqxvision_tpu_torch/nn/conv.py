@@ -5,9 +5,10 @@ weight is torch's OIHW, (out, in // groups, kh, kw). A contiguous NHWC
 tensor seen through ``permute(0, 3, 1, 2)`` is torch's channels-last
 layout, so the convolution needs no copy. Padding takes the JAX layer's
 forms: an int, a pair (one per spatial dim, both sides), or a pair of
-(before, after) pairs; uneven sides are padded with ``F.pad`` first. The
-JAX layer's opt-in space-to-depth stem (``EQXVISION_TPU_S2D_STEM``) is not
-ported yet. The bias is added, in its stored type, to the f32 accumulator,
+(before, after) pairs; uneven sides are padded with ``F.pad`` first. As in
+the JAX layer, ``EQXVISION_TPU_S2D_STEM=1`` sends a stride-2 convolution of
+at most 4 input channels with even padding through the exact
+space-to-depth rewrite (``ops.space_to_depth``), opt-in. The bias is added, in its stored type, to the f32 accumulator,
 which is rounded once: one call where the bias has the input's type, else
 (f32 parameters and a bf16 input) the convolution runs in f32 on the upcast
 operands, which holds every product exactly, and is rounded after the bias.
@@ -20,6 +21,7 @@ choice and its measurements.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -78,16 +80,31 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(init.uniform_fan_in((out_channels,), fan_in, **kw)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (
+            self.stride == (2, 2)
+            and self.groups == 1
+            and self.dilation == (1, 1)
+            and os.environ.get("EQXVISION_TPU_S2D_STEM") == "1"
+        ):
+            from ..ops import space_to_depth as s2d  # lazy: ops imports nn
+
+            if s2d.applicable(self.in_channels, self.stride, self.kernel_size, self.padding):
+                return s2d.conv2d_stride2_s2d(x, self.weight, self.bias, self.padding)
         dt = x.dtype
-        (top, bottom), (left, right) = self.padding
-        if top == bottom and left == right:
-            padding = (top, left)
-        else:  # uneven sides: pad H and W of the NHWC tensor, then convolve unpadded
-            x = F.pad(x, (0, 0, left, right, top, bottom))
-            padding = (0, 0)
         w, bias = self.weight.to(dt), self.bias
         if bias is not None and bias.dtype != dt:
             wide = torch.promote_types(dt, torch.float32)
             x, w, bias = x.to(wide), w.to(wide), bias.to(wide)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, bias, self.stride, padding, self.dilation, self.groups)
-        return y.permute(0, 2, 3, 1).to(dt)
+        return conv2d_nhwc(x, w, bias, self.stride, self.padding, self.dilation, self.groups).to(dt)
+
+
+def conv2d_nhwc(x, w, bias, stride, padding, dilation, groups) -> torch.Tensor:
+    """``F.conv2d`` on NHWC ``x`` with an OIHW ``w`` and ``padding`` as
+    (before, after) pairs, in the operands' type; the output is NHWC."""
+    (top, bottom), (left, right) = padding
+    if top == bottom and left == right:
+        pad = (top, left)
+    else:  # uneven sides: pad H and W of the NHWC tensor, then convolve unpadded
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+        pad = (0, 0)
+    return F.conv2d(x.permute(0, 3, 1, 2), w, bias, stride, pad, dilation, groups).permute(0, 2, 3, 1)

@@ -40,19 +40,23 @@ class Linear(nn.Module):
         """The product accumulated in f32 (or x's type where that is wider)
         plus the bias in that type, before the cast to x's type: the JAX
         layer's ``Linear.preactivation``. An activation applied to it acts on
-        the accumulator, not on a rounded output. On the card, where no
-        gradient is taken, a bf16 product keeps the GEMM's f32 accumulator
-        (``torch.mm``'s ``out_dtype``, which has no derivative;
-        ``torch.addmm``'s expands the bias over the output first, which is
-        slower). Otherwise the operands are upcast: exact, since f32 (and
-        TF32) holds every bf16 value, and differentiable."""
-        w = self.weight.to(x.dtype)
-        wide = torch.promote_types(x.dtype, torch.float32)
-        needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-        if x.dtype == wide:
-            y = F.linear(x, w)
-        elif x.device.type == "cuda" and not needs_grad:
-            y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=wide).reshape(*x.shape[:-1], w.shape[0])
-        else:
-            y = F.linear(x.to(wide), w.to(wide))
-        return y if self.bias is None else y + self.bias.to(wide)
+        the accumulator, not on a rounded output."""
+        y = wide_product(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def wide_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` (w in the (out, in) layout, of x's type) accumulated in
+    f32, or in x's type where that is wider, and returned unrounded. On the
+    card, where no gradient is taken, a bf16 product keeps the GEMM's f32
+    accumulator (``torch.mm``'s ``out_dtype``, which has no derivative;
+    ``torch.addmm``'s expands the bias over the output first, which is
+    slower). Otherwise the operands are upcast: exact, since f32 (and TF32)
+    holds every bf16 value, and differentiable."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.dtype == wide:
+        return F.linear(x, w)
+    if x.device.type == "cuda" and not needs_grad:
+        return torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=wide).reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.to(wide), w.to(wide))

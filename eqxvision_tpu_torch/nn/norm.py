@@ -41,6 +41,19 @@ class LayerNorm(nn.Module):
 _STATS = ("running_mean", "running_var")
 
 
+def apply_keeping_f32(module: nn.Module, fn, recurse: bool, names) -> nn.Module:
+    """``nn.Module._apply`` for ``module``, save that its buffers ``names``
+    move with it but stay f32: a cast (``.to(torch.bfloat16)``, ``.half()``)
+    leaves them as they are."""
+    kept = {name: module._buffers[name] for name in names}
+    nn.Module._apply(module, fn, recurse)
+    for name, old in kept.items():
+        new = module._buffers[name]
+        if new.dtype != torch.float32:
+            module._buffers[name] = old.to(new.device)
+    return module
+
+
 class BatchNorm(nn.Module):
     """torch.nn.BatchNorm2d/1d semantics on channels-last input (..., C).
 
@@ -76,13 +89,7 @@ class BatchNorm(nn.Module):
     def _apply(self, fn, recurse=True):
         """Move the statistics with the module but keep them f32: a cast
         (``.to(torch.bfloat16)``, ``.half()``) reaches the affine only."""
-        stats = {name: self._buffers[name] for name in _STATS}
-        super()._apply(fn, recurse)
-        for name, old in stats.items():
-            new = self._buffers[name]
-            if new.dtype != torch.float32:
-                self._buffers[name] = old.to(new.device)
-        return self
+        return apply_keeping_f32(self, fn, recurse, _STATS)
 
     def _affine(self):
         w = None if self.weight is None else self.weight.float()

@@ -1,5 +1,6 @@
 """Ops with a hand-written CUDA kernel and their plain torch versions, and
-the plain ops around them (the BatchNorm fold, window partitioning, the
+the plain ops around them (the BatchNorm and LayerNorm folds, the
+space-to-depth stem, window partitioning, the
 preprocessing and the training augmentations)."""
 from .attention import (
     attention,
@@ -12,6 +13,7 @@ from .attention import (
 )
 from .attention_half import attention_half_reference, fused_attention_half
 from .fold_bn import fold_batchnorm
+from .fold_ln import fold_layernorm
 from .layernorm import layer_norm, layer_norm_reference
 from .mlp_half import fused_mlp_half, mlp_half_reference
 from .window_attention import (
@@ -65,6 +67,7 @@ __all__ = [
     "cutmix",
     "five_crop",
     "fold_batchnorm",
+    "fold_layernorm",
     "fused_attention_half",
     "fused_mlp_half",
     "fused_qkv_attention",

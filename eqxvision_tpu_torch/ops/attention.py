@@ -1,8 +1,9 @@
 """Attention ops of eqxvision_tpu/ops/attention.py.
 
 Counterparts of the JAX package's ``fused_qkv_attention`` (ViT's attention
-on a fused qkv projection, in training with dropout or drop path; inference
-takes ``ops.fused_attention_half``), ``window_qkv_attention``/
+on a fused qkv projection, in training with dropout or drop path and at the
+inference of an int8 ViT; other inference takes
+``ops.fused_attention_half``), ``window_qkv_attention``/
 ``packed_window_attention`` (Swin's windows) and the public ``attention``
 (any lead dims, a compact additive bias). A CUDA tensor goes through a
 hand-written Hopper kernel (``csrc/fused_qkv_attention.cu``, whose
@@ -16,6 +17,7 @@ versions, as the JAX package's custom VJPs do.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -47,6 +49,30 @@ def attention_stage_reference(qkv: torch.Tensor, num_heads: int, scale: float) -
 
 # K1's plain version is the stage's.
 fused_qkv_attention_reference = attention_stage_reference
+
+
+def export_op(name: str, schema: str, kernel, reference, fake):
+    """Register ``eqxvision::<name>`` with ``torch.library`` so that
+    ``torch.export`` keeps a kernel entry as one node: ``kernel`` (the
+    launch) runs it on CUDA, ``reference`` (the plain version) on the CPU,
+    and ``fake`` gives the output's shape and type while tracing. A wrapper
+    goes through the op only while ``torch.compiler.is_exporting()``; the
+    eager path calls its autograd function directly and pays no dispatch.
+    An exported program that is loaded again runs the op, so it launches
+    the same kernel and counts its launches."""
+    op = torch.library.custom_op(f"eqxvision::{name}", kernel, mutates_args=(), device_types="cuda", schema=schema)
+    op.register_kernel("cpu")(reference)
+    op.register_fake(fake)
+    return op
+
+
+@functools.lru_cache(maxsize=None)
+def unit_affine(d: int, dtype: torch.dtype, device: torch.device):
+    """Ones and zeros of length ``d``: the LayerNorm affine that a fused
+    half's kernel reads where the norm has none (after ``fold_layernorm``).
+    ``y * 1 + 0`` in f32 is ``y``, so the kernel computes the affine-free
+    norm exactly."""
+    return torch.ones(d, dtype=dtype, device=device), torch.zeros(d, dtype=dtype, device=device)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -136,10 +162,16 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, scale: Optional[float
         raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
     if scale is None:
         scale = 1.0 / math.sqrt(d // num_heads)
+    if torch.compiler.is_exporting():
+        return _fused_qkv_attention_op(qkv, num_heads, float(scale))
     return _FusedQkvAttention.apply(qkv, num_heads, float(scale))
 
 
 fused_qkv_attention.launches = 0
+_fused_qkv_attention_op = export_op(
+    "fused_qkv_attention", "(Tensor qkv, int num_heads, float scale) -> Tensor", _launch_kernel,
+    fused_qkv_attention_reference, lambda qkv, num_heads, scale: qkv.new_empty((*qkv.shape[:2], qkv.shape[2] // 3)),
+)
 
 
 # --------------------------------------------------------------------------
@@ -268,10 +300,18 @@ def window_qkv_attention(
         raise ValueError(f"cosine_gs needs one value per head ({num_heads}), got {tuple(cosine_gs.shape)}")
     if cosine_gs is not None:
         cosine_gs = cosine_gs.reshape(num_heads)
+    if torch.compiler.is_exporting():
+        return _window_qkv_attention_op(qkv, bias, cosine_gs, num_heads, float(scale))
     return _WindowQkvAttention.apply(qkv, bias, cosine_gs, num_heads, float(scale))
 
 
 window_qkv_attention.launches = 0
+_window_qkv_attention_op = export_op(
+    "window_qkv_attention", "(Tensor qkv, Tensor bias, Tensor? cosine_gs, int num_heads, float scale) -> Tensor",
+    lambda qkv, bias, cosine_gs, num_heads, scale: _launch_window_kernel(qkv, bias, num_heads, scale, cosine_gs),
+    _window_reference_positional,
+    lambda qkv, bias, cosine_gs, num_heads, scale: qkv.new_empty((*qkv.shape[:3], qkv.shape[3] // 3)),
+)
 
 
 # --------------------------------------------------------------------------

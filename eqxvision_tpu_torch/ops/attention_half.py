@@ -28,14 +28,16 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
-from .attention import _DTYPE_CODES, MAX_HEAD_DIM, _aligned, attention_stage_reference, recompute_grads
+from .attention import (
+    _DTYPE_CODES, MAX_HEAD_DIM, _aligned, attention_stage_reference, export_op, recompute_grads, unit_affine,
+)
 from .layernorm import layer_norm_reference
 
 
 def attention_half_reference(
     x: torch.Tensor,
-    ln_weight: torch.Tensor,
-    ln_bias: torch.Tensor,
+    ln_weight: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
     wqkv: torch.Tensor,
     bqkv: Optional[torch.Tensor],
     wproj: torch.Tensor,
@@ -59,7 +61,7 @@ def attention_half_reference(
 def _launch_kernel(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, scale, eps):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_attention_half kernel takes float32 or bfloat16, got {x.dtype}")
-    vectors = [ln_weight, ln_bias, bproj] + ([] if bqkv is None else [bqkv])
+    vectors = [v for v in (ln_weight, ln_bias, bproj, bqkv) if v is not None]
     if any(t.device != x.device for t in (wqkv, wproj, *vectors)):
         raise ValueError(f"fused_attention_half: every tensor must be on {x.device} with x")
     if any(t.dtype not in _DTYPE_CODES for t in (wqkv, wproj, *vectors)):
@@ -71,6 +73,8 @@ def _launch_kernel(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, s
     wqkv, wproj = (_aligned(w.to(x.dtype)) for w in (wqkv, wproj))
     # the vectors are read in their stored type when they share one, else in f32
     param_dtype = vectors[0].dtype if all(v.dtype == vectors[0].dtype for v in vectors) else torch.float32
+    if ln_weight is None:  # a folded norm: the kernel reads unit vectors
+        ln_weight, ln_bias = unit_affine(d, param_dtype, x.device)
     ln_weight, ln_bias, bproj = (v.to(param_dtype).contiguous() for v in (ln_weight, ln_bias, bproj))
     # no qkv bias is a zero one: the GEMM's epilogue always reads its bias
     if bqkv is None:
@@ -126,8 +130,8 @@ class _FusedAttentionHalf(torch.autograd.Function):
 
 def fused_attention_half(
     x: torch.Tensor,
-    ln_weight: torch.Tensor,
-    ln_bias: torch.Tensor,
+    ln_weight: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
     wqkv: torch.Tensor,
     bqkv: Optional[torch.Tensor],
     wproj: torch.Tensor,
@@ -138,7 +142,8 @@ def fused_attention_half(
 ) -> torch.Tensor:
     """``x + proj(attention(qkv(LN(x))))`` over x of shape (B, L, D).
 
-    ln_weight, ln_bias and bproj are (D,), bqkv (3D,) or None; wqkv (3D, D)
+    ln_weight and ln_bias are (D,), or both None for a LayerNorm without
+    affine (``ops.fold_layernorm``'s); bproj is (D,), bqkv (3D,) or None; wqkv (3D, D)
     laid out [q heads | k heads | v heads] and wproj (D, D) in the port's
     ``Linear`` layout (out, in). ``scale`` defaults to 1/sqrt(D / num_heads).
     The projection, its bias and the residual are summed in f32 and rounded
@@ -153,19 +158,27 @@ def fused_attention_half(
         raise ValueError(f"D={d} is not divisible by num_heads={num_heads}")
     if d // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"fused_attention_half takes head_dim <= {MAX_HEAD_DIM}, got {d // num_heads}")
+    if (ln_weight is None) != (ln_bias is None):
+        raise ValueError("fused_attention_half takes both ln_weight and ln_bias, or neither")
     expected = {
         "ln_weight": (ln_weight, (d,)), "ln_bias": (ln_bias, (d,)), "wqkv": (wqkv, (3 * d, d)),
-        "wproj": (wproj, (d, d)), "bproj": (bproj, (d,)),
+        "wproj": (wproj, (d, d)), "bproj": (bproj, (d,)), "bqkv": (bqkv, (3 * d,)),
     }
-    if bqkv is not None:
-        expected["bqkv"] = (bqkv, (3 * d,))
     for name, (t, shape) in expected.items():
-        if tuple(t.shape) != shape:
+        if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"fused_attention_half: expected {name} of shape {shape}, got {tuple(t.shape)}")
     if scale is None:
         scale = (d // num_heads) ** -0.5
-    return _FusedAttentionHalf.apply(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, int(num_heads), float(scale),
-                                     float(eps))
+    args = (x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, int(num_heads), float(scale), float(eps))
+    if torch.compiler.is_exporting():
+        return _fused_attention_half_op(*args)
+    return _FusedAttentionHalf.apply(*args)
 
 
 fused_attention_half.launches = 0
+_fused_attention_half_op = export_op(
+    "fused_attention_half",
+    "(Tensor x, Tensor? ln_weight, Tensor? ln_bias, Tensor wqkv, Tensor? bqkv, Tensor wproj, Tensor bproj, "
+    "int num_heads, float scale, float eps) -> Tensor",
+    _launch_kernel, attention_half_reference, lambda x, *rest: x.new_empty(x.shape),
+)

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from .. import _native
-from .attention import _DTYPE_CODES, recompute_grads
+from .attention import _DTYPE_CODES, export_op, recompute_grads
 
 
 def layer_norm_reference(
@@ -103,7 +103,13 @@ def layer_norm(
         raise ValueError(
             f"expected weight and bias of shape ({d},), got {tuple(weight.shape)} and {tuple(bias.shape)}"
         )
+    if torch.compiler.is_exporting():
+        return _layer_norm_op(x, weight, bias, float(eps))
     return _LayerNorm.apply(x, weight, bias, float(eps))
 
 
 layer_norm.launches = 0
+_layer_norm_op = export_op(
+    "layer_norm", "(Tensor x, Tensor? weight, Tensor? bias, float eps) -> Tensor", _launch_kernel,
+    layer_norm_reference, lambda x, weight, bias, eps: x.new_empty(x.shape),
+)

@@ -25,15 +25,15 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
-from .attention import _DTYPE_CODES, _aligned, recompute_grads
+from .attention import _DTYPE_CODES, _aligned, export_op, recompute_grads, unit_affine
 from .layernorm import layer_norm_reference
 
 
 def mlp_half_reference(
     x: torch.Tensor,
     residual: torch.Tensor,
-    ln_weight: torch.Tensor,
-    ln_bias: torch.Tensor,
+    ln_weight: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
     w1: torch.Tensor,
     b1: torch.Tensor,
     w2: torch.Tensor,
@@ -58,7 +58,7 @@ def _launch_kernel(x, residual, ln_weight, ln_bias, w1, b1, w2, b2, layer_scale,
         raise TypeError(f"fused_mlp_half kernel takes float32 or bfloat16, got {x.dtype}")
     if residual.dtype != x.dtype:
         raise TypeError(f"fused_mlp_half: residual is {residual.dtype}, x is {x.dtype}")
-    vectors = [ln_weight, ln_bias, b1, b2] + ([] if layer_scale is None else [layer_scale])
+    vectors = [v for v in (ln_weight, ln_bias, b1, b2, layer_scale) if v is not None]
     tensors = [residual, w1, w2, *vectors]
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"fused_mlp_half: every tensor must be on {x.device} with x")
@@ -71,6 +71,8 @@ def _launch_kernel(x, residual, ln_weight, ln_bias, w1, b1, w2, b2, layer_scale,
     w1, w2 = (_aligned(w.to(x.dtype)) for w in (w1, w2))
     # the vectors are read in their stored type when they share one, else in f32
     param_dtype = vectors[0].dtype if all(v.dtype == vectors[0].dtype for v in vectors) else torch.float32
+    if ln_weight is None:  # a folded norm: the kernel reads unit vectors
+        ln_weight, ln_bias = unit_affine(c, param_dtype, x.device)
     ln_weight, ln_bias, b1, b2 = (v.to(param_dtype).contiguous() for v in (ln_weight, ln_bias, b1, b2))
     if layer_scale is not None:
         layer_scale = layer_scale.to(param_dtype).contiguous()
@@ -120,8 +122,8 @@ class _FusedMlpHalf(torch.autograd.Function):
 def fused_mlp_half(
     x: torch.Tensor,
     residual: torch.Tensor,
-    ln_weight: torch.Tensor,
-    ln_bias: torch.Tensor,
+    ln_weight: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
     w1: torch.Tensor,
     b1: torch.Tensor,
     w2: torch.Tensor,
@@ -133,7 +135,8 @@ def fused_mlp_half(
     axis of ``x`` (any lead dims).
 
     x and residual have one shape (residual may be x itself, as in ViT);
-    ln_weight, ln_bias, b2 and layer_scale are (C,), b1 (H,); w1 (H, C) and
+    ln_weight and ln_bias are (C,), or both None for a LayerNorm without
+    affine (``ops.fold_layernorm``'s); b2 and layer_scale are (C,), b1 (H,); w1 (H, C) and
     w2 (C, H) in the port's ``Linear`` layout (out, in). ``layer_scale=None``
     means 1. ``fused_mlp_half.launches`` counts kernel launches (one per
     call, which runs the kernel's three launches).
@@ -146,12 +149,22 @@ def fused_mlp_half(
         "residual": (residual, tuple(x.shape)), "ln_weight": (ln_weight, (c,)), "ln_bias": (ln_bias, (c,)),
         "w1": (w1, (hidden, c)), "b1": (b1, (hidden,)), "w2": (w2, (c, hidden)), "b2": (b2, (c,)),
     }
-    if layer_scale is not None:
-        expected["layer_scale"] = (layer_scale, (c,))
+    if (ln_weight is None) != (ln_bias is None):
+        raise ValueError("fused_mlp_half takes both ln_weight and ln_bias, or neither")
+    expected["layer_scale"] = (layer_scale, (c,))
     for name, (t, shape) in expected.items():
-        if tuple(t.shape) != shape:
+        if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"fused_mlp_half: expected {name} of shape {shape}, got {tuple(t.shape)}")
-    return _FusedMlpHalf.apply(x, residual, ln_weight, ln_bias, w1, b1, w2, b2, layer_scale, float(eps))
+    args = (x, residual, ln_weight, ln_bias, w1, b1, w2, b2, layer_scale, float(eps))
+    if torch.compiler.is_exporting():
+        return _fused_mlp_half_op(*args)
+    return _FusedMlpHalf.apply(*args)
 
 
 fused_mlp_half.launches = 0
+_fused_mlp_half_op = export_op(
+    "fused_mlp_half",
+    "(Tensor x, Tensor residual, Tensor? ln_weight, Tensor? ln_bias, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+    "Tensor? layer_scale, float eps) -> Tensor",
+    _launch_kernel, mlp_half_reference, lambda x, *rest: x.new_empty(x.shape),
+)

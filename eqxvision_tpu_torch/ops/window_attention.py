@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
-from .attention import _DTYPE_CODES, recompute_grads, window_qkv_attention, window_qkv_attention_reference
+from .attention import _DTYPE_CODES, export_op, recompute_grads, window_qkv_attention, window_qkv_attention_reference
 
 _LOG_100 = math.log(100.0)
 
@@ -75,9 +75,16 @@ def _shift_attention_mask(pad_h: int, pad_w: int, wh: int, ww: int, sh: int, sw:
     return np.where(attn_mask == 0, 0.0, -100.0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
 def _shift_mask_on(device: torch.device, *shape_args: int) -> torch.Tensor:
-    """The shift mask as an f32 tensor, copied to ``device`` once."""
+    """The shift mask as an f32 tensor, copied to ``device`` once (a tensor
+    made while ``torch.export`` traces is a fake one and is not kept)."""
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(_shift_attention_mask(*shape_args)).to(device)
+    return _shift_mask_cached(device, *shape_args)
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_mask_cached(device: torch.device, *shape_args: int) -> torch.Tensor:
     return torch.from_numpy(_shift_attention_mask(*shape_args)).to(device)
 
 
@@ -450,11 +457,31 @@ def fused_swin_block(
     for field, t, shape in zip(SwinBlockParams._fields, params, shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_swin_block: {field} has shape {tuple(t.shape)}, expected {shape}")
-    return _FusedSwinBlock.apply(xw, bias, cosine_gs, *params, num_heads, float(scale), float(eps), bool(postnorm),
-                                 window_size, shift_size)
+    args = (xw, bias, cosine_gs, *params, num_heads, float(scale), float(eps), bool(postnorm))
+    if torch.compiler.is_exporting():
+        return _fused_swin_block_op(*args, list(window_size), list(shift_size))
+    return _FusedSwinBlock.apply(*args, window_size, shift_size)
 
 
 fused_swin_block.launches = 0
+
+
+def _block_op_kernel(x, bias, cosine_gs, *rest):
+    params, (num_heads, scale, eps, postnorm, window_size, shift_size) = SwinBlockParams(*rest[:12]), rest[12:]
+    return _launch_block_kernel(x, params, bias, num_heads, scale, eps, postnorm, cosine_gs, tuple(window_size),
+                                tuple(shift_size))
+
+
+def _block_op_reference(x, bias, cosine_gs, *rest):
+    return _block_map_reference(x, bias, cosine_gs, *rest[:16], tuple(rest[16]), tuple(rest[17]))
+
+
+_fused_swin_block_op = export_op(
+    "fused_swin_block",
+    "(Tensor x, Tensor bias, Tensor? cosine_gs, " + ", ".join(f"Tensor {f}" for f in SwinBlockParams._fields)
+    + ", int num_heads, float scale, float eps, bool postnorm, int[] window_size, int[] shift_size) -> Tensor",
+    _block_op_kernel, _block_op_reference, lambda x, *rest: x.new_empty(x.shape),
+)
 
 
 def _fused_swin_block(

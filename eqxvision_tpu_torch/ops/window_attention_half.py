@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _native
-from .attention import _DTYPE_CODES, _aligned, recompute_grads
+from .attention import _DTYPE_CODES, _aligned, export_op, recompute_grads
 from .layernorm import layer_norm_reference
 from .window_attention import _Windows, _from_windows, _to_windows, _window_bias
 
@@ -62,11 +62,18 @@ def window_attention_half_supported(c: int, num_heads: int, L: int) -> bool:
     )
 
 
-@functools.lru_cache(maxsize=None)
 def _valid_rows_on(device: torch.device, geo: _Windows, wh: int, ww: int) -> Optional[torch.Tensor]:
     """(nW, L) flags of the windows' tokens that lie in the image, computed
-    with numpy from the static geometry and copied to ``device`` once; None
-    where the map is a multiple of the window (no padding)."""
+    with numpy from the static geometry and copied to ``device`` once (a
+    tensor made while ``torch.export`` traces is a fake one and is not
+    kept); None where the map is a multiple of the window (no padding)."""
+    if torch.compiler.is_exporting():
+        return _valid_rows.__wrapped__(device, geo, wh, ww)
+    return _valid_rows(device, geo, wh, ww)
+
+
+@functools.lru_cache(maxsize=None)
+def _valid_rows(device: torch.device, geo: _Windows, wh: int, ww: int) -> Optional[torch.Tensor]:
     if (geo.ph, geo.pw) == (geo.h, geo.w):
         return None
     valid = np.zeros((geo.ph, geo.pw), bool)
@@ -231,11 +238,22 @@ def fused_window_attention_half(
             raise ValueError(f"fused_window_attention_half: expected {name} of shape {shape}, got {tuple(t.shape)}")
     if scale is None:
         scale = (c // num_heads) ** -0.5
-    return _FusedWindowAttentionHalf.apply(x_windows, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, bias, valid,
-                                           int(num_heads), float(scale), float(eps))
+    args = (x_windows, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, bias, valid, int(num_heads), float(scale),
+            float(eps))
+    if torch.compiler.is_exporting():
+        return _fused_window_attention_half_op(*args)
+    return _FusedWindowAttentionHalf.apply(*args)
 
 
 fused_window_attention_half.launches = 0
+_fused_window_attention_half_op = export_op(
+    "fused_window_attention_half",
+    "(Tensor x, Tensor ln_weight, Tensor ln_bias, Tensor wqkv, Tensor? bqkv, Tensor wproj, Tensor bproj, "
+    "Tensor bias, Tensor? valid, int num_heads, float scale, float eps) -> Tensor",
+    lambda x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, bias, valid, num_heads, scale, eps: _launch_kernel(
+        x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, bias, num_heads, scale, eps, valid),
+    _reference_positional, lambda x, *rest: x.new_empty(x.shape),
+)
 
 
 def window_attention_half_v1(

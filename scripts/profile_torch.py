@@ -3,7 +3,7 @@
 Run from the root of the repository on a machine with a CUDA card:
 
     python3 scripts/profile_torch.py [--model convnext_tiny --model vit_base ...] [--forwards 3] [--dtype float32]
-        [--widen-bf16-conv] [--no-cudnn-tf32] [--fold-bn] [--by-layer]
+        [--widen-bf16-conv] [--no-cudnn-tf32] [--fold-bn] [--by-layer] [--transforms int8 --transforms fold-ln ...]
 
 For each ``--model`` (default: convnext_tiny, vit_base, swin_t, swin_v2_t, resnet50;
 any name of ``create_model``), in one process, at the size and batch
@@ -34,7 +34,10 @@ BatchNorm, squeeze-excitation as a whole, activation layer, linear) and
 prints the device time of each kind a forward, the rest (residual adds,
 pooling, casts, functional activations such as ResNet's ``F.relu``) as
 "other"; the ranges cost host time, so the idle share is the first
-recording's. Imports nothing of JAX.
+recording's. ``--transforms int8+int8-act`` (repeatable; names from
+fold-ln, int8, int8-act) also profiles each model built as the eval CLI
+builds it with those flags (``cli.eval_imagenet.build_model``, seed 0).
+Imports nothing of JAX.
 """
 import argparse
 import subprocess
@@ -152,16 +155,24 @@ def profile_layers(model, x, forwards, device_ms):
     print(f"{'other':<24} {other:9.3f} {'':>7} {other / total:7.1%}")
 
 
-def profile_model(create_model, name, batch, forwards, top, dtype, widen=False, fold=False, by_layer=False):
+def profile_model(create_model, name, batch, forwards, top, dtype, widen=False, fold=False, by_layer=False,
+                  transforms=()):
     from torch.profiler import ProfilerActivity, profile
 
+    from eqxvision_tpu_torch.cli import eval_imagenet
     from eqxvision_tpu_torch.ops import fold_batchnorm
 
     size = 256 if name.startswith("swin_v2") else 520 if name in SEGMENTATION else 224
     batch = batch or (256 if name.startswith(BATCH_256) else 8 if name in SEGMENTATION else 128)
-    model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda",
-                         **SEGMENTATION.get(name, {})).eval()
-    model = (fold_batchnorm(model) if fold else model).to(dtype)
+    if transforms:  # the eval CLI's serving transforms, in its order, on the model from seed 0
+        flags = {t.replace("-", "_"): True for t in transforms}
+        model = eval_imagenet.build_model(argparse.Namespace(
+            model=name, device="cuda", torch_weights=None, pretrained=False, bf16=dtype == torch.bfloat16,
+            **{k: flags.get(k, False) for k in ("fold_ln", "int8", "int8_act")}))
+    else:
+        model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda",
+                             **SEGMENTATION.get(name, {})).eval()
+        model = (fold_batchnorm(model) if fold else model).to(dtype)
     x = torch.randn(batch, size, size, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
     x = x.to(dtype)
     if widen:
@@ -176,7 +187,8 @@ def profile_model(create_model, name, batch, forwards, top, dtype, widen=False, 
             wall_ms = (time.perf_counter() - t0) * 1e3
     rows = _kernel_rows(prof, forwards)
     device_ms = sum(r[1] for r in rows) * forwards
-    label = (" (bf16 convs widened)" if widen else "") + (" (BatchNorm folded)" if fold else "")
+    label = ((" (bf16 convs widened)" if widen else "") + (" (BatchNorm folded)" if fold else "")
+             + "".join(f" --{t}" for t in transforms))
     print(f"\n{name} {size}px b{batch} {str(dtype)[6:]}{label}: {ms:.3f} ms per forward, {batch / ms * 1e3:.1f} images/s (CUDA events, "
           f"10 forwards)")
     print(f"profile, {forwards} forwards: wall {wall_ms:.2f} ms, device kernel time {device_ms:.2f} ms, "
@@ -201,6 +213,9 @@ def main():
     ap.add_argument("--no-cudnn-tf32", action="store_true", help="cuDNN's TF32 off, as chip_smoke.py sets it")
     ap.add_argument("--fold-bn", action="store_true", help="also each model with its BatchNorms folded")
     ap.add_argument("--by-layer", action="store_true", help="also device time by layer kind")
+    ap.add_argument("--transforms", action="append", default=[],
+                    help="repeatable: also each model with the eval CLI's serving transforms, '+'-joined from "
+                         "fold-ln, int8, int8-act (e.g. int8+int8-act)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
@@ -220,6 +235,9 @@ def main():
         for fold in (False, True) if args.fold_bn else (False,):
             profile_model(create_model, name, args.batch, args.forwards, args.top, getattr(torch, args.dtype),
                           args.widen_bf16_conv, fold, args.by_layer)
+        for transforms in args.transforms:
+            profile_model(create_model, name, args.batch, args.forwards, args.top, getattr(torch, args.dtype),
+                          by_layer=args.by_layer, transforms=tuple(transforms.split("+")))
     return 0
 
 

@@ -97,7 +97,7 @@ def test_vit_base_state_dict_matches_manifest():
     assert got == doc["entries"]
 
 
-def test_same_seed_same_weights_and_registry():
+def test_same_seed_same_weights_and_registry(monkeypatch):
     a = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3), device="cpu")
     b = create_model("vit_tiny", img_size=32, depth=1, generator=torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
@@ -118,8 +118,18 @@ def test_same_seed_same_weights_and_registry():
         "vgg11", "vgg11_bn", "vgg13", "vgg13_bn", "vgg16", "vgg16_bn", "vgg19", "vgg19_bn",
         "vit_base", "vit_small", "vit_tiny", "wide_resnet101_2", "wide_resnet50_2",
     ]
-    with pytest.raises(NotImplementedError):
-        create_model("vit_base", pretrained=True)
+    # pretrained=True takes the DINO checkpoint's URL and fetches it through torch.hub, stubbed here (no test
+    # fetches a URL); the headless checkpoint means num_classes 0
+    fetched = []
+
+    def fetch(url, **kwargs):
+        fetched.append(url)
+        return {k: v for k, v in create_model("vit_base", depth=1, num_classes=0, device="cpu").state_dict().items()}
+
+    monkeypatch.setattr(torch.hub, "load_state_dict_from_url", fetch)
+    model = create_model("vit_base", pretrained=True, depth=1, device="cpu")
+    assert fetched == ["https://dl.fbaipublicfiles.com/dino/dino_vitbase16_pretrain/dino_vitbase16_pretrain.pth"]
+    assert isinstance(model.head, torch.nn.Identity)
     with pytest.raises(ValueError):
         create_model("no_such_model")
 
