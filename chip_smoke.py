@@ -1,7 +1,9 @@
-"""Drive the PyTorch port's inference, training and serving paths once on one NVIDIA card.
+"""Drive the PyTorch port's inference, training and serving paths once on one NVIDIA card (several ranks in phase 10).
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs a
 CUDA card and exits non-zero without one; it imports nothing of JAX.
+``python3 chip_smoke.py --only-parallel`` builds the kernels and runs
+phase 10 alone (on as many cards as are visible), with no result line.
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``eqxvision_tpu_torch/csrc`` with nvcc (one
@@ -125,6 +127,23 @@ CUDA card and exits non-zero without one; it imports nothing of JAX.
    ViT launching the port's kernels (counts and profiler names); and
    ``checked_call`` naming the conv with a planted NaN. Each request's ms
    and images/s beside the card's name and power limit.
+10. Trains on several ranks (4 ranks placed by ``parallel.launch.placement``:
+   one a card over NCCL with four cards or more, else round-robin on the
+   cards over gloo, all four on one card where there is one; the kernels
+   built by this process first, which the ranks load): vit_base on a 2
+   data x 2 model mesh (every block split, 6 heads a rank), three bf16
+   AdamW steps at global b64 with drop path 0.1 and remat, each rank's
+   launches asserted (K1 with 6 heads, K6, no fused half); one f32
+   vit_base b8 SGD step on the 2 x 2 mesh against the one-card step
+   (``check_train_f32``'s bounds, parameters joined by shard); swin_t on
+   the 2 x 2 mesh, one bf16 step (K3 on local heads, K6, no whole block or
+   half); resnet50 on 4 data ranks with synchronised BatchNorm, three bf16
+   SGD steps, then its running statistics from one f32 training forward
+   against one card's on the same global batch. Each model's ms a step,
+   images/s and peak memory a rank beside the card's name and power limit
+   (ranks sharing a card give no multi-card speed). Then the entry point
+   ``entry.dryrun_multichip(4)`` on the cards, placed the same way: both
+   losses finite. Any rank's failure fails the run.
 
 Every device time read from a profiler trace comes from a trace that holds
 the kernels asked for: an empty one is taken again, and fails the run if it
@@ -2212,6 +2231,293 @@ def serve_attention(A, counters):
     return counts
 
 
+# Phase 10, several ranks: the world (4 ranks, launch.placement: one a card
+# over NCCL with four cards, else round-robin on the cards over gloo, which
+# all-reduces and broadcasts CUDA tensors, where NCCL refuses two ranks on
+# one card; the 2 x 2 mesh needs the four ranks), the models, and what a
+# step of each launches on every rank (fused-qkv, window attention, whole
+# block, LayerNorm, public attention, MLP half, attention half, Swin attention
+# half). vit_base 2 x 2 with drop path 0.1 and remat: every block split (12
+# heads, 6 a rank), K1 between K6s in all 12 blocks, the forward twice: 24 K1
+# and 50 K6, no half. swin_t 2 x 2: stage 1's 3-head blocks stay whole, the
+# rest split; every block unfused as in one-card training: 12 K3, 29 K6.
+PARALLEL_WORLD = 4
+PARALLEL_STEPS = 3
+PARALLEL_VIT_EXPECTED = (24, 0, 0, 50, 0, 0, 0, 0)
+PARALLEL_SWIN_EXPECTED = (0, 12, 0, 29, 0, 0, 0, 0)
+# The f32 vit_base step on the 2 x 2 mesh against the one-card step (both on
+# the card, kernels on, TF32 off): check_train_f32's bounds.
+PARALLEL_F32_BATCH = 8
+# resnet50's running statistics from one f32 training-mode forward of a global
+# b32 at momentum 1 on 4 data ranks against one card: f32 sums in another
+# order, combined in f64, through 53 BatchNorms, cuDNN's f32 convolutions
+# picking their algorithms by batch size; each mean within 1e-4 of its
+# channel's standard deviation, each variance within 1e-4 of its tensor's
+# largest.
+PARALLEL_STATS_BATCH, PARALLEL_STATS_BOUND = 32, 1e-4
+
+
+def _rank_counters():
+    from eqxvision_tpu_torch.ops import attention_half as AH
+    from eqxvision_tpu_torch.ops import layernorm as LN
+    from eqxvision_tpu_torch.ops import mlp_half as M
+    from eqxvision_tpu_torch.ops import window_attention as W
+    from eqxvision_tpu_torch.ops import window_attention_half as WH
+
+    attention = importlib.import_module("eqxvision_tpu_torch.ops.attention")
+    return attention, [attention.fused_qkv_attention, attention.window_qkv_attention, W.fused_swin_block,
+                       LN.layer_norm, attention.attention, M.fused_mlp_half, AH.fused_attention_half,
+                       WH.fused_window_attention_half]
+
+
+def _heads_probe(attention):
+    """Record the heads K1 and K3/K4 launch with, at their launch functions."""
+    heads = {"K1": [], "K3": []}
+    k1, k3 = attention._launch_kernel, attention._launch_window_kernel
+
+    def launch_k1(qkv, num_heads, scale):
+        heads["K1"].append(num_heads)
+        return k1(qkv, num_heads, scale)
+
+    def launch_k3(qkv, bias, num_heads, scale, cosine_gs):
+        heads["K3"].append(num_heads)
+        return k3(qkv, bias, num_heads, scale, cosine_gs)
+
+    attention._launch_kernel, attention._launch_window_kernel = launch_k1, launch_k3
+    return heads
+
+
+def _rank_train(name, mesh, dev, counters, expected, opt, steps, **model_kwargs):
+    """``steps`` bf16 steps of ``name`` on ``mesh`` at global b TRAIN_BATCH
+    through the CLI's augmentation; every step's launches must be
+    ``expected``. Returns the losses, ms a step (steps 2 on), peak memory
+    and the model."""
+    from eqxvision_tpu_torch.cli.train_imagenet import build_optimizer, make_augment_fn, synthetic_batches
+    from eqxvision_tpu_torch.models import create_model
+    from eqxvision_tpu_torch.parallel import make_train_step, parallelize, seed_rank, shard_batch
+
+    seed = seed_rank(0, mesh)
+    model = create_model(name, generator=torch.Generator().manual_seed(0), device=dev, **model_kwargs).train()
+    parallelize(model, mesh)
+    optimizer = build_optimizer(model, opt, 1e-3 if opt == "adamw" else 0.025, 0.05 if opt == "adamw" else 1e-4)
+    step = make_train_step(compute_dtype=torch.bfloat16, remat=name == "vit_base",
+                           augment_fn=make_augment_fn(1000, TRAIN_CROP, 0.1, 0.2, 1.0), mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batches = [[torch.from_numpy(t).to(dev) for t in shard_batch(b, mesh)]
+               for b in synthetic_batches(steps, TRAIN_BATCH, TRAIN_CANVAS, 1000, seed=8)]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    losses, times, launches = [], [], []
+    for x, y in batches:
+        before = [fn.launches for fn in counters]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        loss = step(model, optimizer, x, y, gen)
+        events[1].record()
+        events[1].synchronize()
+        launches.append([fn.launches - n for fn, n in zip(counters, before)])
+        losses.append(loss.item())
+        times.append(events[0].elapsed_time(events[1]))
+    for i, got in enumerate(launches):
+        _check(got == list(expected), f"rank {mesh.rank} {name} step {i + 1}: launches {got}, expected {list(expected)}")
+    _check(all(math.isfinite(v) for v in losses), f"rank {mesh.rank} {name}: losses {losses}")
+    ms = sum(times[1:]) / max(len(times) - 1, 1) if len(times) > 1 else times[0]
+    return {"losses": losses, "ms": ms, "step1_ms": times[0],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}, model
+
+
+def _rank_parallel(work):
+    """One rank of phase 10 (``parallel.launch`` runs it in each process)."""
+    import torch.distributed as dist
+
+    from eqxvision_tpu_torch import _native
+    from eqxvision_tpu_torch.models import create_model
+    from eqxvision_tpu_torch.nn import BatchNorm
+    from eqxvision_tpu_torch.parallel import (
+        Shard,
+        make_mesh,
+        make_train_step,
+        param_shardings,
+        parallelize,
+        shard_batch,
+        shard_params_tp,
+    )
+    from eqxvision_tpu_torch.nn.collectives import RowParallelLinear
+    from eqxvision_tpu_torch.parallel.launch import rank_device
+    from eqxvision_tpu_torch.parallel.mesh import shard_tensor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = rank_device()
+    _native.library()  # the parent built it: this loads it
+    attention, counters = _rank_counters()
+    heads = _heads_probe(attention)
+    out = {"device": str(dev), "backend": dist.get_backend()}
+    mesh22, mesh41 = make_mesh(data=2, model=2), make_mesh(data=4, model=1)
+
+    # vit_base 2 x 2, bf16 AdamW, drop path 0.1, remat
+    res, model = _rank_train("vit_base", mesh22, dev, counters, PARALLEL_VIT_EXPECTED, "adamw", PARALLEL_STEPS,
+                             drop_path_rate=0.1)
+    _check(set(heads["K1"]) == {6}, f"rank {rank} vit_base: K1 launched with heads {sorted(set(heads['K1']))}")
+    res["split"] = [sum(isinstance(b.attn.proj, RowParallelLinear) for b in model.blocks), len(model.blocks)]
+    out["vit_base"] = res
+    del model
+    torch.cuda.empty_cache()
+
+    # f32 vit_base b8 SGD step on 2 x 2 against the one-card step (the parent's)
+    ref = torch.load(work + "/f32_reference.pt", weights_only=True)
+    model = create_model("vit_base", generator=torch.Generator().manual_seed(0), device=dev).train()
+    shard_params_tp(model, mesh22)
+    loss = make_train_step(mesh=mesh22)(model, torch.optim.SGD(model.parameters(), lr=1.0),
+                                        *shard_batch((ref["x"].to(dev), ref["y"].to(dev)), mesh22))
+    shardings = param_shardings(model, mesh22)
+    worst, worst_name = 0.0, None
+    for name, p in model.named_parameters():
+        want = ref["after"][name]
+        if shardings[name] is not None:
+            want = shard_tensor(want, Shard(*shardings[name]), mesh22.model, mesh22.model_index)
+        ratio = (p.detach().cpu() - want).abs().max().item() / ref["bound"][name]
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    out["f32"] = {"loss": loss.item(), "worst": worst, "worst_name": worst_name}
+    del model
+    torch.cuda.empty_cache()
+
+    # swin_t 2 x 2, one bf16 AdamW step
+    heads["K3"].clear()
+    res, model = _rank_train("swin_t", mesh22, dev, counters, PARALLEL_SWIN_EXPECTED, "adamw", 1)
+    res["heads"] = sorted(set(heads["K3"]))
+    res["split"] = [isinstance(b.attn.proj, RowParallelLinear) for b in model.modules()
+                    if hasattr(b, "stochastic_depth")]
+    out["swin_t"] = res
+    del model
+    torch.cuda.empty_cache()
+
+    # resnet50 on 4 data ranks with synchronised BatchNorm: three bf16 SGD steps, then the statistics
+    res, model = _rank_train("resnet50", mesh41, dev, counters, (0,) * 8, "sgd", PARALLEL_STEPS)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, work + "/resnet50_after_steps.pt")
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.momentum = 1.0
+    x = torch.randn(PARALLEL_STATS_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=torch.Generator().manual_seed(14))
+    with torch.no_grad():
+        model(shard_batch(x, mesh41).to(dev))
+    stats = {k: v.cpu() for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    res["stats"] = stats if rank == 0 else None
+    res["stats_sum"] = sum(v.double().sum().item() for v in stats.values())
+    out["resnet50"] = res
+    dist.barrier()
+    return out
+
+
+def train_parallel(create_model, smi):
+    """Phase 10: the training path on several ranks (``parallel.launch``):
+    vit_base and swin_t on a 2 x 2 mesh, resnet50 on 4 data ranks; an f32
+    vit_base step against one card, resnet50's statistics against one
+    card. Any rank's failure fails the run. The files the ranks share
+    live in a temporary directory, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="eqx_parallel_") as work:
+        return _train_parallel(create_model, smi, work)
+
+
+def _train_parallel(create_model, smi, work):
+    from eqxvision_tpu_torch.entry import dryrun_multichip
+    from eqxvision_tpu_torch.parallel import launch, make_train_step
+
+    n = PARALLEL_WORLD
+    backend, devices = launch.placement(n, "cuda")
+    shared = len(set(devices)) < n
+    print(f"training on several ranks: a world of {n}, backend {backend}, devices {[str(d) for d in devices]} on "
+          f"{smi}" + (" (ranks share a card: no multi-card speed)" if shared else ""))
+
+    # the one-card f32 step that the sharded one is held to
+    model = create_model("vit_base", generator=torch.Generator().manual_seed(0), device="cuda").train()
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(PARALLEL_F32_BATCH, 224, 224, 3, generator=gen)
+    y = torch.randint(0, 1000, (PARALLEL_F32_BATCH,), generator=gen)
+    loss = make_train_step()(model, torch.optim.SGD(model.parameters(), lr=1.0), x.cuda(), y.cuda()).item()
+    bound = {name: TRAIN_GRAD_BOUND * p.grad.abs().max().item() + 2 ** -22 * p.detach().abs().max().item()
+             for name, p in model.named_parameters()}
+    torch.save({"x": x, "y": y, "loss": loss, "bound": bound,
+                "after": {k: p.detach().cpu() for k, p in model.named_parameters()}}, work + "/f32_reference.pt")
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    results = launch.run(_rank_parallel, n, (work,), device="cuda", timeout_s=900)
+    print(f"phase 10 world: {time.perf_counter() - t0:.1f} s (start-up, builds from the parent's library)")
+    for r, res in enumerate(results):
+        print(f"rank {r} on {res['device']} ({res['backend']}): " + "; ".join(
+            f"{k} losses {[round(v, 4) for v in res[k]['losses']]}" for k in ("vit_base", "swin_t", "resnet50")))
+    for name, mesh, steps in (("vit_base", "2 x 2", PARALLEL_STEPS), ("swin_t", "2 x 2", 1),
+                              ("resnet50", "4 x 1", PARALLEL_STEPS)):
+        ms = max(res[name]["ms"] for res in results)
+        peak = max(res[name]["peak_gib"] for res in results)
+        print(f"{name} {mesh} global b{TRAIN_BATCH} bf16 train step ({steps} steps; slowest rank, "
+              f"{'steps 2 on' if steps > 1 else 'step 1'}): {ms:.3f} ms, {TRAIN_BATCH / ms * 1000:.1f} images/s, "
+              f"peak memory a rank {peak:.2f} GiB, launches a step as expected on every rank, on {smi}"
+              + (f" ({n} ranks on {len(set(devices))} card(s) over gloo: no multi-card speed)" if shared else ""))
+    for name in ("vit_base", "swin_t", "resnet50"):
+        losses = {tuple(res[name]["losses"]) for res in results}
+        _check(len(losses) == 1, f"{name}: the ranks report different global losses {losses}")
+    print(f"vit_base 2 x 2: {'{} of {}'.format(*results[0]['vit_base']['split'])} blocks split, K1 with 6 heads a "
+          f"rank; "
+          f"swin_t 2 x 2: blocks split {results[0]['swin_t']['split']}, K3 with heads {results[0]['swin_t']['heads']}")
+    _check(results[0]["vit_base"]["split"][0] == results[0]["vit_base"]["split"][1], "vit_base: a block not split")
+    _check(results[0]["swin_t"]["heads"] == [3, 6, 12], f"swin_t K3 heads {results[0]['swin_t']['heads']}")
+
+    f32 = [res["f32"] for res in results]
+    worst = max(f32, key=lambda f: f["worst"])
+    print(f"vit_base b{PARALLEL_F32_BATCH} f32 train step, 2 x 2 mesh vs one card: loss {f32[0]['loss']:.6f} vs "
+          f"{loss:.6f} (bound {2 * LOGIT_BOUND}); parameters at most {worst['worst']:.3f} of their bound "
+          f"({worst['worst_name']})")
+    _check(all(abs(f["loss"] - loss) <= 2 * LOGIT_BOUND for f in f32), f"f32 sharded step: losses {f32}")
+    _check(worst["worst"] <= 1.0, f"f32 sharded step: {worst['worst_name']} off by {worst['worst']} of its bound")
+
+    _check(len({res["resnet50"]["stats_sum"] for res in results}) == 1,
+           "resnet50: the ranks' running statistics differ")
+    from eqxvision_tpu_torch.nn import BatchNorm
+
+    model = create_model("resnet50", generator=torch.Generator().manual_seed(0), device="cuda")
+    model.load_state_dict(torch.load(work + "/resnet50_after_steps.pt", weights_only=True))
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.momentum = 1.0
+    x = torch.randn(PARALLEL_STATS_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=torch.Generator().manual_seed(14))
+    with torch.no_grad():
+        model.train()(x.cuda())
+    got = results[0]["resnet50"]["stats"]
+    want = {k: v.cpu() for k, v in model.state_dict().items() if k in got}
+    worst, worst_name = 0.0, None
+    for k, v in got.items():
+        if k.endswith("running_mean"):  # in units of the channel's standard deviation
+            var = want[k.replace("running_mean", "running_var")]
+            err = ((v - want[k]).abs() / (var + 1e-5).sqrt()).max().item()
+        else:
+            err = ((v - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30)).item()
+        if err > worst:
+            worst, worst_name = err, k
+    print(f"resnet50 4 x 1 synchronised BatchNorm, f32 b{PARALLEL_STATS_BATCH} statistics against one card: "
+          f"{len(got)} tensors, at most {worst:.2e} (a mean's error over its channel's standard deviation, a "
+          f"variance's over its tensor's largest; {worst_name}; bound {PARALLEL_STATS_BOUND})")
+    _check(worst <= PARALLEL_STATS_BOUND, f"resnet50 synchronised statistics: {worst_name} off by {worst}")
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    losses = dryrun_multichip(n, timeout_s=300)
+    print(f"entry.dryrun_multichip({n}) on the cards ({backend}): losses {losses}, "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+    _check(set(losses) == {"vit", "resnet18"} and all(math.isfinite(v) for v in losses.values()),
+           f"dryrun_multichip: losses {losses}")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card", file=sys.stderr)
@@ -2240,6 +2546,11 @@ def main():
     times = re.findall(r" -c -o \S+ \S*/(\S+)\ncompiled in ([\d.]+) s", _native.build_log())
     print("compile time per source (parallel): " + ", ".join(f"{src} {secs} s" for src, secs in times))
     print(_native.build_log().strip())
+    if sys.argv[1:] == ["--only-parallel"]:  # phase 10 alone, e.g. on four cards; prints no result line
+        print(smi)
+        train_parallel(create_model, smi)
+        print("phase 10 alone: passed")
+        return 0
 
     check_gemm(M, AH, W, WH, _native.build_log())
     qkv_main = check_fused_qkv(attention, _native.library(), _native.build_log())
@@ -2294,6 +2605,7 @@ def main():
           f"(without remat's second forward)")
     check_train_f32(create_model, counters)
     serve_transforms(create_model, counters, smi)
+    train_parallel(create_model, smi)
 
     src = "eqxvision_tpu_torch/csrc/"
     print(smi)

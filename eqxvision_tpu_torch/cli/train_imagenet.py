@@ -15,7 +15,22 @@
 - checkpoints under ``--ckpt-dir``/step_<n>: the model as
   ``weights.save_model``'s npz, the optimiser state, the EMA and the RNG
   states as npz, the rest as JSON; no pickle. ``--resume`` restores them
-  and reruns nothing: a resumed run takes the steps an unbroken run would.
+  and reruns nothing: a resumed run takes the steps an unbroken run would;
+- several processes (``--distributed``, launched by ``torchrun``, each rank
+  on ``cuda:$LOCAL_RANK`` over NCCL, or on the CPU over gloo) on a ``data x
+  model`` mesh (``--mesh-model`` ranks of tensor parallel, the rest data
+  parallel): ``--batch-size`` is the global batch, each rank takes its rows
+  (``--synthetic``: every rank makes the global batch from the seed; a
+  dataset: each data rank decodes its own share, ``process_shard``), the
+  BatchNorms are synchronised and the transformer blocks split
+  (``parallel.parallelize``). Dropout, drop path and the augmentation draw
+  by (seed, data index) (ROADMAP C.22). Rank 0 logs. A checkpoint holds
+  each model rank's shards of the model, optimiser and EMA
+  (``model.m<i>.npz`` ..., written by the ranks of data index 0) and each
+  rank's RNG states (``rng.r<rank>.npz``); after a barrier rank 0 joins the
+  shards into the one-card ``model.npz`` (``weights.join_shards``), which
+  ``load_model`` and the eval CLI (``--torch-weights``) read, and writes
+  ``latest.json``.
 
 Smoke test on the CPU (no dataset):
 
@@ -29,6 +44,12 @@ On the card (the default ``--device cuda``; it raises where there is none):
       --data-dir /data/imagenet/train --eval-dir /data/imagenet/val \\
       --epochs 90 --batch-size 256 --opt sgd --lr 0.1 --bf16 \\
       --ckpt-dir /ckpt/r50 --resume
+
+On four cards, 2 data x 2 tensor-parallel ranks:
+
+  torchrun --nproc-per-node 4 -m eqxvision_tpu_torch.cli.train_imagenet \\
+      --distributed --mesh-model 2 --model vit_base --synthetic 100 \\
+      --batch-size 256 --opt adamw --lr 1e-3 --bf16 --ckpt-dir /ckpt/vitb
 """
 from __future__ import annotations
 
@@ -41,14 +62,29 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import ImageFolderLoader, device_prefetch
 from ..models import create_model
 from ..models._common import resolve_device
 from ..ops import augment as aug
 from ..ops.preprocessing import imagenet_eval_pipeline
-from ..parallel import ema_init, ema_params, ema_update, make_eval_step, make_train_step, param_groups
-from ..weights.serialize import load_model, save_model
+from ..parallel import (
+    Mesh,
+    ema_init,
+    ema_params,
+    ema_update,
+    initialize_multihost,
+    make_eval_step,
+    make_mesh,
+    make_train_step,
+    param_groups,
+    param_shardings,
+    parallelize,
+    seed_rank,
+    shard_batch,
+)
+from ..weights.serialize import join_shards, load_model, save_model
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -79,9 +115,11 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="auto-augmentation policy (not ported yet: ROADMAP A.12b)")
     ap.add_argument("--mixup", type=float, default=0.0, metavar="ALPHA")
     ap.add_argument("--cutmix", type=float, default=0.0, metavar="ALPHA")
-    # parallelism (not ported yet: ROADMAP A.11b)
-    ap.add_argument("--mesh-model", type=int, default=1, help="tensor-parallel width (only 1 for now)")
-    ap.add_argument("--distributed", action="store_true", help="multi-process training (not ported yet)")
+    # parallelism
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel ranks (the mesh's model axis); the rest of the world is data parallel")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join torchrun's world (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)")
     # checkpoints and logging
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0, metavar="STEPS",
@@ -160,18 +198,23 @@ class TrainState(NamedTuple):
     generator: torch.Generator
 
 
-def build_train_state(args: argparse.Namespace, device: torch.device, steps_per_epoch: int) -> TrainState:
-    """The model (from ``--seed``, in training mode), optimiser, schedule,
-    EMA and augmentation generator of a fresh run; the default generators
-    seeded with ``--seed``."""
-    torch.manual_seed(args.seed)
+def build_train_state(args: argparse.Namespace, device: torch.device, steps_per_epoch: int,
+                      mesh: Optional[Mesh] = None) -> TrainState:
+    """The model (from ``--seed``, in training mode; on a mesh its rank's
+    share, ``parallelize``), optimiser, schedule, EMA and augmentation
+    generator of a fresh run; the default generators and the augmentation's
+    seeded with ``--seed`` (on a mesh by ``(--seed, data index)``,
+    ``seed_rank``)."""
+    seed = seed_rank(args.seed, mesh)
     model = create_model(args.model, num_classes=args.num_classes, generator=torch.Generator().manual_seed(args.seed),
                          device=device).train()
+    if mesh is not None:
+        parallelize(model, mesh)
     optimizer = build_optimizer(model, args.opt, args.lr, args.weight_decay)
     total_steps = steps_per_epoch * args.epochs
     schedule = warmup_cosine(max(1, int(args.warmup_epochs * steps_per_epoch)), max(2, total_steps))
     return TrainState(model, optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, schedule),
-                      ema_init(model) if args.ema else None, torch.Generator(device=device).manual_seed(args.seed))
+                      ema_init(model) if args.ema else None, torch.Generator(device=device).manual_seed(seed))
 
 
 def _rng_states(generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -183,47 +226,102 @@ def _rng_states(generator: torch.Generator) -> Dict[str, torch.Tensor]:
     return states
 
 
-def save_checkpoint(path: str, step: int, ts: TrainState) -> None:
+def _rng_arrays(ts: TrainState) -> Dict[str, np.ndarray]:
+    return {f"rng:{k}": v.numpy() for k, v in _rng_states(ts.generator).items()}
+
+
+def save_checkpoint(path: str, step: int, ts: TrainState, mesh: Optional[Mesh] = None) -> None:
+    """One process: ``model.npz``, ``optimizer.npz`` (with the RNG states),
+    ``ema.npz`` and ``meta.json``. On a mesh: the ranks of data index 0
+    write their shards (``model.m<i>.npz``, ``optimizer.m<i>.npz``,
+    ``ema.m<i>.npz``, ``i`` the model index), every rank its RNG states
+    (``rng.r<rank>.npz``) and rank 0 ``meta.json`` with the mesh and the
+    shards' layout; after a barrier rank 0 joins the shards into
+    ``model.npz``, and the ranks wait for it. Every rank of the mesh must
+    call it."""
     os.makedirs(path, exist_ok=True)
-    save_model(os.path.join(path, "model.npz"), ts.model)
+    one = mesh is None or mesh.world == 1
+    tag = "" if one else f".m{mesh.model_index}"
     opt = ts.optimizer.state_dict()
-    arrays = {f"state:{i}:{k}": v.detach().cpu().numpy()
-              for i, s in opt["state"].items() for k, v in s.items() if torch.is_tensor(v)}
-    arrays.update({f"rng:{k}": v.numpy() for k, v in _rng_states(ts.generator).items()})
-    np.savez(os.path.join(path, "optimizer.npz"), **arrays)
-    if ts.ema is not None:
-        np.savez(os.path.join(path, "ema.npz"), **{k: v.cpu().numpy() for k, v in ts.ema.items()})
-    sched = {k: v for k, v in ts.scheduler.state_dict().items() if k != "lr_lambdas"}
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump({"step": step, "param_groups": opt["param_groups"], "scheduler": sched}, f)
+    if one or mesh.data_index == 0:
+        save_model(os.path.join(path, f"model{tag}.npz"), ts.model)
+        arrays = {f"state:{i}:{k}": v.detach().cpu().numpy()
+                  for i, s in opt["state"].items() for k, v in s.items() if torch.is_tensor(v)}
+        np.savez(os.path.join(path, f"optimizer{tag}.npz"), **arrays, **(_rng_arrays(ts) if one else {}))
+        if ts.ema is not None:
+            np.savez(os.path.join(path, f"ema{tag}.npz"), **{k: v.cpu().numpy() for k, v in ts.ema.items()})
+    if not one:
+        np.savez(os.path.join(path, f"rng.r{mesh.rank}.npz"), **_rng_arrays(ts))
+        shardings = {k: list(v) for k, v in param_shardings(ts.model, mesh).items() if v is not None}
+    if one or mesh.rank == 0:
+        sched = {k: v for k, v in ts.scheduler.state_dict().items() if k != "lr_lambdas"}
+        meta = {"step": step, "param_groups": opt["param_groups"], "scheduler": sched}
+        if not one:
+            meta.update(mesh=[mesh.data, mesh.model], shardings=shardings)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+    if not one:
+        dist.barrier()
+        if mesh.rank == 0:
+            shards = [os.path.join(path, f"model.m{m}.npz") for m in range(mesh.model)]
+            join_shards(shards, shardings, os.path.join(path, "model.npz"))
+        dist.barrier()  # no rank writes the next checkpoint's shards while rank 0 reads these
 
 
-def load_checkpoint(path: str, ts: TrainState) -> int:
-    """Restore ``ts`` in place from ``path``; returns the step."""
+def _load_rng(key: str, value: np.ndarray, ts: TrainState) -> None:
+    if key == "generator":
+        ts.generator.set_state(torch.from_numpy(value))
+    elif key == "cpu":
+        torch.set_rng_state(torch.from_numpy(value))
+    else:
+        torch.cuda.set_rng_state(torch.from_numpy(value), ts.generator.device)
+
+
+def load_checkpoint(path: str, ts: TrainState, mesh: Optional[Mesh] = None) -> int:
+    """Restore ``ts`` in place from ``path`` (on a mesh, this rank's shards
+    and RNG states; the mesh must be the one that saved); returns the step."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    load_model(os.path.join(path, "model.npz"), ts.model)
+    one = mesh is None or mesh.world == 1
+    if not one and meta.get("mesh") != [mesh.data, mesh.model]:
+        raise ValueError(f"{path} was saved on a {meta.get('mesh')} mesh, not on [{mesh.data}, {mesh.model}]")
+    tag = "" if one else f".m{mesh.model_index}"
+    load_model(os.path.join(path, f"model{tag}.npz"), ts.model)
     state: Dict[int, Dict[str, torch.Tensor]] = {}
-    with np.load(os.path.join(path, "optimizer.npz"), allow_pickle=False) as data:
+    with np.load(os.path.join(path, f"optimizer{tag}.npz"), allow_pickle=False) as data:
         for key in data.files:
             kind, _, rest = key.partition(":")
             if kind == "state":
                 i, _, name = rest.partition(":")
                 state.setdefault(int(i), {})[name] = torch.from_numpy(data[key])
-            elif rest == "generator":
-                ts.generator.set_state(torch.from_numpy(data[key]))
-            elif rest == "cpu":
-                torch.set_rng_state(torch.from_numpy(data[key]))
-            else:
-                torch.cuda.set_rng_state(torch.from_numpy(data[key]), ts.generator.device)
+            elif one:
+                _load_rng(rest, data[key], ts)
+    if not one:
+        with np.load(os.path.join(path, f"rng.r{mesh.rank}.npz"), allow_pickle=False) as data:
+            for key in data.files:
+                _load_rng(key.partition(":")[2], data[key], ts)
     groups = [{k: tuple(v) if k == "betas" else v for k, v in g.items()} for g in meta["param_groups"]]
     ts.optimizer.load_state_dict({"state": state, "param_groups": groups})
     ts.scheduler.load_state_dict({**meta["scheduler"], "lr_lambdas": [None] * len(groups)})
     if ts.ema is not None:
-        with np.load(os.path.join(path, "ema.npz"), allow_pickle=False) as data:
+        with np.load(os.path.join(path, f"ema{tag}.npz"), allow_pickle=False) as data:
             for k, v in ts.ema.items():
                 v.copy_(torch.from_numpy(data[k]))
     return int(meta["step"])
+
+
+def setup_world(args: argparse.Namespace) -> Tuple[torch.device, Mesh]:
+    """This rank's device and mesh. ``--distributed`` joins torchrun's world
+    (NCCL on ``cuda:$LOCAL_RANK``, gloo with ``--device cpu``); the mesh has
+    ``--mesh-model`` model ranks and raises where they do not divide the
+    world."""
+    device = resolve_device(args.device)
+    if args.distributed:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        initialize_multihost(device=device)
+    return device, make_mesh(model=args.mesh_model)
 
 
 def main(argv=None) -> Tuple[int, TrainState]:
@@ -231,25 +329,29 @@ def main(argv=None) -> Tuple[int, TrainState]:
     args = build_argparser().parse_args(argv)
     if not (args.data_dir or args.synthetic):
         raise SystemExit("pass --data-dir or --synthetic STEPS")
-    if args.mesh_model > 1 or args.distributed:
-        raise NotImplementedError("--mesh-model > 1 and --distributed: multi-device training is ROADMAP A.11b")
     if args.aa is not None:
         raise NotImplementedError(f"--aa {args.aa}: the AutoAugment family is ROADMAP A.12b")
-    device = resolve_device(args.device)
+    device, mesh = setup_world(args)
+    if args.batch_size % mesh.data:
+        raise ValueError(f"--batch-size {args.batch_size} does not split over {mesh.data} data ranks")
+    local_batch = args.batch_size // mesh.data
+    shard = (mesh.data_index, mesh.data) if mesh.data > 1 else False
 
     def log(**kv):
-        print(json.dumps(kv), flush=True)
+        if mesh.rank == 0:
+            print(json.dumps(kv), flush=True)
 
     # ---- data -------------------------------------------------------
     if args.synthetic:
         steps_per_epoch = args.synthetic
 
         def epoch_batches(epoch):
-            return synthetic_batches(steps_per_epoch, args.batch_size, args.canvas, args.num_classes,
-                                     args.seed + epoch)
+            # every rank makes the global batch from the seed and takes its rows
+            return (shard_batch(b, mesh) for b in synthetic_batches(
+                steps_per_epoch, args.batch_size, args.canvas, args.num_classes, args.seed + epoch))
     else:
-        loader = ImageFolderLoader(args.data_dir, batch_size=args.batch_size, side=args.canvas, shuffle=True,
-                                   seed=args.seed, num_workers=args.workers)
+        loader = ImageFolderLoader(args.data_dir, batch_size=local_batch, side=args.canvas, shuffle=True,
+                                   seed=args.seed, num_workers=args.workers, process_shard=shard)
         steps_per_epoch = len(loader)
 
         def epoch_batches(epoch):
@@ -259,11 +361,12 @@ def main(argv=None) -> Tuple[int, TrainState]:
     total_steps = steps_per_epoch * args.epochs
 
     # ---- model, optimiser, schedule, EMA -----------------------------
-    ts = build_train_state(args, device, steps_per_epoch)
+    ts = build_train_state(args, device, steps_per_epoch, mesh)
     model, optimizer, scheduler = ts.model, ts.optimizer, ts.scheduler
     step = make_train_step(
         compute_dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat,
         augment_fn=make_augment_fn(args.num_classes, args.crop, args.label_smoothing, args.mixup, args.cutmix),
+        mesh=mesh,
     )
 
     # ---- checkpoint / resume ------------------------------------------
@@ -272,26 +375,27 @@ def main(argv=None) -> Tuple[int, TrainState]:
     if latest and args.resume and os.path.exists(latest):
         with open(latest) as f:
             path = os.path.join(args.ckpt_dir, f"step_{json.load(f)['step']}")
-        start_step = load_checkpoint(path, ts)
+        start_step = load_checkpoint(path, ts, mesh)
         log(event="resume", step=start_step, path=path)
 
     def checkpoint(step_no):
         if not latest:
             return
         path = os.path.join(args.ckpt_dir, f"step_{step_no}")
-        save_checkpoint(path, step_no, ts)
-        with open(latest, "w") as f:
-            json.dump({"step": step_no}, f)
+        save_checkpoint(path, step_no, ts, mesh)
+        if mesh.rank == 0:
+            with open(latest, "w") as f:
+                json.dump({"step": step_no}, f)
         log(event="checkpoint", step=step_no, path=path)
 
     # ---- eval ---------------------------------------------------------
-    eval_step = make_eval_step()
+    eval_step = make_eval_step(mesh=mesh)
 
     def run_eval(epoch, step_no):
         if not args.eval_dir:
             return
-        ev = ImageFolderLoader(args.eval_dir, batch_size=args.batch_size, side=args.canvas,
-                               num_workers=args.workers)
+        ev = ImageFolderLoader(args.eval_dir, batch_size=local_batch, side=args.canvas,
+                               num_workers=args.workers, process_shard=shard)
         m = (ema_params(ts.ema, model) if args.ema else model).eval()
         c1 = c5 = n = 0
         for x_u8, y in device_prefetch(ev, 2, device):
@@ -304,7 +408,7 @@ def main(argv=None) -> Tuple[int, TrainState]:
     # ---- train loop ---------------------------------------------------
     step_no = start_step
     log(event="start", model=args.model, device=str(device), steps_per_epoch=steps_per_epoch,
-        total_steps=total_steps, start_step=start_step)
+        total_steps=total_steps, start_step=start_step, mesh=[mesh.data, mesh.model])
     for epoch in range(start_step // steps_per_epoch, args.epochs):
         t_log, imgs_since = time.time(), 0
         for x, y in device_prefetch(epoch_batches(epoch), 2, device):

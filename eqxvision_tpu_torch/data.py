@@ -58,6 +58,13 @@ class ImageFolderLoader:
     (B,). The ragged tail batch is dropped, so every batch has one shape.
     ``shuffle`` orders the samples by ``np.random.RandomState(seed)``, as
     the JAX loader does, so both give the same batches.
+
+    ``process_shard`` keeps this process's share of the samples
+    (``parallel.local_shard``: contiguous, the tail padded by repeating its
+    last sample, so that every process yields as many batches): ``True``
+    shards by the world's rank and size, an ``(index, count)`` pair by
+    another grid's, e.g. a mesh's data index and data size, whose model
+    ranks then read the same samples.
     """
 
     def __init__(
@@ -70,10 +77,16 @@ class ImageFolderLoader:
         num_workers: int = 8,
         prefetch: int = 4,
         limit: Optional[int] = None,
+        process_shard: Union[bool, Tuple[int, int]] = False,
     ):
         self.samples, self.classes = find_imagefolder_samples(root)
         if limit:
             self.samples = self.samples[:limit]
+        if process_shard:
+            from .parallel.multihost import local_shard
+
+            index, count = (None, None) if process_shard is True else process_shard
+            self.samples = local_shard(self.samples, index, count)
         self.batch_size = batch_size
         self.side = side
         self.shuffle = shuffle

@@ -17,10 +17,12 @@ hand-written kernel on a CUDA tensor, the plain version on a CPU one.
 Importing the package (this module imports it) registers the ops, so a
 program loads wherever the port is importable.
 
-Where the JAX function takes ``platforms=`` (lowering for another backend)
-and ``mesh=`` (a batch sharded over chips), this one raises: torch lowers
-for the device the model sits on, and the port's multi-card path is ROADMAP
-A.11b.
+``mesh=`` (a ``parallel.make_mesh`` mesh) shards the batch as the JAX
+function does: each rank exports its own program at ``batch // data``,
+with rank 0's weights (``parallel.replicate``); a mesh with model ranks
+raises, as the JAX function shards only the batch. Where the JAX function
+takes ``platforms=`` (lowering for another backend) this one raises: torch
+lowers for the device the model sits on.
 """
 from __future__ import annotations
 
@@ -64,15 +66,24 @@ def export_inference(
     placeholder's type (default ``dtype``, else f32); pass ``torch.uint8``
     with a ``preprocess_fn`` (e.g. ``ops.imagenet_eval_pipeline``) for a
     program that starts at decoded bytes. The program runs on the device
-    the model sits on; eval mode is forced."""
-    if mesh is not None:
-        raise NotImplementedError("export over several cards (mesh=) waits for the port's multi-card path, "
-                                  "ROADMAP A.11b")
+    the model sits on; eval mode is forced. With ``mesh``, ``batch`` is the
+    global batch and each rank's program takes its ``batch // data`` rows
+    (every rank of the mesh must call it: the weights are broadcast)."""
     if platforms is not None:
         raise ValueError("torch.export lowers for the device the model sits on; move the model there instead "
                          "of naming platforms")
+    if mesh is not None:
+        if mesh.model > 1:
+            raise ValueError(f"export shards only the batch: a mesh with {mesh.model} model ranks has no program")
+        if batch % mesh.data:
+            raise ValueError(f"a batch of {batch} does not split over {mesh.data} data ranks")
+        batch //= mesh.data
     device = next(model.parameters()).device
     inner = copy.deepcopy(model).eval()
+    if mesh is not None:
+        from .parallel.mesh import replicate
+
+        replicate(inner, mesh)
     if dtype is not None:
         inner = inner.to(dtype)
     example = torch.zeros((batch, size, size, channels), dtype=input_dtype or dtype or torch.float32, device=device)

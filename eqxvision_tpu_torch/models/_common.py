@@ -57,7 +57,14 @@ DERIVED_BUFFERS = ("relative_position_index", "relative_coords_table", "attn_mas
 
 def load_state(torch_weights: str) -> dict:
     """A torch ``state_dict`` from a local file, or from a URL through
-    ``torch.hub.load_state_dict_from_url`` (torch's checkpoint cache)."""
+    ``torch.hub.load_state_dict_from_url`` (torch's checkpoint cache). A
+    local ``.npz`` is read as ``weights.save_model`` writes it (entries
+    under their torch names, e.g. a joined tensor-parallel checkpoint)."""
+    if str(torch_weights).endswith(".npz") and not str(torch_weights).startswith(("http://", "https://")):
+        import numpy as np
+
+        with np.load(torch_weights, allow_pickle=False) as data:
+            return {k: torch.from_numpy(data[k]) for k in data.files}
     if str(torch_weights).startswith(("http://", "https://")):
         return torch.hub.load_state_dict_from_url(torch_weights, map_location="cpu", weights_only=True)
     return torch.load(torch_weights, map_location="cpu", weights_only=True)

@@ -12,7 +12,9 @@ activations stay NHWC end to end, so torchvision's ``Permute`` and
 Linears, GELU, layer scale and residual run as one ``ops.fused_mlp_half``
 (the MLP-half kernel on the card); the other LayerNorms run
 ``ops.layer_norm``; the convolutions are cuDNN and the classifier Linear
-cuBLAS, as the JAX package leaves them to XLA.
+cuBLAS, as the JAX package leaves them to XLA. A block split over a model
+group (``parallel.shard_params_tp``) calls its column- and row-parallel
+Linears, unfused, as a quantized block calls its layers.
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ class CNBlock(nn.Module):
     one ``ops.fused_mlp_half`` call (the MLP-half kernel on the card), save
     in training with an active stochastic depth, which drops the branch
     before the residual add, and with quantized Linears (``quantize``),
-    which are called as in the JAX block: those run the layers one by one."""
+    which are called as in the JAX block, and with tensor-parallel ones
+    (``parallel.shard_params_tp``), whose sum over the model group comes
+    before the bias: those run the layers one by one."""
 
     def __init__(self, dim: int, layer_scale: float, stochastic_depth_prob: float, *, generator, device=None):
         super().__init__()
@@ -60,8 +64,8 @@ class CNBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm, fc1, fc2 = self.block[2], self.block[3], self.block[5]
-        quantized = not (isinstance(fc1, Linear) and isinstance(fc2, Linear))
-        if quantized or self.training and self.stochastic_depth.p > 0.0:
+        called = not (isinstance(fc1, Linear) and isinstance(fc2, Linear))  # quantized or tensor-parallel
+        if called or self.training and self.stochastic_depth.p > 0.0:
             # the JAX block's order: gelu on fc1's f32 accumulator, rounded once; stochastic
             # depth drops the branch before the residual add
             out = norm(self.block[0](x))

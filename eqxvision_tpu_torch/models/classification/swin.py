@@ -18,7 +18,10 @@ counterpart of the prototype scripts/ablate_swin4.py; every other block
 of an int8 model (``quantize``) the dequantized one, cast to the input's
 type in the kernel's wrapper, as the JAX model reads it.
 ``remat_blocks=True`` recomputes each block in the backward
-(``vit.remat_call``).
+(``vit.remat_call``). A block split over a model group
+(``parallel.shard_params_tp``: column- and row-parallel Linears, the
+attention's per-head parameters and ``num_heads`` its heads' share) takes
+the unfused route, the window-attention kernel on the rank's heads.
 """
 from __future__ import annotations
 
@@ -26,12 +29,14 @@ import functools
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...core import init
 from ...layers import DropPath
 from ...layers.mlps import mlp_forward
 from ...nn import Dropout, LayerNorm, Linear
+from ...nn.collectives import Group, RowParallelLinear, copy_to_group, row_parallel_linear
 from ...nn.conv import Conv2d
 from ...ops import window_attention as wa
 from ...ops import window_attention_half as wah
@@ -117,13 +122,25 @@ class _ShiftedWindowAttention(nn.Module):
         """v2's logit scale; None selects v1's scaled dot product."""
         return None
 
+    def model_group(self) -> Optional[Group]:
+        """The model group this layer's heads are split over
+        (``parallel.shard_params_tp``), or None."""
+        return self.proj.group if isinstance(self.proj, RowParallelLinear) else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return wa.shifted_window_attention(
-            x, self.qkv.weight, self.proj.weight, self.get_relative_position_bias(), self.window_size,
-            self.num_heads, self.shift_size, qkv_bias=self.qkv.bias, proj_bias=self.proj.bias,
-            logit_scale=self.cosine_logit_scale(), attention_dropout=self.attention_dropout,
-            dropout=self.dropout, training=self.training,
+        group = self.model_group()
+        out = wa.shifted_window_attention(
+            copy_to_group(x, group), self.qkv.weight, None if group else self.proj.weight,
+            self.get_relative_position_bias(), self.window_size, self.num_heads, self.shift_size,
+            qkv_bias=self.qkv.bias, proj_bias=self.proj.bias, logit_scale=self.cosine_logit_scale(),
+            attention_dropout=self.attention_dropout, dropout=self.dropout, training=self.training,
         )
+        if group is None:
+            return out
+        # tensor parallel: the rank's heads' outputs through its columns of proj, the sum over the
+        # group, then proj's bias, the product rounded before it as on one card
+        out = row_parallel_linear(out, self.proj.weight, self.proj.bias, group, round_before_bias=True)
+        return F.dropout(out, self.dropout, training=self.training)
 
 
 class _ShiftedWindowAttentionV2(_ShiftedWindowAttention):
@@ -186,11 +203,18 @@ class _SwinTransformerBlock(nn.Module):
         regs = (self.stochastic_depth, self.mlp[2], self.mlp[4])
         return all(not r.training or r.p == 0.0 for r in regs)
 
+    def _whole(self) -> bool:
+        """The fused kernels add proj's and fc2's bias and the residual in
+        their epilogue: a block split over a model group (whose sum comes
+        before them) is never fused."""
+        return self.attn.model_group() is None
+
     def _can_fuse(self) -> bool:
         a = self.attn
         return (
             not a.training
             and self._regularizers_inert()
+            and self._whole()
             and wa.fused_swin_block_supported(
                 a.qkv.in_features, self.mlp[0].out_features, a.num_heads, a.window_size[0] * a.window_size[1]
             )
@@ -201,6 +225,7 @@ class _SwinTransformerBlock(nn.Module):
         return (
             not a.training
             and self._regularizers_inert()
+            and self._whole()
             and wah.window_attention_half_supported(a.qkv.in_features, a.num_heads, a.window_size[0] * a.window_size[1])
         )
 

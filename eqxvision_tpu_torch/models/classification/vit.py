@@ -11,6 +11,10 @@ kernel, and the attention runs the fused-qkv kernel on the qkv projection's
 natural (N, L, 3D) layout, or, with attention dropout active, materialises
 the probabilities in plain torch, as in the JAX model.
 
+A block split over a model group (``parallel.shard_params_tp``) holds
+column- and row-parallel Linears and the attention its heads' share: it
+takes the unfused route, the fused-qkv kernel on the rank's heads.
+
 ``remat_blocks=True`` recomputes each block in the backward
 (non-reentrant ``torch.utils.checkpoint``, the RNG state replayed so that
 drop path draws the same masks). ``get_last_self_attention`` returns the
@@ -51,8 +55,9 @@ class _VitAttention(nn.Module):
         self.proj_drop = Dropout(proj_drop)
 
     def _qkv(self, x: torch.Tensor):
-        n, l, d = x.shape
-        qkv = self.qkv(x).reshape(n, l, 3, self.num_heads, d // self.num_heads)
+        qkv = self.qkv(x)
+        n, l, three_d = qkv.shape  # 3D, or a tensor-parallel rank's share of it
+        qkv = qkv.reshape(n, l, 3, self.num_heads, three_d // 3 // self.num_heads)
         return qkv.permute(2, 0, 3, 1, 4).unbind(0)  # each (N, H, L, Dh)
 
     def attention_probs(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,13 +66,13 @@ class _VitAttention(nn.Module):
         return torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * self.scale, dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, l, d = x.shape
+        n, l, _ = x.shape
         if self.attn_drop.p > 0.0 and self.training:
             # training with attention dropout needs the probabilities
             q, k, v = self._qkv(x)
             s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * self.scale
             p = self.attn_drop(torch.softmax(s, dim=-1).to(x.dtype))
-            out = torch.matmul(p, v).transpose(1, 2).reshape(n, l, d)
+            out = torch.matmul(p, v).transpose(1, 2).reshape(n, l, -1)
         else:
             out = fused_qkv_attention(self.qkv(x), self.num_heads, self.scale)
         return self.proj_drop(self.proj(out))
@@ -89,8 +94,10 @@ class _VitBlock(nn.Module):
         self.mlp = MlpProjection(dim, int(dim * mlp_ratio), dim, gelu, drop, **kw)
 
     def _fusable(self) -> bool:
-        """The fused halves read the Linears' weights: plain Linears only
-        (a quantized layer is called, as in the JAX model)."""
+        """The fused halves read the Linears' weights: plain Linears only (a
+        quantized layer is called, as in the JAX model, and so is a
+        tensor-parallel one: the sum over its group comes between the
+        product and the bias and residual the halves' epilogue adds)."""
         return all(isinstance(m, Linear) for m in (self.attn.qkv, self.attn.proj, self.mlp.fc1, self.mlp.fc2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

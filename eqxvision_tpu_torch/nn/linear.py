@@ -32,17 +32,27 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(init.uniform_fan_in((out_features,), in_features, **kw)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.bias is None or self.bias.dtype == x.dtype:
-            return F.linear(x, self.weight.to(x.dtype), self.bias)
-        return self.preactivation(x).to(x.dtype)
+        return linear(x, self.weight, self.bias)
 
     def preactivation(self, x: torch.Tensor) -> torch.Tensor:
         """The product accumulated in f32 (or x's type where that is wider)
         plus the bias in that type, before the cast to x's type: the JAX
         layer's ``Linear.preactivation``. An activation applied to it acts on
         the accumulator, not on a rounded output."""
-        y = wide_product(x, self.weight.to(x.dtype))
-        return y if self.bias is None else y + self.bias.to(y.dtype)
+        return preactivation(x, self.weight, self.bias)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``Linear``'s forward on these parameters."""
+    if bias is None or bias.dtype == x.dtype:
+        return F.linear(x, weight.to(x.dtype), bias)
+    return preactivation(x, weight, bias).to(x.dtype)
+
+
+def preactivation(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``Linear.preactivation`` on these parameters."""
+    y = wide_product(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def wide_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

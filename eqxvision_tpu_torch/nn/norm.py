@@ -8,6 +8,9 @@ On a CUDA tensor that is the hand-written kernel (``csrc/layer_norm.cu``).
 BatchNorm normalises over every axis but the last. Its running statistics
 are buffers with torchvision's names and stay f32 whatever the module is
 cast to, as the JAX package's ``State`` stays f32 when the model is cast.
+A BatchNorm given a data group (``process_group``, set by
+``parallel.sync_batchnorm``) takes its training statistics over the whole
+group's batch, as the JAX layer's do over a batch sharded on the mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.layernorm import layer_norm
+from .collectives import Group, all_reduce_sum, broadcast_from_first
 
 
 class LayerNorm(nn.Module):
@@ -66,7 +70,17 @@ class BatchNorm(nn.Module):
     ``momentum`` towards the mean and the unbiased variance. ``momentum``
     is a float, as in the JAX layer, which has no cumulative mode;
     ``num_batches_tracked`` counts the training forwards, as torch's does.
+
+    With a ``process_group`` of several data ranks, the statistics are the
+    global batch's: the pivot is the global batch's first element (the
+    group's first rank's, broadcast), and the f32 sums of ``x - pivot`` and
+    its square and the element count are summed over the group in one f64
+    all-reduce, whose backward all-reduces too (every rank's output
+    depends on every rank's sums). The running statistics then move alike
+    on every rank.
     """
+
+    process_group: Optional[Group] = None
 
     def __init__(
         self, num_features: int, eps: float = 1e-5, momentum: float = 0.1, affine: bool = True, *,
@@ -110,14 +124,22 @@ class BatchNorm(nn.Module):
         axes = tuple(range(x.ndim - 1))
         n = x[..., 0].numel()
         xf = x.float()
-        pivot = xf[(0,) * (x.ndim - 1)].detach()
+        pivot = broadcast_from_first(xf[(0,) * (x.ndim - 1)].detach(), self.process_group)
         xs = xf - pivot
-        mean_s = xs.sum(axes) / n
-        var = torch.clamp_min((xs * xs).sum(axes) / n - mean_s * mean_s, 0.0)
+        s1, s2 = xs.sum(axes), (xs * xs).sum(axes)
+        bessel = n / max(n - 1, 1)
+        if self.process_group is not None and self.process_group.size > 1:
+            count = torch.full((1,), float(n), dtype=torch.float64, device=x.device)
+            sums = all_reduce_sum(torch.cat([s1.double(), s2.double(), count]), self.process_group)
+            c = self.num_features
+            s1, s2, n = sums[:c].float(), sums[c : 2 * c].float(), sums[2 * c :].float()
+            bessel = n / (n - 1).clamp_min(1)  # kept on the device: no host sync
+        mean_s = s1 / n
+        var = torch.clamp_min(s2 / n - mean_s * mean_s, 0.0)
         mean = mean_s + pivot
         with torch.no_grad():
             m = self.momentum
-            unbiased = var * (n / max(n - 1, 1))
+            unbiased = var * bessel
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
             self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
             self.num_batches_tracked.add_(1)

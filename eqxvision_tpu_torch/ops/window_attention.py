@@ -195,7 +195,7 @@ def _product_then_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[tor
 def shifted_window_attention(
     x: torch.Tensor,
     qkv_weight: torch.Tensor,  # (3C, C), torch's (out, in)
-    proj_weight: torch.Tensor,  # (C, C)
+    proj_weight: Optional[torch.Tensor],  # (C, C)
     relative_position_bias: torch.Tensor,  # (1, H, L, L)
     window_size: Tuple[int, int],
     num_heads: int,
@@ -211,27 +211,35 @@ def shifted_window_attention(
 
     The attention core is ``window_qkv_attention`` (the kernel on CUDA).
     Training with active attention dropout needs the probabilities, so it
-    runs in plain torch with them materialised, as the JAX package does."""
+    runs in plain torch with them materialised, as the JAX package does.
+
+    The heads are ``num_heads`` of width ``qkv_weight.shape[0] // 3 /
+    num_heads``: a tensor-parallel rank passes its heads' rows of qkv (and
+    their bias and logit scale) and ``proj_weight=None``, which returns the
+    heads' outputs on the map for its row-parallel projection."""
     n, h, w, c = x.shape
+    ca = qkv_weight.shape[0] // 3  # the heads' width: C, or a rank's share of it
     xw, geo = _to_windows(x, window_size, shift_size)
     if logit_scale is not None:
-        qkv_bias = _v2_qkv_bias(qkv_bias, c)
+        qkv_bias = _v2_qkv_bias(qkv_bias, ca)
     dt = x.dtype
     qkv = _product_then_bias(xw, qkv_weight, qkv_bias)
     bias = _window_bias(relative_position_bias, window_size, num_heads, geo)
     cosine_gs = None if logit_scale is None else _cosine_gs(logit_scale, num_heads)
-    scale = 1.0 if logit_scale is not None else (c // num_heads) ** -0.5
+    scale = 1.0 if logit_scale is not None else (ca // num_heads) ** -0.5
     if attention_dropout > 0.0 and training:
         nb, nw, L, _ = qkv.shape
-        q, k, v = qkv.reshape(nb, nw, L, 3, num_heads, c // num_heads).permute(3, 0, 1, 4, 2, 5).unbind(0)
+        q, k, v = qkv.reshape(nb, nw, L, 3, num_heads, ca // num_heads).permute(3, 0, 1, 4, 2, 5).unbind(0)
         if cosine_gs is not None:
             q = F.normalize(q, dim=-1, eps=1e-12) * cosine_gs.reshape(num_heads, 1, 1).to(dt)
             k = F.normalize(k, dim=-1, eps=1e-12)
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias
         p = F.dropout(torch.softmax(s, dim=-1).to(dt), attention_dropout, training=True)
-        out = torch.matmul(p, v).transpose(2, 3).reshape(nb, nw, L, c)
+        out = torch.matmul(p, v).transpose(2, 3).reshape(nb, nw, L, ca)
     else:
         out = window_qkv_attention(qkv, bias, num_heads, scale, cosine_gs)
+    if proj_weight is None:
+        return _from_windows(out, window_size, geo)
     out = _product_then_bias(out, proj_weight, proj_bias)
     out = F.dropout(out, dropout, training=training)
     return _from_windows(out, window_size, geo)

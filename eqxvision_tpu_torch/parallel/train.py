@@ -24,6 +24,17 @@ once: the buffers (BatchNorm's running statistics and
 once a step; and the RNG state of the CPU and of the input's device is
 replayed, so dropout and drop path draw the same masks.
 
+On a mesh (``parallel.make_mesh``; ``mesh=``), each rank's step takes its
+rows of the global batch: after the backward the gradients are averaged
+over the data group in a few flat all-reduces (``mesh.all_reduce_grads``)
+before the optimiser steps, and the loss the step returns is the global
+batch's mean. The model's tensor-parallel blocks and synchronised
+BatchNorms (``parallel.parallelize``) run their own collectives in the
+forward and backward; with remat, the recompute runs them again, in the
+same order on every rank. Dropout and drop path draw from the default
+generators, seeded by (seed, data index) (``mesh.seed_rank``, ROADMAP
+C.22).
+
 The optimiser's update rule is torch's (``torch.optim.SGD``/``AdamW`` on
 the two parameter groups of ``param_groups``), not optax's: the same
 arithmetic where the two are stated alike (tests/test_torch_train.py).
@@ -38,6 +49,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
+
+from ..nn.collectives import all_reduce_
+from .mesh import Mesh, all_reduce_grads
 
 AUX_LOSS_WEIGHT = 0.3  # GoogLeNet's aux heads, as in the JAX step
 
@@ -106,7 +120,14 @@ def _loss(logits, y, loss_fn: Callable, aux: bool) -> torch.Tensor:
     return loss
 
 
-def _make_step(loss_fn, compute_dtype, remat, augment_fn, aux):
+def _data_mean(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The mean of ``t`` over the data group (``t`` itself on one rank)."""
+    if mesh is None or mesh.data == 1:
+        return t
+    return all_reduce_(t.clone(), mesh.data_group) / mesh.data
+
+
+def _make_step(loss_fn, compute_dtype, remat, augment_fn, aux, mesh=None):
     if loss_fn is None:
         loss_fn = softmax_cross_entropy
 
@@ -118,12 +139,14 @@ def _make_step(loss_fn, compute_dtype, remat, augment_fn, aux):
     def update(optimizer, loss):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads((p for g in optimizer.param_groups for p in g["params"]), mesh)
         optimizer.step()
 
     def step(model, optimizer, x, y, generator=None):
         loss = loss_of(model, x, y, generator)
         update(optimizer, loss)
-        return loss.detach()
+        return _data_mean(loss.detach(), mesh)
 
     step.loss, step.update = loss_of, update
     return step
@@ -134,10 +157,13 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
     augment_fn: Optional[Callable] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Build ``step(model, optimizer, x, y, generator) -> loss``: one
     optimiser step, the f32 loss returned as a 0-d tensor on the model's
-    device (no host sync).
+    device (no host sync on one rank). With ``mesh``, ``x`` and ``y`` are
+    this rank's rows (``shard_batch``), the gradients are averaged over
+    the data group and the loss is the global batch's.
 
     ``loss_fn(logits, y)`` defaults to ``softmax_cross_entropy``.
     ``augment_fn(generator, x, y) -> (x, y)`` runs first, on the device, so
@@ -148,10 +174,11 @@ def make_train_step(
     JAX step takes ``opt_state``.
 
     The step is ``step.loss`` (augmentation, forward and loss, with the
-    graph) then ``step.update(optimizer, loss)`` (backward and optimiser
-    step), which a caller may time apart.
+    graph; on a mesh this rank's loss) then ``step.update(optimizer,
+    loss)`` (backward, the gradients' all-reduce and the optimiser step),
+    which a caller may time apart.
     """
-    return _make_step(loss_fn, compute_dtype, remat, augment_fn, aux=True)
+    return _make_step(loss_fn, compute_dtype, remat, augment_fn, aux=True, mesh=mesh)
 
 
 def make_scan_epoch(
@@ -171,9 +198,11 @@ def make_scan_epoch(
     return epoch
 
 
-def make_eval_step(tta_fn: Optional[Callable] = None):
+def make_eval_step(tta_fn: Optional[Callable] = None, mesh: Optional[Mesh] = None):
     """Build ``eval_step(model, x, y) -> (top1, top5, n)``: the correct
-    counts as 0-d tensors on the device, and the batch size.
+    counts as 0-d tensors on the device, and the batch size. With ``mesh``,
+    ``x`` and ``y`` are this rank's rows and the counts and the size are
+    summed over the data group: every rank gets the global batch's.
 
     ``tta_fn(x) -> (K, N, h, w, C)`` (e.g. ``functools.partial(ten_crop,
     crop_h=224)``) folds the K crops into one forward and averages the
@@ -190,15 +219,21 @@ def make_eval_step(tta_fn: Optional[Callable] = None):
             logits = model(x)
         top1 = (logits.argmax(-1) == y).sum()
         top5 = (logits.topk(5, dim=-1).indices == y[:, None]).any(-1).sum()
-        return top1, top5, y.shape[0]
+        if mesh is None or mesh.data == 1:
+            return top1, top5, y.shape[0]
+        counts = all_reduce_(torch.stack([top1, top5, top1.new_tensor(y.shape[0])]), mesh.data_group)
+        return counts[0], counts[1], int(counts[2])
 
     return eval_step
 
 
-def evaluate(model: nn.Module, batches: Iterable, *, eval_step=None) -> Tuple[float, float]:
-    """Top-1 and top-5 accuracy over an iterable of ``(x, y)`` batches."""
+def evaluate(model: nn.Module, batches: Iterable, *, eval_step=None, mesh: Optional[Mesh] = None
+             ) -> Tuple[float, float]:
+    """Top-1 and top-5 accuracy over an iterable of ``(x, y)`` batches (with
+    ``mesh``, this rank's rows of each global batch: every rank of the data
+    group must see as many batches)."""
     if eval_step is None:
-        eval_step = make_eval_step()
+        eval_step = make_eval_step(mesh=mesh)
     c1 = c5 = n = 0
     for x, y in batches:
         t1, t5, bn = eval_step(model, x, y)

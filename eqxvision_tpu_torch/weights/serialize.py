@@ -10,10 +10,14 @@ differs, or a BatchNorm statistic the file lacks raises. It also reads a
 file that the JAX package's ``save_model`` wrote (``m:<path>`` parameters
 and ``s:<layer path>:<j>`` statistics), through ``weights.from_jax``'s
 renames and layouts.
+
+``join_shards`` joins the files of a tensor-parallel model, one per model
+rank (each ``save_model`` of that rank's shard), into the one-card file
+that ``load_model`` and the eval CLI read.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,4 +65,25 @@ def load_model(path: str, model: nn.Module) -> nn.Module:
     return model
 
 
-__all__ = ["load_model", "save_model"]
+def join_shards(shard_paths: Sequence[str], shardings: Mapping[str, Sequence[int]],
+                out_path: Optional[str] = None) -> Dict[str, np.ndarray]:
+    """The whole model from the files of its model ranks' shards, in model
+    order: each entry that ``shardings`` names (``(dim, parts)``, as
+    ``parallel.param_shardings`` gives them) joined, the others taken from
+    the first file (every rank holds them whole). Written to ``out_path``
+    as one ``save_model`` file where given; returns the arrays."""
+    from ..parallel.mesh import Shard, join_tensors
+
+    states = []
+    for path in shard_paths:
+        with np.load(path, allow_pickle=False) as data:
+            states.append({k: data[k] for k in data.files})
+    joined = {k: v if k not in shardings else
+              join_tensors([torch.from_numpy(s[k]) for s in states], Shard(*shardings[k])).numpy()
+              for k, v in states[0].items()}
+    if out_path is not None:
+        np.savez(out_path, **joined)
+    return joined
+
+
+__all__ = ["join_shards", "load_model", "save_model"]

@@ -8,8 +8,10 @@ gives the eager output exactly after a save and load; the eager path does
 not go through the op. ``export_inference`` round trips: an int8 ViT (K1
 and K6 nodes), a LayerNorm-folded ViT (the fused halves) and resnet18
 behind a baked uint8 preprocess, each equal to eager on the CPU. A
-segmentation model's program returns its last output; ``mesh=`` and
-``platforms=`` raise. A ViT (depth 2, 32 px) built from a numpy seed on the
+segmentation model's program returns its last output; ``platforms=``
+raises, and so does ``mesh=`` with model ranks or a batch the data ranks
+do not divide (tests/test_torch_parallel.py exports over four data
+ranks). A ViT (depth 2, 32 px) built from a numpy seed on the
 JAX side and carried into the port gives the same logits (1e-4) through the
 two packages' ``export_inference`` programs.
 """
@@ -156,8 +158,16 @@ def test_segmentation_returns_last_output_and_unsupported_options_raise():
     program = export_inference(TwoMaps(), 1, 4, dtype=None)
     with torch.no_grad():
         assert torch.equal(program.module()(x), x * 2)
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        export_inference(TwoMaps(), 1, 4, mesh=object())
+    from eqxvision_tpu_torch.nn.collectives import Group
+    from eqxvision_tpu_torch.parallel import Mesh, make_mesh
+
+    with pytest.raises(ValueError, match="model ranks"):
+        export_inference(TwoMaps(), 4, 4, mesh=Mesh(2, 2, 0, Group([0]), Group([0])))
+    with pytest.raises(ValueError, match="does not split"):
+        export_inference(TwoMaps(), 3, 4, mesh=Mesh(2, 1, 0, Group([0]), Group([0])))
+    program = export_inference(TwoMaps(), 1, 4, dtype=None, mesh=make_mesh())
+    with torch.no_grad():
+        assert torch.equal(program.module()(x), x * 2)
     with pytest.raises(ValueError, match="device"):
         export_inference(TwoMaps(), 1, 4, platforms=["cuda"])
 

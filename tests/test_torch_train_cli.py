@@ -9,7 +9,8 @@ optimiser state, schedule, EMA and generator exactly; a run resumed from
 step 3 reaches step 6 with the unbroken run's model, optimiser state and
 EMA exactly (the RNG states are part of the checkpoint). The schedule is
 optax's ``warmup_cosine_decay_schedule``; the CLI raises without a card
-unless ``--device cpu``, and on the flags of later work.
+unless ``--device cpu``, on the flags of later work, and on a mesh that
+does not divide the world.
 """
 import json
 import os
@@ -91,8 +92,18 @@ def test_without_a_card_the_default_device_raises():
         cli.main(argv)
 
 
-@pytest.mark.parametrize("flags, item", [(["--mesh-model", "2"], "A.11b"), (["--distributed"], "A.11b"),
-                                         (["--aa", "randaugment"], "A.12b")])
+@pytest.mark.parametrize("flags, item", [(["--aa", "randaugment"], "A.12b")])
 def test_later_work_raises(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(COMMON + flags)
+
+
+def test_mesh_flags_in_one_process():
+    """Outside a torchrun world, ``--distributed`` trains as one process
+    (a world of one) and ``--mesh-model 2`` raises: two model ranks do not
+    divide a world of one. tests/test_torch_parallel.py runs both in a
+    world of four."""
+    with pytest.raises(ValueError, match="world size"):
+        cli.main(COMMON + ["--mesh-model", "2"])
+    step, ts = cli.main(COMMON + ["--distributed"])
+    assert step == 6 and all(bool(torch.isfinite(p).all()) for p in ts.model.parameters())
