@@ -109,7 +109,24 @@ phase 10 alone (on as many cards as are visible), with no result line.
    ``Linear.preactivation``'s widening to f32 under grad at vit_base's fc1,
    and one f32 vit_base b4 step on the card (kernels on, TF32 off) against
    the same step on the CPU's plain path: the loss and every updated
-   parameter within their stated bounds.
+   parameter within their stated bounds. Then the AutoAugment family
+   (``check_auto_augment``): a seeded b64 batch of 224 px images in [0, 1]
+   on the card through the eight point and affine ops at per-image
+   parameters and the four policies, each drawn and applied on the card
+   under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails
+   the run) and applied again on the CPU to the same draws copied over
+   (the policies to the first AA_CPU_IMAGES images: each image's result
+   depends on its own draws only); ``invert``, ``solarize``, ``posterize``
+   and ``equalize`` equal, the rest within the CPU tests' bounds (a warp's
+   scaled to the 224 px frame), every output finite and in [0, 1]; each
+   policy's ms a batch at b64 and b256.
+   ``nn.GroupNorm`` at (64, 56, 56, 256) in f32 and bf16, a max and an
+   average pool padded past half the kernel and
+   ``resize_shorter_side(antialias=False)`` shrinking, card against CPU.
+   Then the training CLI itself (``cli.train_imagenet.main``): swin_t,
+   three bf16 steps at b64 with ``--aa randaugment --mixup 0.8 --cutmix
+   1.0``, checkpoints in a temporary directory: finite losses, K3 and K6
+   launched, ms a step.
 
 9. Serves through the eval CLI (``cli.eval_imagenet``'s ``build_model`` and
    ``make_step``, seeded uint8 256 px canvases cropped to 224, bf16, full
@@ -152,6 +169,7 @@ stays empty.
 Any failed check raises. The line before the last is a JSON summary of the
 kernels; the last line is the JSON result.
 """
+import copy
 import ctypes
 import functools
 import importlib
@@ -315,6 +333,19 @@ EVAL_TIE = 1e-5
 # the f32 sum in another order may move a value across a rounding midpoint
 # by a few f32 steps.
 BIAS_LAYER_STEPS = 0.51
+# The AutoAugment family on the card against the CPU: AA_ATOL for a point op
+# on f32 [0, 1] images (the CPU tests' bound); AA_WARP_ATOL for a warp, the
+# CPU tests' 1e-5 at 16 px scaled to 224 px: a source coordinate there is up
+# to 160 from the centre, where an f32 ulp is 16 times the one below 16, and
+# an ulp of cos, sin or tan or a product in another order moves it by a few
+# such ulps, the output by as much on a noise image; the share of warped
+# pixels whose validity may differ at the frame's edge (a source point moved
+# across -0.5 or h - 0.5); and for a policy the share of outputs beyond
+# AA_WARP_ATOL (the edge, and a later op of a chain that quantises an input
+# an ulp apart: a posterize, solarize or equalize level). The CPU applies
+# each policy to the first AA_CPU_IMAGES images of the batch.
+AA_BATCHES, AA_SIDE, AA_CPU_IMAGES = (64, 256), 224, 16
+AA_ATOL, AA_WARP_ATOL, AA_EDGE_SHARE = 1e-5, 1.6e-4, 1e-3
 
 
 def _check(ok, what):
@@ -2518,6 +2549,182 @@ def _train_parallel(create_model, smi, work):
     return results
 
 
+def _aa_rows(draw, k):
+    """The first ``k`` images' part of a policy's draw (the image axis is
+    the last of every field but AugMix's (N, width) weights)."""
+    return type(draw)(*(t[:k] if name == "weights" else t[..., :k] for name, t in zip(draw._fields, draw)))
+
+
+def _aa_share(out, ref):
+    """The share of outputs farther than AA_WARP_ATOL apart, and the largest
+    distance."""
+    diff = (out.float().cpu() - ref.float()).abs()
+    return (diff > AA_WARP_ATOL).float().mean().item(), diff.max().item()
+
+
+def _aa_in_range(out, what):
+    _check(bool(torch.isfinite(out).all()), f"{what}: output not finite")
+    lo, hi = out.min().item(), out.max().item()
+    _check(-1e-6 <= lo and hi <= 1 + 1e-6, f"{what}: output in [{lo}, {hi}], not [0, 1]")
+
+
+def check_auto_augment(smi):
+    """The AutoAugment family on the card against the CPU (see the
+    docstring's phase 8), then each policy's ms a batch."""
+    from eqxvision_tpu_torch.ops import augment as A
+
+    n = AA_BATCHES[0]
+    cpu_gen = torch.Generator().manual_seed(11)
+    x_cpu = torch.rand(n, AA_SIDE, AA_SIDE, 3, generator=cpu_gen)
+    x_cpu[0, :, :, 1] = 0.25  # a constant channel
+    x = x_cpu.cuda()
+    per_image = {  # per-image parameters, drawn on the CPU
+        "threshold": torch.rand(n, generator=cpu_gen),
+        "bits": torch.randint(0, 9, (n,), generator=cpu_gen),
+        "factor": torch.rand(n, generator=cpu_gen) * 2.0,
+        "angle": torch.rand(n, generator=cpu_gen) * 360.0 - 180.0,
+        "shift": torch.rand(n, generator=cpu_gen) * 60.0 - 30.0,
+    }
+    card = {k: v.cuda() for k, v in per_image.items()}
+    ops = {
+        "invert": (lambda t, p: A.invert(t), True),
+        "solarize": (lambda t, p: A.solarize(t, p["threshold"]), True),
+        "posterize": (lambda t, p: A.posterize(t, p["bits"]), True),
+        "equalize": (lambda t, p: A.equalize(t), True),
+        "autocontrast": (lambda t, p: A.autocontrast(t), False),
+        "sharpness": (lambda t, p: A.sharpness(t, p["factor"]), False),
+    }
+    for name, (fn, exact) in ops.items():
+        out, ref = fn(x, card), fn(x_cpu, per_image)
+        _aa_in_range(out, name)
+        err = (out.cpu() - ref).abs().max().item()
+        _check(err == 0 if exact else err <= AA_ATOL, f"{name}: card against CPU {err}")
+        print(f"{name} b{n} {AA_SIDE} px: card against CPU max {err:.3e} ({'equal' if exact else AA_ATOL})")
+    affine = {
+        "rotate": dict(angle="angle"),
+        "affine": dict(angle="angle", translate=("shift", 3.0), shear=(10.0, "shift"), scale=1.1),
+    }
+    for name, kw in affine.items():
+        def params(p):
+            return {k: tuple(p[u] if isinstance(u, str) else u for u in v) if isinstance(v, tuple)
+                    else (p[v] if isinstance(v, str) else v) for k, v in kw.items()}
+
+        out, ref = A.affine(x, fill=0.5, **params(card)), A.affine(x_cpu, fill=0.5, **params(per_image))
+        _aa_in_range(out, name)
+        ys, xs = (t.cpu() for t in A._affine_grid(x.shape, x.device, **params(card)))
+        ys_c, xs_c = A._affine_grid(x.shape, "cpu", **params(per_image))
+        h = w = AA_SIDE
+        valid = lambda a, b: (a >= -0.5) & (a <= h - 0.5) & (b >= -0.5) & (b <= w - 0.5)  # noqa: E731
+        flips = valid(ys, xs) != valid(ys_c, xs_c)
+        err = (out.cpu() - ref).abs()[~flips].max().item()
+        _check(flips.float().mean().item() <= AA_EDGE_SHARE and err <= AA_WARP_ATOL,
+               f"{name}: validity differs at {flips.float().mean().item():.2e}, elsewhere max {err}")
+        print(f"{name} b{n} {AA_SIDE} px per-image parameters: validity differs at {int(flips.sum())} of "
+              f"{flips.numel()} pixels, elsewhere card against CPU max {err:.3e} (bound {AA_WARP_ATOL})")
+
+    for name, (draw_fn, apply_fn) in A.AUTO_AUGMENT_POLICIES.items():
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            draw = draw_fn(gen, n, x.device)
+            out = apply_fn(x, draw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _aa_in_range(out, name)
+        k = AA_CPU_IMAGES
+        ref = apply_fn(x_cpu[:k], _aa_rows(type(draw)(*(t.cpu() for t in draw)), k))
+        share, err = _aa_share(out[:k], ref)
+        _check(share <= AA_EDGE_SHARE, f"{name}: {share:.2e} of the outputs beyond {AA_WARP_ATOL} (max {err})")
+        print(f"{name} b{n} {AA_SIDE} px, drawn and applied on the card with no host sync: card against CPU on the "
+              f"first {k} images, {share:.2e} of the outputs beyond {AA_WARP_ATOL} (bound {AA_EDGE_SHARE}), "
+              f"max {err:.3e}")
+    for b in AA_BATCHES:
+        xb = torch.rand(b, AA_SIDE, AA_SIDE, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(b))
+        for name, (draw_fn, apply_fn) in A.AUTO_AUGMENT_POLICIES.items():
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            ms = _time_ms(lambda: apply_fn(xb, draw_fn(gen, b, xb.device)), 5)
+            print(f"{name} b{b} {AA_SIDE} px, draw and application: {ms:.3f} ms a batch on {smi}")
+        del xb
+    torch.cuda.empty_cache()
+
+
+def check_surface():
+    """``nn.GroupNorm``, the pools padded past half the kernel and
+    ``resize_shorter_side(antialias=False)``, card against CPU."""
+    from eqxvision_tpu_torch import nn as TN
+    from eqxvision_tpu_torch.ops import resize_shorter_side
+
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(64, 56, 56, 256, generator=gen) * 2.0 + 1.0
+    gn = TN.GroupNorm(32, 256, device="cpu")
+    with torch.no_grad():
+        gn.weight.copy_(torch.rand(256, generator=gen) + 0.5)
+        gn.bias.copy_(torch.randn(256, generator=gen))
+        # each output against the f32 CPU layer on the same (bf16-rounded) input and weights: f32 within 1e-4;
+        # bf16 rounded once from that, so within half a bf16 step of the f32 value plus the f32 bound
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            layer, xd = copy.deepcopy(gn).to(dtype), x.to(dtype)
+            ref = copy.deepcopy(layer).float()(xd.float())
+            out = layer.cuda()(xd.cuda())
+            _check(out.dtype == dtype, f"GroupNorm {dtype}: output {out.dtype}")
+            half_step = 0.0 if dtype == torch.float32 else torch.exp2(
+                torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 8)
+            errs[dtype] = ((out.float().cpu() - ref).abs() - half_step).max().item()
+    _check(max(errs.values()) <= 1e-4, f"GroupNorm card against CPU: {errs}")
+    print(f"nn.GroupNorm(32, 256) (64, 56, 56, 256): f32 card against CPU max {errs[torch.float32]:.3e}; bf16 beyond "
+          f"half a bf16 step of the f32 CPU layer max {errs[torch.bfloat16]:.3e} (bound 1e-4 each)")
+    xp = torch.randn(8, 56, 56, 64, generator=gen)
+    for layer, bound in ((TN.MaxPool2d(3, 1, 2), 0.0), (TN.AvgPool2d(3, 2, 2, ceil_mode=True), 1e-6)):
+        out, ref = layer(xp.cuda()).cpu(), layer(xp)
+        err = (out - ref).abs().max().item()
+        _check(out.shape == ref.shape and err <= bound, f"{type(layer).__name__} padding 2 of kernel 3: {err}")
+        print(f"{type(layer).__name__}(3, {layer.stride[0]}, 2) {tuple(xp.shape)} -> {tuple(out.shape)}: card "
+              f"against CPU max {err:.3e} (bound {bound})")
+    canv = torch.randint(0, 256, (8, 256, 320, 3), dtype=torch.uint8, generator=gen)
+    out, ref = resize_shorter_side(canv.cuda(), 224, antialias=False).cpu(), resize_shorter_side(canv, 224,
+                                                                                                 antialias=False)
+    err = (out - ref).abs().max().item()
+    _check(out.shape == ref.shape and err <= 1e-3, f"resize_shorter_side(antialias=False): {err}")
+    print(f"resize_shorter_side(antialias=False) (8, 256, 320, 3) uint8 -> {tuple(out.shape)}: card against CPU max "
+          f"{err:.3e} (bound 1e-3)")
+
+
+def train_cli(counters, smi):
+    """The training CLI on the card: swin_t, three bf16 steps at b64 from
+    256 px canvases with RandAugment, mixup 0.8 and cutmix 1.0; finite
+    losses, K3 and K6 launched, ms a step from the CLI's own log (steps 2-3:
+    the log's interval ends in a host sync on the loss)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from eqxvision_tpu_torch.cli import train_imagenet as cli
+
+    steps, batch = 3, 64
+    _reset(counters)
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as ckpt, contextlib.redirect_stdout(log):
+        step, ts = cli.main(["--model", "swin_t", "--synthetic", str(steps), "--batch-size", str(batch), "--bf16",
+                             "--aa", "randaugment", "--mixup", "0.8", "--cutmix", "1.0", "--epochs", "1",
+                             "--warmup-epochs", "0", "--opt", "adamw", "--lr", "1e-3", "--log-every", "1",
+                             "--ckpt-dir", ckpt])
+    counts = {fn.__name__: fn.launches for fn in counters}
+    events = [json.loads(line) for line in log.getvalue().splitlines() if line.startswith("{")]
+    train = [e for e in events if e.get("event") == "train"]
+    _check(step == steps and len(train) == steps and all(math.isfinite(e["loss"]) for e in train),
+           f"train CLI --aa randaugment: steps {step}, log {train}")
+    _check(counts["window_qkv_attention"] > 0 and counts["layer_norm"] > 0,
+           f"train CLI --aa randaugment: K3 or K6 never launched: {counts}")
+    ms = [batch / e["images_per_sec"] * 1e3 for e in train]
+    print(f"train CLI swin_t b{batch} bf16 --aa randaugment --mixup 0.8 --cutmix 1.0: losses "
+          f"{[round(e['loss'], 4) for e in train]}, {sum(ms[1:]) / (steps - 1):.1f} ms a step (steps 2-{steps}; "
+          f"step 1 {ms[0]:.1f}), launches {counts} on {smi}")
+    del ts
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA card", file=sys.stderr)
@@ -2604,6 +2811,10 @@ def main():
           f"forward + backward {wide:.3f} ms against {narrow:.3f} in bf16, {11 * (wide - narrow):.3f} ms a step "
           f"(without remat's second forward)")
     check_train_f32(create_model, counters)
+    print(f"AutoAugment family on {smi}")
+    check_auto_augment(smi)
+    check_surface()
+    train_cli(counters, smi)
     serve_transforms(create_model, counters, smi)
     train_parallel(create_model, smi)
 

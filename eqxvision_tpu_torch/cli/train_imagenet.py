@@ -3,9 +3,10 @@
 - host threads decode images into uint8 canvases (``data.ImageFolderLoader``,
   or ``--synthetic`` random batches), copied to the card ahead of the step
   (``data.device_prefetch``);
-- RandomResizedCrop, flip, label smoothing and mixup / cutmix run on the
-  card before the forward (``ops.augment``), from one ``torch.Generator``;
-  mixup and cutmix each take their own draws, and a fair coin picks one;
+- RandomResizedCrop, flip, the auto-augmentation policy (``--aa``), label
+  smoothing and mixup / cutmix run on the card before the forward
+  (``ops.augment``), from one ``torch.Generator``; mixup and cutmix each
+  take their own draws, and a fair coin picks one;
 - bf16 compute with f32 master weights (``--bf16``) and remat of the whole
   forward (``--remat``), ``parallel.make_train_step``;
 - SGD with momentum 0.9 or AdamW, weight decay off norms and biases, a
@@ -112,7 +113,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="EMA of the weights (e.g. 0.9999); eval uses the EMA")
     # augmentation (on the device)
     ap.add_argument("--aa", default=None, choices=["autoaugment", "randaugment", "trivialaugmentwide", "augmix"],
-                    help="auto-augmentation policy (not ported yet: ROADMAP A.12b)")
+                    help="auto-augmentation policy after the crop and flip, on the device")
     ap.add_argument("--mixup", type=float, default=0.0, metavar="ALPHA")
     ap.add_argument("--cutmix", type=float, default=0.0, metavar="ALPHA")
     # parallelism
@@ -166,13 +167,15 @@ def build_optimizer(model: torch.nn.Module, opt: str, lr: float, weight_decay: f
     return torch.optim.AdamW(groups, lr=lr)
 
 
-def make_augment_fn(num_classes: int, crop: int, label_smoothing: float, mixup: float, cutmix: float):
+def make_augment_fn(num_classes: int, crop: int, label_smoothing: float, mixup: float, cutmix: float,
+                    auto_augment_policy: Optional[str] = None):
     """``augment_fn(generator, x_uint8, y)``: ``imagenet_train_pipeline`` to
-    ``crop``, smoothed labels, then mixup or cutmix where asked; with both,
-    each draws its own values and a fair coin picks one a batch."""
+    ``crop`` (with ``auto_augment_policy`` after the crop and flip),
+    smoothed labels, then mixup or cutmix where asked; with both, each
+    draws its own values and a fair coin picks one a batch."""
 
     def augment_fn(generator, x, y):
-        x = aug.imagenet_train_pipeline(generator, x, size=crop)
+        x = aug.imagenet_train_pipeline(generator, x, size=crop, auto_augment_policy=auto_augment_policy)
         y = aug.smooth_labels(y, num_classes, label_smoothing)
         if mixup and cutmix:
             pick = torch.rand((), generator=generator, device=x.device) < 0.5
@@ -329,8 +332,6 @@ def main(argv=None) -> Tuple[int, TrainState]:
     args = build_argparser().parse_args(argv)
     if not (args.data_dir or args.synthetic):
         raise SystemExit("pass --data-dir or --synthetic STEPS")
-    if args.aa is not None:
-        raise NotImplementedError(f"--aa {args.aa}: the AutoAugment family is ROADMAP A.12b")
     device, mesh = setup_world(args)
     if args.batch_size % mesh.data:
         raise ValueError(f"--batch-size {args.batch_size} does not split over {mesh.data} data ranks")
@@ -365,7 +366,8 @@ def main(argv=None) -> Tuple[int, TrainState]:
     model, optimizer, scheduler = ts.model, ts.optimizer, ts.scheduler
     step = make_train_step(
         compute_dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat,
-        augment_fn=make_augment_fn(args.num_classes, args.crop, args.label_smoothing, args.mixup, args.cutmix),
+        augment_fn=make_augment_fn(args.num_classes, args.crop, args.label_smoothing, args.mixup, args.cutmix,
+                                   args.aa),
         mesh=mesh,
     )
 

@@ -17,8 +17,14 @@ from typing import Callable, Optional, Sequence
 import torch
 
 
+def _target(generator: Optional[torch.Generator], device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cpu") if generator is None else generator.device
+
+
 def _drawn(shape: Sequence[int], generator: torch.Generator, device, fill: Callable) -> torch.Tensor:
-    target = generator.device if device is None else torch.device(device)
+    target = _target(generator, device)
     if target.type == "meta":
         return torch.empty(tuple(shape), device=target)
     t = torch.empty(tuple(shape), device=generator.device)
@@ -54,3 +60,34 @@ def trunc_normal(
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(std)
 
     return _drawn(shape, generator, device, fill)
+
+
+def kaiming_normal(
+    shape: Sequence[int], fan: int, *, generator: torch.Generator, nonlinearity: str = "relu",
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """N(0, std^2) with std = gain / sqrt(fan), gain sqrt(2) for ReLU and 1
+    otherwise (torch.nn.init.kaiming_normal_'s fan-out use in the conv
+    nets)."""
+    std = (math.sqrt(2.0) if nonlinearity == "relu" else 1.0) / math.sqrt(fan)
+    return _drawn(shape, generator, device, lambda t: t.normal_(0.0, std, generator=generator))
+
+
+def normal(
+    shape: Sequence[int], *, generator: torch.Generator, std: float = 0.01, device: Optional[torch.device] = None
+) -> torch.Tensor:
+    """N(0, std^2) (std 0.01: torchvision's classifier heads)."""
+    return _drawn(shape, generator, device, lambda t: t.normal_(0.0, std, generator=generator))
+
+
+def zeros(shape: Sequence[int], dtype: torch.dtype = torch.float32, *, generator: Optional[torch.Generator] = None,
+          device: Optional[torch.device] = None) -> torch.Tensor:
+    """Zeros on ``device`` (else the generator's, else the CPU); the
+    generator, taken for a uniform signature, draws nothing."""
+    return torch.zeros(tuple(shape), dtype=dtype, device=_target(generator, device))
+
+
+def ones(shape: Sequence[int], dtype: torch.dtype = torch.float32, *, generator: Optional[torch.Generator] = None,
+         device: Optional[torch.device] = None) -> torch.Tensor:
+    """Ones, as ``zeros``."""
+    return torch.ones(tuple(shape), dtype=dtype, device=_target(generator, device))

@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..weights.torch_import import load_torch_weights
+
 
 def ensure_nhwc(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     """Accept (N,H,W,C) or a single (C,H,W) sample; return NHWC + flag."""
@@ -50,37 +52,8 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-# Buffers that torchvision's Swin checkpoints carry and the port computes from
-# the window size; a load skips exactly these (the JAX loader's list).
-DERIVED_BUFFERS = ("relative_position_index", "relative_coords_table", "attn_mask")
-
-
-def load_state(torch_weights: str) -> dict:
-    """A torch ``state_dict`` from a local file, or from a URL through
-    ``torch.hub.load_state_dict_from_url`` (torch's checkpoint cache). A
-    local ``.npz`` is read as ``weights.save_model`` writes it (entries
-    under their torch names, e.g. a joined tensor-parallel checkpoint)."""
-    if str(torch_weights).endswith(".npz") and not str(torch_weights).startswith(("http://", "https://")):
-        import numpy as np
-
-        with np.load(torch_weights, allow_pickle=False) as data:
-            return {k: torch.from_numpy(data[k]) for k in data.files}
-    if str(torch_weights).startswith(("http://", "https://")):
-        return torch.hub.load_state_dict_from_url(torch_weights, map_location="cpu", weights_only=True)
-    return torch.load(torch_weights, map_location="cpu", weights_only=True)
-
-
 def maybe_load_state_dict(model: nn.Module, torch_weights: Optional[str]) -> nn.Module:
-    """Factory tail: load a torch ``state_dict`` (a local file or a URL)
-    strictly, but for the derived buffers (``DERIVED_BUFFERS``), which the
-    model keeps as it computed them."""
-    if torch_weights is None:
-        return model
-    derived = lambda key: key.rsplit(".", 1)[-1] in DERIVED_BUFFERS  # noqa: E731
-    state = {k: v for k, v in load_state(torch_weights).items() if not derived(k)}
-    missing, unexpected = model.load_state_dict(state, strict=False)
-    missing = [k for k in missing if not derived(k)]
-    if missing or unexpected:
-        raise RuntimeError(f"checkpoint {torch_weights} does not fit {type(model).__name__}: "
-                           f"missing keys {missing}, unexpected keys {unexpected}")
-    return model
+    """Factory tail: load a torch ``state_dict`` (a local file or a URL,
+    nested or not) strictly, but for the derived buffers, which the model
+    keeps as it computed them (``weights.load_torch_weights``)."""
+    return model if torch_weights is None else load_torch_weights(model, torch_weights)

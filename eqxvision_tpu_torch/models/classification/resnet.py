@@ -7,14 +7,15 @@ torchvision's module tree and state-dict names: ``conv1``, ``bn1``,
 1x1 conv, ``downsample.1`` its BatchNorm). v1.5: a bottleneck strides on
 its 3x3 conv. ``groups`` and ``width_per_group`` give ResNeXt and
 Wide-ResNet, ``replace_stride_with_dilation`` the dilated trunks that
-segmentation uses. The convolutions are cuDNN on the channels-last view,
+segmentation uses, ``norm_layer`` (called as ``norm_layer(channels,
+device=...)``; ``nn.BatchNorm`` by default) another norm. The convolutions are cuDNN on the channels-last view,
 the BatchNorms ``F.batch_norm`` at inference (``nn.BatchNorm``), and no
 kernel of the port runs here; ``ops.fold_batchnorm`` folds the BatchNorms
 into the convolutions on request.
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Type, Union
+from typing import Any, Callable, List, Optional, Type, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +36,8 @@ def _conv1x1(cin, cout, stride=1, **kw):
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1, base_width=64, dilation=1, *,
-                 generator, device=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1, base_width=64, dilation=1,
+                 norm_layer: Callable[..., nn.Module] = BatchNorm, *, generator, device=None):
         super().__init__()
         if groups != 1 or base_width != 64:
             raise ValueError("BasicBlock only supports groups=1 and base_width=64")
@@ -44,9 +45,9 @@ class BasicBlock(nn.Module):
             raise NotImplementedError("Dilation > 1 not supported in BasicBlock")
         kw = dict(generator=generator, device=device)
         self.conv1 = _conv3x3(inplanes, planes, stride, **kw)
-        self.bn1 = BatchNorm(planes, device=device)
+        self.bn1 = norm_layer(planes, device=device)
         self.conv2 = _conv3x3(planes, planes, **kw)
-        self.bn2 = BatchNorm(planes, device=device)
+        self.bn2 = norm_layer(planes, device=device)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -59,17 +60,17 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1, base_width=64, dilation=1, *,
-                 generator, device=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1, base_width=64, dilation=1,
+                 norm_layer: Callable[..., nn.Module] = BatchNorm, *, generator, device=None):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         kw = dict(generator=generator, device=device)
         self.conv1 = _conv1x1(inplanes, width, **kw)
-        self.bn1 = BatchNorm(width, device=device)
+        self.bn1 = norm_layer(width, device=device)
         self.conv2 = _conv3x3(width, width, stride, groups, dilation, **kw)
-        self.bn2 = BatchNorm(width, device=device)
+        self.bn2 = norm_layer(width, device=device)
         self.conv3 = _conv1x1(width, planes * self.expansion, **kw)
-        self.bn3 = BatchNorm(planes * self.expansion, device=device)
+        self.bn3 = norm_layer(planes * self.expansion, device=device)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,6 +90,7 @@ class ResNet(nn.Module):
         groups: int = 1,
         width_per_group: int = 64,
         replace_stride_with_dilation: Optional[List[bool]] = None,
+        norm_layer: Callable[..., nn.Module] = BatchNorm,
         *,
         generator: Optional[torch.Generator] = None,
         device: Union[str, torch.device] = "cuda",
@@ -102,9 +104,9 @@ class ResNet(nn.Module):
             raise ValueError("replace_stride_with_dilation should have 3 elements")
         self._kw = dict(generator=generator, device=device)
         self._inplanes, self._dilation = 64, 1
-        self._groups, self._base_width = groups, width_per_group
+        self._groups, self._base_width, self._norm_layer = groups, width_per_group, norm_layer
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, use_bias=False, **self._kw)
-        self.bn1 = BatchNorm(64, device=device)
+        self.bn1 = norm_layer(64, device=device)
         self.maxpool = MaxPool2d(3, 2, 1)
         self.layer1 = self._make_layer(block, 64, layers[0])
         self.layer2 = self._make_layer(block, 128, layers[1], 2, replace_stride_with_dilation[0])
@@ -112,7 +114,7 @@ class ResNet(nn.Module):
         self.layer4 = self._make_layer(block, 512, layers[3], 2, replace_stride_with_dilation[2])
         self.avgpool = AdaptiveAvgPool2d((1, 1))
         self.fc = Linear(512 * block.expansion, num_classes, **self._kw)
-        del self._kw, self._inplanes, self._dilation, self._groups, self._base_width  # construction only
+        del self._kw, self._inplanes, self._dilation, self._groups, self._base_width, self._norm_layer  # build only
 
     def _make_layer(self, block, planes, blocks, stride=1, dilate=False) -> nn.Sequential:
         previous_dilation = self._dilation
@@ -124,14 +126,14 @@ class ResNet(nn.Module):
         if stride != 1 or self._inplanes != planes * block.expansion:
             downsample = nn.Sequential(
                 _conv1x1(self._inplanes, planes * block.expansion, stride, **self._kw),
-                BatchNorm(planes * block.expansion, device=device),
+                self._norm_layer(planes * block.expansion, device=device),
             )
         layers = [block(self._inplanes, planes, stride, downsample, self._groups, self._base_width,
-                        previous_dilation, **self._kw)]
+                        previous_dilation, self._norm_layer, **self._kw)]
         self._inplanes = planes * block.expansion
         for _ in range(1, blocks):
             layers.append(block(self._inplanes, planes, groups=self._groups, base_width=self._base_width,
-                                dilation=self._dilation, **self._kw))
+                                dilation=self._dilation, norm_layer=self._norm_layer, **self._kw))
         return nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

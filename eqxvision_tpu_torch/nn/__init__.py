@@ -4,7 +4,7 @@ from .conv import Conv2d
 from .dropout import Dropout
 from .flatten import FlattenCHW, flatten_chw
 from .linear import Linear
-from .norm import BatchNorm, LayerNorm
+from .norm import BatchNorm, GroupNorm, LayerNorm
 from .pool import AdaptiveAvgPool2d, AdaptiveMaxPool2d, AvgPool2d, MaxPool2d, adaptive_avg_pool2d
 
 __all__ = [
@@ -15,6 +15,7 @@ __all__ = [
     "Conv2d",
     "Dropout",
     "FlattenCHW",
+    "GroupNorm",
     "Identity",
     "Lambda",
     "LayerNorm",

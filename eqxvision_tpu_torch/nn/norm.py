@@ -1,4 +1,5 @@
-"""Last-axis LayerNorm and channels-last BatchNorm (eqxvision_tpu/nn/norm.py).
+"""Last-axis LayerNorm, channels-last BatchNorm and GroupNorm
+(eqxvision_tpu/nn/norm.py).
 
 LayerNorm's forward is ``ops.layer_norm``, as the JAX layer's is: the mean
 and the centred variance in f32, the affine parameters read in their stored
@@ -8,6 +9,10 @@ On a CUDA tensor that is the hand-written kernel (``csrc/layer_norm.cu``).
 BatchNorm normalises over every axis but the last. Its running statistics
 are buffers with torchvision's names and stay f32 whatever the module is
 cast to, as the JAX package's ``State`` stays f32 when the model is cast.
+GroupNorm takes each image's statistics over its spatial positions and
+the channels of a group in f32, applies the affine in f32 and rounds once
+to the input's type, as the JAX layer does.
+
 A BatchNorm given a data group (``process_group``, set by
 ``parallel.sync_batchnorm``) takes its training statistics over the whole
 group's batch, as the JAX layer's do over a batch sharded on the mesh.
@@ -40,6 +45,34 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class GroupNorm(nn.Module):
+    """torch.nn.GroupNorm on channels-last input ``(N, ..., C)``."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, affine: bool = True, *,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError("num_channels must divide num_groups")
+        self.num_groups = int(num_groups)
+        self.num_channels = int(num_channels)
+        self.eps = float(eps)
+        if affine:
+            self.weight = nn.Parameter(torch.ones(self.num_channels, device=device))
+            self.bias = nn.Parameter(torch.zeros(self.num_channels, device=device))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.num_groups
+        xf = x.float().reshape(x.shape[0], -1, g, self.num_channels // g)
+        var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        if self.weight is not None:
+            y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
 
 
 _STATS = ("running_mean", "running_var")

@@ -7,12 +7,19 @@ is dropped), -inf padding for the max, ``count_include_pad`` for the mean,
 whose divisor under ceil mode counts only the positions inside the input
 and its declared padding, and adaptive bins ``[floor(i S / O), ceil((i + 1)
 S / O))``. The means accumulate a bf16 input in f32 and round once.
-torch's ops take a padding of at most half the kernel (no model of the
-zoo pads more); a wider one raises where the layer is built.
+torch's ops take a padding of at most half the kernel (every model of the
+zoo pads less). A wider one is padded explicitly, as the JAX layer's
+``reduce_window`` pads: by the declared padding before and by what the
+geometry needs after (``_pool_padding``, the JAX function), with -inf for
+the max and zeros for the mean, whose divisor is the kernel's area, or
+under ceil mode the positions inside the input and its declared padding;
+the pool itself then runs unpadded.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -26,11 +33,32 @@ def _pair(v: Union[int, Sequence[int]]) -> Tuple[int, int]:
     return (int(a), int(b))
 
 
-def _checked_padding(padding, kernel_size) -> Tuple[int, int]:
-    padding = _pair(padding)
-    if any(p > k // 2 for p, k in zip(padding, kernel_size)):
-        raise ValueError(f"padding {padding} exceeds half the kernel {kernel_size}, which torch's pooling refuses")
-    return padding
+def _wide(padding, kernel_size) -> bool:
+    """A padding past half the kernel, which torch's pooling refuses."""
+    return any(p > k // 2 for p, k in zip(padding, kernel_size))
+
+
+def _pool_padding(in_size: int, k: int, s: int, p: int, d: int, ceil_mode: bool) -> Tuple[int, int]:
+    """(before, after) padding of one axis that gives torch's pooling
+    geometry with an unpadded pool: ``p`` before, after what the last
+    window needs (under ceil mode, one that starts in the padding is
+    dropped)."""
+    ek = (k - 1) * d + 1  # the window's extent
+    if ceil_mode:
+        out = math.ceil((in_size + 2 * p - ek) / s) + 1
+        if (out - 1) * s >= in_size + p:
+            out -= 1
+    else:
+        out = math.floor((in_size + 2 * p - ek) / s) + 1
+    return (p, max((out - 1) * s + ek - in_size - p, 0))
+
+
+def _padded(x: torch.Tensor, kernel, stride, padding, dilation, ceil_mode, value: float):
+    """NCHW ``x`` padded explicitly with ``value``; and the (before, after)
+    paddings of H and W."""
+    pad_h, pad_w = (_pool_padding(x.shape[2 + i], kernel[i], stride[i], padding[i], dilation[i], ceil_mode)
+                    for i in range(2))
+    return F.pad(x, (*pad_w, *pad_h), value=value), pad_h, pad_w
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -46,13 +74,17 @@ class MaxPool2d(nn.Module):
         super().__init__()
         self.kernel_size = _pair(kernel_size)
         self.stride = _pair(stride if stride is not None else kernel_size)
-        self.padding = _checked_padding(padding, self.kernel_size)
+        self.padding = _pair(padding)
         self.dilation = _pair(dilation)
         self.use_ceil = bool(use_ceil if ceil_mode is None else ceil_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.max_pool2d(_nchw(x), self.kernel_size, self.stride, self.padding, self.dilation, self.use_ceil)
-        return _nhwc(y)
+        if not _wide(self.padding, self.kernel_size):
+            return _nhwc(F.max_pool2d(_nchw(x), self.kernel_size, self.stride, self.padding, self.dilation,
+                                      self.use_ceil))
+        xp, _, _ = _padded(_nchw(x), self.kernel_size, self.stride, self.padding, self.dilation, self.use_ceil,
+                           -math.inf)
+        return _nhwc(F.max_pool2d(xp, self.kernel_size, self.stride, 0, self.dilation))
 
 
 class AvgPool2d(nn.Module):
@@ -62,12 +94,24 @@ class AvgPool2d(nn.Module):
         super().__init__()
         self.kernel_size = _pair(kernel_size)
         self.stride = _pair(stride if stride is not None else kernel_size)
-        self.padding = _checked_padding(padding, self.kernel_size)
+        self.padding = _pair(padding)
         self.use_ceil = bool(use_ceil if ceil_mode is None else ceil_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.avg_pool2d(_nchw(x), self.kernel_size, self.stride, self.padding, self.use_ceil, True)
-        return _nhwc(y)
+        if not _wide(self.padding, self.kernel_size):
+            return _nhwc(F.avg_pool2d(_nchw(x), self.kernel_size, self.stride, self.padding, self.use_ceil, True))
+        (kh, kw), (ph, pw) = self.kernel_size, self.padding
+        xp, pad_h, pad_w = _padded(_nchw(x).float(), self.kernel_size, self.stride, self.padding, (1, 1),
+                                   self.use_ceil, 0.0)
+        summed = F.avg_pool2d(xp, self.kernel_size, self.stride, divisor_override=1)
+        if self.use_ceil and (pad_h[1] > ph or pad_w[1] > pw):
+            # the divisor counts the positions inside the input and its declared padding
+            inside = F.pad(torch.ones((1, 1, x.shape[1] + 2 * ph, x.shape[2] + 2 * pw), device=x.device),
+                           (0, pad_w[1] - pw, 0, pad_h[1] - ph))
+            y = summed / F.avg_pool2d(inside, self.kernel_size, self.stride, divisor_override=1)
+        else:
+            y = summed / (kh * kw)
+        return _nhwc(y).to(x.dtype)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:

@@ -4,9 +4,9 @@ Raw uint8 NHWC canvases go to the card (a quarter of the bytes of f32) and
 are resized, cropped and normalised there, as torchvision's eval transform
 does on the host:
 
-- ``resize_shorter_side``: bilinear, antialiased where it shrinks, as
-  ``jax.image.resize`` (``resize_bilinear``, which the segmentation models
-  share);
+- ``resize_shorter_side``: bilinear, antialiased where it shrinks unless
+  ``antialias=False``, as ``jax.image.resize`` (``resize_bilinear``, which
+  the segmentation models share);
 - ``center_crop``, ``five_crop``, ``ten_crop`` (torchvision's order);
 - ``normalize``: ``(x * scale - mean) / std`` in f32, ImageNet defaults.
 
@@ -16,6 +16,7 @@ centres, as ``jax.image.resize(method="bilinear")``. The JAX function
 antialiases where it shrinks an axis (its kernel widens by the scale), and
 ``F.interpolate`` does so only with ``antialias=True``, so that is passed
 whenever either side shrinks; where both grow the two agree without it.
+Without antialias both sample the two nearest source pixels at any scale.
 """
 from __future__ import annotations
 
@@ -28,11 +29,12 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, height: int, width: int, antialias: bool = True) -> torch.Tensor:
     """(N, H, W, C) -> (N, height, width, C), bilinear, half-pixel centres;
-    antialiased where an axis shrinks, in f32 for a narrower input (torch's
-    antialiased kernel takes no bf16 on the CPU) and rounded once."""
-    if height < x.shape[1] or width < x.shape[2]:
+    with ``antialias``, antialiased where an axis shrinks, in f32 for a
+    narrower input (torch's antialiased kernel takes no bf16 on the CPU)
+    and rounded once."""
+    if antialias and (height < x.shape[1] or width < x.shape[2]):
         y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(height, width), mode="bilinear",
                           align_corners=False, antialias=True)
         return y.permute(0, 2, 3, 1).to(x.dtype)
@@ -40,7 +42,7 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def resize_shorter_side(x: torch.Tensor, size: int) -> torch.Tensor:
+def resize_shorter_side(x: torch.Tensor, size: int, *, antialias: bool = True) -> torch.Tensor:
     """NHWC resize in f32 so that the shorter side equals ``size``, the
     aspect kept (the longer side rounded to the nearest pixel)."""
     n, h, w, c = x.shape
@@ -48,7 +50,7 @@ def resize_shorter_side(x: torch.Tensor, size: int) -> torch.Tensor:
         oh, ow = size, max(int(round(w * size / h)), 1)
     else:
         oh, ow = max(int(round(h * size / w)), 1), size
-    return resize_bilinear(x.float(), oh, ow)
+    return resize_bilinear(x.float(), oh, ow, antialias)
 
 
 def center_crop(x: torch.Tensor, crop_h: int, crop_w: Optional[int] = None) -> torch.Tensor:

@@ -1,4 +1,6 @@
-"""Helpers shared by the mobile families (eqxvision_tpu/utils.py)."""
+"""Helpers shared by the mobile families, and the checkpoint surface under
+the reference's names (eqxvision_tpu/utils.py): ``load_torch_weights`` and
+the URL tables live in ``weights`` and are re-exported here."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,3 +16,9 @@ def _make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None)
     if new_v < 0.9 * v:
         new_v += divisor
     return new_v
+
+
+from .weights.torch_import import load_torch_weights  # noqa: E402
+from .weights.urls import CLASSIFICATION_URLS, SEGMENTATION_URLS  # noqa: E402
+
+__all__ = ["_make_divisible", "CLASSIFICATION_URLS", "SEGMENTATION_URLS", "load_torch_weights"]

@@ -327,12 +327,6 @@ def test_batch_mixing_keeps_label_mass(op):
         torch.testing.assert_close(ym, (1 - moved) * _t(y) + moved * _t(y)[draw.perm])
 
 
-def test_auto_augment_policy_raises():
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        A.imagenet_train_pipeline(torch.Generator(), torch.zeros(1, 8, 8, 3, dtype=torch.uint8), size=4,
-                                  auto_augment_policy="randaugment")
-
-
 def test_ops_export_the_pipelines():
     from eqxvision_tpu_torch import ops
 

@@ -147,8 +147,15 @@ def test_max_pool_matches_jax(name):
 
 @pytest.mark.parametrize("layer", [TN.MaxPool2d, TN.AvgPool2d])
 def test_pool_padding_past_half_the_kernel_raises(layer):
-    with pytest.raises(ValueError, match="exceeds half the kernel"):
-        layer(3, 1, 2)
+    """torch's pooling op raises on a padding past half the kernel; the
+    layer pads explicitly instead and computes the JAX layer's pool."""
+    x = np.random.RandomState(10).randn(2, 7, 6, 3).astype(np.float32)
+    op = torch.nn.functional.max_pool2d if layer is TN.MaxPool2d else torch.nn.functional.avg_pool2d
+    with pytest.raises(RuntimeError, match="pad should be"):
+        op(torch.from_numpy(x).permute(0, 3, 1, 2), 3, 1, 2)
+    ref = getattr(JN, layer.__name__)(3, 1, 2)(jnp.asarray(x))
+    out = layer(3, 1, 2)(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
 
 
 # (kernel, stride, padding, ceil mode, input H x W); the ceil cases' last

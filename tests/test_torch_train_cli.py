@@ -9,8 +9,8 @@ optimiser state, schedule, EMA and generator exactly; a run resumed from
 step 3 reaches step 6 with the unbroken run's model, optimiser state and
 EMA exactly (the RNG states are part of the checkpoint). The schedule is
 optax's ``warmup_cosine_decay_schedule``; the CLI raises without a card
-unless ``--device cpu``, on the flags of later work, and on a mesh that
-does not divide the world.
+unless ``--device cpu``, and on a mesh that does not divide the world
+(``--aa`` is tested in ``test_torch_auto_augment.py``).
 """
 import json
 import os
@@ -90,12 +90,6 @@ def test_without_a_card_the_default_device_raises():
     argv = [a for a in COMMON if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="no CUDA card"):
         cli.main(argv)
-
-
-@pytest.mark.parametrize("flags, item", [(["--aa", "randaugment"], "A.12b")])
-def test_later_work_raises(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(COMMON + flags)
 
 
 def test_mesh_flags_in_one_process():

@@ -54,7 +54,7 @@ BUILDERS = {
 TP_CASES = ("vit", "swin_v1", "swin_v2", "convnext")
 CLI_FLAGS = ["--device", "cpu", "--model", "convnext_tiny", "--synthetic", "2", "--batch-size", "8", "--canvas",
              "40", "--crop", "32", "--epochs", "2", "--warmup-epochs", "1", "--lr", "0.01", "--ema", "0.99",
-             "--mixup", "0.2", "--log-every", "1", "--mesh-model", "2", "--distributed"]
+             "--mixup", "0.2", "--aa", "randaugment", "--log-every", "1", "--mesh-model", "2", "--distributed"]
 
 
 def optimizer(name, model):
@@ -164,9 +164,10 @@ def eval_case(name, mesh, work_dir):
 
 
 def cli_case(mesh, work_dir):
-    """The training CLI under torchrun's environment: an unbroken run of two
-    epochs (checkpoints at steps 2 and 4), a run resumed from step 2, and
-    the unbroken model's eval logits on a seeded batch."""
+    """The training CLI under torchrun's environment (RandAugment, mixup):
+    an unbroken run of two epochs (checkpoints at steps 2 and 4), a run
+    resumed from step 2, and the unbroken model's eval logits on a seeded
+    batch."""
     from eqxvision_tpu_torch.cli import train_imagenet as cli
 
     unbroken, resumed = os.path.join(work_dir, "cli_unbroken"), os.path.join(work_dir, "cli_resumed")
