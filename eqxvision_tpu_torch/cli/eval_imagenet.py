@@ -44,6 +44,7 @@ from torch import nn
 from ..data import ImageFolderLoader, device_prefetch
 from ..models import create_model
 from ..models._common import resolve_device
+from ..observability import annotate
 from ..ops import fold_batchnorm, fold_layernorm
 from ..ops.preprocessing import five_crop, imagenet_eval_pipeline, normalize, resize_shorter_side, ten_crop
 from ..quantize import quantize_dynamic_int8, quantize_weights_int8
@@ -102,13 +103,17 @@ def make_step(args: argparse.Namespace):
 
     @torch.inference_mode()
     def scores(model, images_u8):
-        if crop_fn is None:
-            return model(imagenet_eval_pipeline(images_u8, resize_size=args.resize, crop_size=args.crop, dtype=dtype))
-        # the classic multi-crop protocol: crops of the resized image (not of the centre crop)
-        crops = crop_fn(normalize(resize_shorter_side(images_u8, args.resize)).to(dtype), args.crop)
-        k, n = crops.shape[:2]
-        probs = torch.softmax(model(crops.reshape(k * n, *crops.shape[2:])).float(), dim=-1)
-        return probs.reshape(k, n, -1).mean(0)
+        with annotate("eqxvision.eval.scores"):
+            if crop_fn is None:
+                with annotate("eqxvision.eval.preprocess"):
+                    x = imagenet_eval_pipeline(images_u8, resize_size=args.resize, crop_size=args.crop, dtype=dtype)
+                return model(x)
+            # the classic multi-crop protocol: crops of the resized image (not of the centre crop)
+            with annotate("eqxvision.eval.preprocess"):
+                crops = crop_fn(normalize(resize_shorter_side(images_u8, args.resize)).to(dtype), args.crop)
+            k, n = crops.shape[:2]
+            probs = torch.softmax(model(crops.reshape(k * n, *crops.shape[2:])).float(), dim=-1)
+            return probs.reshape(k, n, -1).mean(0)
 
     @torch.inference_mode()
     def step(model, images_u8, labels):

@@ -23,6 +23,8 @@ from typing import Iterable, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .observability import annotate
+
 
 def find_imagefolder_samples(root: str) -> Tuple[List[Tuple[str, int]], List[str]]:
     """ImageFolder layout, root/<class>/<image>: the classes sorted
@@ -151,15 +153,17 @@ def device_prefetch(iterator: Iterable, size: int = 2, device: Union[str, torch.
     it = iter(iterator)
     if device.type != "cuda":
         for batch in it:
-            yield tuple(torch.as_tensor(np.asarray(a), device=device) for a in batch)
+            with annotate("eqxvision.feed"):
+                tensors = tuple(torch.as_tensor(np.asarray(a), device=device) for a in batch)
+            yield tensors
         return
     stream = torch.cuda.Stream(device)
 
     def put(batch):
-        with torch.cuda.stream(stream):
+        with annotate("eqxvision.feed"), torch.cuda.stream(stream):
             tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(device, non_blocking=True)
                             for a in batch)
-        return tensors, stream.record_event()
+            return tensors, stream.record_event()
 
     buf = collections.deque(put(b) for b in itertools.islice(it, size))
     while buf:

@@ -3,10 +3,37 @@
 - ``trace(logdir)``: ``torch.profiler`` over the block (CPU, and CUDA where
   there is a card), its trace written under ``logdir`` for TensorBoard or
   Perfetto;
-- ``annotate(name)``: a named span in that trace (``record_function``);
+- ``annotate(name)``: a named span in that trace. While a profiler records
+  (``trace``, or any ``torch.profiler.profile``), it is a
+  ``record_function``: a host event of the profiler, on the clock of the
+  card's activities, which the profiler links to the kernels launched
+  inside it. Otherwise it is one shared no-op context, so that a span
+  costs one call when nothing records;
 - ``checked_call(model, x)``: ``model(x)`` with a check after every module,
   which raises on the first module whose output holds NaN or inf, naming
   its qualified name (the location that checkify gives the JAX package).
+
+``SPANS`` names the spans the port opens at its layer boundaries, each
+opened and closed inside one call:
+
+- ``eqxvision.feed``: ``data.device_prefetch``'s work on one batch
+  (``np.ascontiguousarray``, ``pin_memory()`` and the ``non_blocking`` copy
+  issued on the side stream; off the card the tensors made in place);
+- ``eqxvision.eval.scores``: ``cli.eval_imagenet.make_step``'s
+  ``scores``, the whole call: preprocessing and the forward (TTA included);
+- ``eqxvision.eval.preprocess``: inside it, ``imagenet_eval_pipeline``
+  (or the TTA crops and normalisation);
+- ``eqxvision.train.augment``: ``make_train_step``'s ``augment_fn``;
+- ``eqxvision.train.forward``: the bf16 casts of the masters, the forward
+  (remat's checkpoint included) and the loss;
+- ``eqxvision.train.backward``: ``zero_grad`` and ``loss.backward()``;
+- ``eqxvision.train.sync``: the step's collectives, the gradients'
+  all-reduce and the loss's mean over the data group (only on a mesh with
+  more than one data rank);
+- ``eqxvision.train.optimizer``: ``optimizer.step()``.
+
+An operator traces a run of the eval CLI with
+``with observability.trace(logdir): cli.eval_imagenet.main([...])``.
 """
 from __future__ import annotations
 
@@ -15,6 +42,19 @@ from typing import Any
 
 import torch
 from torch import nn
+
+SPANS = (
+    "eqxvision.feed",
+    "eqxvision.eval.scores",
+    "eqxvision.eval.preprocess",
+    "eqxvision.train.augment",
+    "eqxvision.train.forward",
+    "eqxvision.train.backward",
+    "eqxvision.train.sync",
+    "eqxvision.train.optimizer",
+)
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -28,7 +68,10 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    return torch.profiler.record_function(name)
+    """A span named ``name`` while a profiler records, else a no-op."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _tensors(out):

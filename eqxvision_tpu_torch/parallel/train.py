@@ -51,6 +51,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..nn.collectives import all_reduce_
+from ..observability import annotate
 from .mesh import Mesh, all_reduce_grads
 
 AUX_LOSS_WEIGHT = 0.3  # GoogLeNet's aux heads, as in the JAX step
@@ -120,33 +121,36 @@ def _loss(logits, y, loss_fn: Callable, aux: bool) -> torch.Tensor:
     return loss
 
 
-def _data_mean(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The mean of ``t`` over the data group (``t`` itself on one rank)."""
-    if mesh is None or mesh.data == 1:
-        return t
-    return all_reduce_(t.clone(), mesh.data_group) / mesh.data
-
-
 def _make_step(loss_fn, compute_dtype, remat, augment_fn, aux, mesh=None):
     if loss_fn is None:
         loss_fn = softmax_cross_entropy
 
+    syncs = mesh is not None and mesh.data > 1
+
     def loss_of(model, x, y, generator=None):
         if augment_fn is not None:
-            x, y = augment_fn(generator, x, y)
-        return _loss(_forward(model, x, compute_dtype, remat), y, loss_fn, aux)
+            with annotate("eqxvision.train.augment"):
+                x, y = augment_fn(generator, x, y)
+        with annotate("eqxvision.train.forward"):
+            return _loss(_forward(model, x, compute_dtype, remat), y, loss_fn, aux)
 
     def update(optimizer, loss):
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            all_reduce_grads((p for g in optimizer.param_groups for p in g["params"]), mesh)
-        optimizer.step()
+        with annotate("eqxvision.train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if syncs:
+            with annotate("eqxvision.train.sync"):
+                all_reduce_grads((p for g in optimizer.param_groups for p in g["params"]), mesh)
+        with annotate("eqxvision.train.optimizer"):
+            optimizer.step()
 
     def step(model, optimizer, x, y, generator=None):
         loss = loss_of(model, x, y, generator)
         update(optimizer, loss)
-        return _data_mean(loss.detach(), mesh)
+        if not syncs:
+            return loss.detach()
+        with annotate("eqxvision.train.sync"):  # the global batch's mean
+            return all_reduce_(loss.detach().clone(), mesh.data_group) / mesh.data
 
     step.loss, step.update = loss_of, update
     return step

@@ -1,0 +1,6 @@
+"""Device ms a step launched inside the train step's optimiser span (AdamW)."""
+from portbench.harness.spans import device_ms
+
+
+def read(run):
+    return device_ms(run, "eqxvision.train.optimizer")

@@ -23,6 +23,8 @@ ranks run, and each test asserts one case:
   parameters and the running statistics as above;
 - a remat step bit for bit the plain sharded step, with drop path and
   dropout drawing;
+- a step on either mesh records its collectives as the span
+  ``eqxvision.train.sync`` under a profiler;
 - drop-path masks equal on the model ranks of a data index, different
   across data indices, data index 0's those of one process with the seed;
 - the shards of each model's ``state_dict`` joined give the whole one
@@ -255,6 +257,16 @@ def test_remat_step_is_bitwise_the_plain_step(world):
     for r in world["ranks"]:
         assert r["remat"]["losses"][0] == r["remat"]["losses"][1]
         assert r["remat"]["max_abs_diff"] == 0.0
+
+
+@pytest.mark.parametrize("case", ["vit", "resnet18"])
+def test_step_on_a_data_mesh_records_its_collectives_span(world, case):
+    """On the 2 x 2 and the 4 x 1 mesh each rank's step records the
+    gradients' all-reduce and the loss's mean as ``eqxvision.train.sync``,
+    between the backward and the optimiser and after it."""
+    want = ["eqxvision.train.forward", "eqxvision.train.backward", "eqxvision.train.sync",
+            "eqxvision.train.optimizer", "eqxvision.train.sync"]
+    assert all(r[f"spans_{case}"] == want for r in world["ranks"])
 
 
 def test_drop_path_masks_by_data_index(world):

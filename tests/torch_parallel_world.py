@@ -134,6 +134,21 @@ def step_case(name, mesh, work_dir, opt_name="sgd", remat=False):
     }
 
 
+def spans_case(name, mesh, work_dir):
+    """The port's spans of one step of ``name`` on ``mesh`` under a CPU
+    profiler, by start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = parallelize(_model(name, work_dir), mesh)
+    opt = optimizer("sgd", model)
+    x, y = _batch(work_dir)
+    step = make_train_step(mesh=mesh)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(model, opt, *shard_batch((x, y), mesh))
+    return [n for _, n in sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                                 if e.name().startswith("eqxvision."))]
+
+
 def remat_case(mesh):
     """The ViT with drop path 0.1 and dropout: one plain and one remat step
     from the same weights and seeds, each rank's results bit for bit."""
@@ -202,6 +217,8 @@ def run(work_dir):
     out["vit_adamw"] = step_case("vit", mesh22, work_dir, opt_name="adamw")
     out["resnet18"] = step_case("resnet18", mesh41, work_dir)
     out["remat"] = remat_case(mesh22)
+    out["spans_vit"] = spans_case("vit", mesh22, work_dir)
+    out["spans_resnet18"] = spans_case("resnet18", mesh41, work_dir)
     seed_rank(7, mesh22)
     out["masks"] = DropPath(0.5).train()(torch.ones(64, 1, 1, 1)).flatten()
     out["eval_resnet18"] = eval_case("resnet18", mesh41, work_dir)
