@@ -105,11 +105,15 @@ phase 10 alone (on as many cards as are visible), with no result line.
    fourth step's device time with its kernels' plain recompute in the
    backward (torch.profiler). Around resnet50's fourth step, one EMA update
    against its closed form, then the EMA weights through the eval step with
-   ten-crop TTA against the crops' averaged softmax. Then the cost of
-   ``Linear.preactivation``'s widening to f32 under grad at vit_base's fc1,
-   and one f32 vit_base b4 step on the card (kernels on, TF32 off) against
-   the same step on the CPU's plain path: the loss and every updated
-   parameter within their stated bounds. Then the AutoAugment family
+   ten-crop TTA against the crops' averaged softmax. Each step takes
+   ``nn.linear``'s ``_WideProduct`` once an unfused MLP (22 vit_base with
+   remat, 12 swin_t, 0 resnet50). Then ``Linear.preactivation`` under grad
+   at vit_base b128's fc1 (``check_wide_product``: ``_WideProduct``, bf16
+   on the tensor cores, its forward and f32 gradients against f64, timed
+   beside the f32 upcast it replaced and plain bf16), and one f32
+   vit_base b4 step on the card (kernels on, TF32 off) against the same
+   step on the CPU's plain path: the loss and every updated parameter
+   within their stated bounds. Then the AutoAugment family
    (``check_auto_augment``): a seeded b64 batch of 224 px images in [0, 1]
    on the card through the eight point and affine ops at per-image
    parameters and the four policies, each drawn and applied on the card
@@ -305,13 +309,17 @@ GEMM_CASES = [
 # and its factory's arguments. vit_base with drop path 0.1: block 0 (drop
 # path 0) on the two fused halves, blocks 1-11 on K1 between K6s, the final
 # norm on K6. swin_t in training runs every block unfused: K3 in all 12, K6 in
-# the 24 block norms, the stem, 3 mergings and the final norm.
+# the 24 block norms, the stem, 3 mergings and the final norm. ``wide``: the
+# calls a step of ``nn.linear``'s ``_WideProduct`` (``wide_product
+# .tensor_core_calls``), one an unfused MLP's fc1: vit_base's blocks 1-11
+# (twice with remat), swin_t's 12 blocks.
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_CANVAS, TRAIN_CROP = 64, 3, 256, 224
 TRAIN = {
-    "resnet50": dict(opt="sgd", lr=0.025, weight_decay=1e-4, remat=False, expected=(0,) * 8, ema=True),
+    "resnet50": dict(opt="sgd", lr=0.025, weight_decay=1e-4, remat=False, expected=(0,) * 8, wide=0, ema=True),
     "vit_base": dict(opt="adamw", lr=1e-3, weight_decay=0.05, remat=True, expected=(22, 0, 0, 46, 0, 2, 2, 0),
-                     drop_path_rate=0.1),
-    "swin_t": dict(opt="adamw", lr=1e-3, weight_decay=0.05, remat=False, expected=(0, 12, 0, 29, 0, 0, 0, 0)),
+                     wide=22, drop_path_rate=0.1),
+    "swin_t": dict(opt="adamw", lr=1e-3, weight_decay=0.05, remat=False, expected=(0, 12, 0, 29, 0, 0, 0, 0),
+                   wide=12),
 }
 # The backward nodes of the kernels' autograd functions, each of which
 # recomputes through the kernel's plain version.
@@ -322,6 +330,13 @@ KERNEL_BACKWARDS = ("_FusedQkvAttentionBackward", "_WindowQkvAttentionBackward",
 # of its tensor's largest, the logit bound's relative size (the same f32 sums
 # in another order on two devices, through the same 12 blocks and back).
 TRAIN_F32_BATCH, TRAIN_GRAD_BOUND = 4, 1e-3
+# Linear.preactivation under grad at vit_base's fc1 at b WIDE_BATCH (the
+# training benchmark's batch), against f64 by norm. The forward: one f32 sum
+# of 768 bf16 products a value, ~1e-6. The gradients in f32 before their
+# cast, on the hi + lo split of the cotangent (within 2^-17 of it): sums of
+# 6144 and of 25216 terms, ~1e-5 to 3e-5; the same products of one bf16
+# rounding of the cotangent (2^-8) read ~1.7e-3. The bound lies between.
+WIDE_BATCH, WIDE_FWD_BOUND, WIDE_GRAD_BOUND = 128, 1e-5, 2e-4
 # Two f32 forwards of one image at other batch sizes (80 crops at once, 8 at
 # a time) differ by about 1e-6 of a probability; a random resnet50's ten-crop
 # averages lie near 1/1000 and within 1e-4 of each other, so a tie is a gap
@@ -2068,24 +2083,64 @@ def _recompute_ms(fn):
     _check(False, "the profiler saw no kernel of a train step, three times")
 
 
-def _linear_widening_ms(rows, d_in, d_out):
-    """``Linear.preactivation`` under grad on the card widens a bf16 input
-    and weight to f32 (``nn/linear.py``): its forward and backward at
-    (rows, d_in) x (d_out, d_in) in f32 against the same product in bf16,
-    CUDA events over 5 calls each, in turns."""
+def check_wide_product(rows, d_in, d_out):
+    """``Linear.preactivation`` under grad on the card at (rows, d_in) x
+    (d_out, d_in), bf16 operands and an f32 cotangent: ``wide_product``
+    must take ``_WideProduct``, whose forward must lie within
+    ``WIDE_FWD_BOUND`` of the f64 product of the same operands and whose
+    f32 gradients before their cast (``wide_product_grads``, on the hi + lo
+    split of the cotangent) within ``WIDE_GRAD_BOUND`` of the f64 ones,
+    while the same products of one bf16 rounding of the cotangent must miss
+    that bound; the Function's bf16 gradients within half a bf16 step more.
+    Then its forward + backward against the same product with the operands
+    upcast to f32 (the route under grad before it, on the CUDA cores with
+    TF32 off) and in plain bf16, CUDA events over 5 calls each, in turns.
+    Returns the three ms."""
+    from eqxvision_tpu_torch.nn.linear import mm_f32, wide_product, wide_product_grads
+
     gen = torch.Generator(device="cuda").manual_seed(12)
     x = torch.randn(rows, d_in, device="cuda", generator=gen).to(torch.bfloat16).requires_grad_(True)
     w = (torch.randn(d_out, d_in, device="cuda", generator=gen) * 0.02).to(torch.bfloat16).requires_grad_(True)
     g = torch.randn(rows, d_out, device="cuda", generator=gen)
 
+    def rel(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    before = wide_product.tensor_core_calls
+    y = wide_product(x, w)
+    _check(wide_product.tensor_core_calls == before + 1 and type(y.grad_fn).__name__ == "_WideProductBackward",
+           f"wide_product under grad on the card did not take _WideProduct: {y.grad_fn}")
+    y.backward(g)
+    with torch.no_grad():
+        x64, w64, g64 = x.double(), w.double(), g.double()
+        fwd_err = rel(y, x64 @ w64.t())
+        ref_dx, ref_dw = g64 @ w64, g64.t() @ x64
+        dx, dw = wide_product_grads(g, x.detach(), w.detach())
+        errs = rel(dx, ref_dx), rel(dw, ref_dw)
+        one = g.to(torch.bfloat16)
+        one_errs = rel(mm_f32(one, w), ref_dx), rel(mm_f32(one.t(), x), ref_dw)
+        rounded = rel(x.grad, ref_dx), rel(w.grad, ref_dw)
+        del x64, w64, g64, ref_dx, ref_dw, dx, dw, one
+    print(f"_WideProduct at ({rows}, {d_in}) x ({d_out}, {d_in}) against f64, by norm: forward {fwd_err:.3e} (bound "
+          f"{WIDE_FWD_BOUND:.0e}); f32 dX {errs[0]:.3e}, dW {errs[1]:.3e} (bound {WIDE_GRAD_BOUND:.0e}; one bf16 "
+          f"cotangent {one_errs[0]:.3e}, {one_errs[1]:.3e}); bf16 dX {rounded[0]:.3e}, dW {rounded[1]:.3e}")
+    _check(fwd_err < WIDE_FWD_BOUND, f"_WideProduct forward {fwd_err:.3e} of f64")
+    _check(max(errs) < WIDE_GRAD_BOUND, f"_WideProduct's f32 gradients {errs} of f64")
+    _check(min(one_errs) > WIDE_GRAD_BOUND, f"one bf16 cotangent term meets the gradients' bound: {one_errs}")
+    _check(max(rounded) < WIDE_GRAD_BOUND + 2.0**-8, f"_WideProduct's bf16 gradients {rounded} of f64")
+    x.grad = w.grad = None
+
     def widened():
         F.linear(x.float(), w.float()).backward(g)
+
+    def tensor_cores():
+        wide_product(x, w).backward(g)
 
     def bf16():
         F.linear(x, w).backward(g.to(torch.bfloat16))
 
-    t = [_time_ms(fn, 5) for fn in (bf16, widened, widened, bf16)]
-    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    t = [_time_ms(fn, 5) for fn in (bf16, widened, tensor_cores, tensor_cores, widened, bf16)]
+    return (t[1] + t[4]) / 2, (t[2] + t[3]) / 2, (t[0] + t[5]) / 2
 
 
 def check_ema_eval(model, run_step):
@@ -2131,22 +2186,23 @@ def check_ema_eval(model, run_step):
            f"eval step counts {got}")
 
 
-def train(create_model, counters, name, opt, lr, weight_decay, remat, expected, ema=False, **model_kwargs):
+def train(create_model, counters, name, opt, lr, weight_decay, remat, expected, wide, ema=False, **model_kwargs):
     """``name`` trained for ``TRAIN_STEPS`` bf16 mixed-precision steps at
     b``TRAIN_BATCH`` (f32 masters, ``make_train_step``), each from uint8
     canvases (the CLI's seeded ``synthetic_batches``, copied to the card by
     ``data.device_prefetch`` and checked against the host's) through the
     CLI's on-device augmentation: crop 224 of 256, flip, label smoothing
     0.1, mixup 0.2 or cutmix 1.0. Every step must
-    give a finite loss and launch ``expected`` kernels (with remat, the
-    recompute's too). Prints each step's forward (augmentation included)
-    and backward + optimiser ms by CUDA events, the mean of steps 2 on with
-    images/s, the peak memory, and a fourth step's device time with the
+    give a finite loss, launch ``expected`` kernels (with remat, the
+    recompute's too) and take ``_WideProduct`` ``wide`` times. Prints
+    each step's forward (augmentation included) and backward + optimiser
+    ms by CUDA events, the mean of steps 2 on with images/s, the peak memory, and a fourth step's device time with the
     share of each kernel's plain recompute in its backward. With ``ema``,
     ``check_ema_eval`` around that fourth step. Returns the launches of the
     timed steps."""
     from eqxvision_tpu_torch.cli.train_imagenet import build_optimizer, make_augment_fn, synthetic_batches
     from eqxvision_tpu_torch.data import device_prefetch
+    from eqxvision_tpu_torch.nn.linear import wide_product
     from eqxvision_tpu_torch.parallel import make_train_step
 
     model = create_model(name, generator=torch.Generator().manual_seed(0), device="cuda", **model_kwargs).train()
@@ -2161,9 +2217,11 @@ def train(create_model, counters, name, opt, lr, weight_decay, remat, expected, 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset(counters)
+    wide_product.tensor_core_calls = 0
     times = []
     for i, (x, y) in enumerate(batches):
         before = [fn.launches for fn in counters]
+        wide_before = wide_product.tensor_core_calls
         events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         events[0].record()
         loss = step.loss(model, x, y, gen)
@@ -2172,13 +2230,15 @@ def train(create_model, counters, name, opt, lr, weight_decay, remat, expected, 
         events[2].record()
         events[2].synchronize()
         launched = [fn.launches - n for fn, n in zip(counters, before)]
+        wide_calls = wide_product.tensor_core_calls - wide_before
         fwd, bwd = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
         times.append((fwd, bwd))
         launches = dict(zip((fn.__name__ for fn in counters), launched))
         print(f"{name} b{TRAIN_BATCH} bf16 train step {i + 1}: loss {loss.item():.4f}, {fwd + bwd:.3f} ms (forward "
-              f"{fwd:.3f}, backward + optimiser {bwd:.3f}), launches {launches}")
+              f"{fwd:.3f}, backward + optimiser {bwd:.3f}), launches {launches}, _WideProduct {wide_calls}")
         _check(math.isfinite(loss.item()), f"{name} train step {i + 1}: loss {loss.item()}")
         _check(launched == list(expected), f"{name} train step {i + 1}: launches {launched}, expected {list(expected)}")
+        _check(wide_calls == wide, f"{name} train step {i + 1}: _WideProduct taken {wide_calls} times, expected {wide}")
     counts = {fn.__name__: fn.launches for fn in counters}
     _check(all(counts[fn.__name__] for fn, n in zip(counters, expected) if n),
            f"{name}: a kernel of the training path was never launched: {counts}")
@@ -2806,10 +2866,11 @@ def main():
         serve_segmentation(create_model, name, requests, counters, 2 if kwargs else 1, **kwargs)
     print(f"training on {smi}")
     train_counts = {name: train(create_model, counters, name, **cfg) for name, cfg in TRAIN.items()}
-    wide, narrow = _linear_widening_ms(TRAIN_BATCH * 197, 768, 3072)
-    print(f"Linear.preactivation under grad (vit_base b{TRAIN_BATCH} fc1, 11 blocks a forward in training): f32 "
-          f"forward + backward {wide:.3f} ms against {narrow:.3f} in bf16, {11 * (wide - narrow):.3f} ms a step "
-          f"(without remat's second forward)")
+    wide, tensor_cores, narrow = check_wide_product(WIDE_BATCH * 197, 768, 3072)
+    print(f"Linear.preactivation under grad (vit_base b{WIDE_BATCH} fc1, 11 blocks a forward in training): "
+          f"forward + backward {tensor_cores:.3f} ms (_WideProduct) against {wide:.3f} upcast to f32 and "
+          f"{narrow:.3f} in plain bf16, {11 * (wide - tensor_cores):.3f} ms a step saved (without remat's second "
+          f"forward)")
     check_train_f32(create_model, counters)
     print(f"AutoAugment family on {smi}")
     check_auto_augment(smi)

@@ -15,7 +15,10 @@ import torch
 from eqxvision_tpu_torch import _native
 from eqxvision_tpu_torch.layers import MlpProjection
 from eqxvision_tpu_torch.models.classification import swin as S
+from eqxvision_tpu_torch.models.classification.convnext import CNBlock
 from eqxvision_tpu_torch.nn import Linear
+from eqxvision_tpu_torch.nn.collectives import ColumnParallelLinear, Group
+from eqxvision_tpu_torch.nn.linear import wide_product
 from eqxvision_tpu_torch.ops import attention_half as AH
 from eqxvision_tpu_torch.ops import layernorm as LN
 from eqxvision_tpu_torch.ops import mlp_half as M
@@ -1217,18 +1220,38 @@ def _gen():
     return torch.Generator().manual_seed(0)
 
 
+def _convnext_block_train():
+    # stochastic depth 1e-12: the block's training route (fc1.preactivation,
+    # not the fused half), with every sample kept on both devices
+    return CNBlock(96, 0.5, 1e-12, generator=_gen()).to(torch.bfloat16).train()
+
+
+def _column_parallel_f32_params():
+    # a group of one rank: copy_to_group is the identity; f32 parameters
+    # send the bf16 input through preactivation
+    layer = Linear(96, 160, generator=_gen())
+    return ColumnParallelLinear(layer.weight, layer.bias, Group((0,)))
+
+
 # Modules whose bf16 input meets Linear.preactivation: the f32 accumulator
 # that the card computes with torch.mm's out_dtype where no gradient is
-# taken. ViT's training MLP, a Swin block with C > 192 in training (its MLP,
-# and the window-attention kernel under the qkv), and a Linear with f32
-# parameters.
+# taken, and under grad with nn.linear's _WideProduct (its backward on the
+# hi + lo split of the f32 cotangent). ViT's training MLP (and at ViT-B's
+# widths, and on a row count off the multiples of 128), a Swin block with C
+# > 192 in training (its MLP, and the window-attention kernel under the
+# qkv), a ConvNeXt block's training route on NHWC input, a Linear with f32
+# parameters and the tensor-parallel column Linear.
 GRAD_CASES = {
     "mlp-bf16": (lambda: MlpProjection(96, 384, generator=_gen()).to(torch.bfloat16), (2, 50, 96)),
+    "mlp-vit-base-bf16": (lambda: MlpProjection(768, 3072, generator=_gen()).to(torch.bfloat16), (3, 197, 768)),
+    "mlp-ragged-rows-bf16": (lambda: MlpProjection(96, 384, generator=_gen()).to(torch.bfloat16), (5, 53, 96)),
     "swin-block-c256-bf16-train": (
         lambda: S._SwinTransformerBlock(256, 8, [7, 7], [3, 3], generator=_gen()).to(torch.bfloat16).train(),
         (2, 14, 14, 256),
     ),
+    "convnext-block-nhwc-bf16-train": (_convnext_block_train, (2, 14, 14, 96)),
     "linear-f32-params": (lambda: Linear(96, 160, generator=_gen()), (3, 7, 96)),
+    "column-parallel-f32-params": (_column_parallel_f32_params, (3, 7, 96)),
 }
 
 
@@ -1259,6 +1282,28 @@ def test_bf16_input_gradients_on_the_card_match_the_cpu(cuda, name):
         assert out is not None and ref is not None
         assert torch.isfinite(out).all()
         assert _rel(out.cpu(), ref) < 2e-2
+
+
+def test_bf16_vit_training_forward_takes_the_tensor_core_product(cuda):
+    """A bf16 ViT forward under grad in training, drop path on: its blocks
+    1 to depth - 1 run the unfused MLP, whose fc1.preactivation takes
+    _WideProduct once a block; block 0 (drop path 0) runs the fused half.
+    Under no_grad the counter stays."""
+    from eqxvision_tpu_torch.models import create_model
+
+    depth = 4
+    model = create_model("vit_tiny", img_size=64, depth=depth, num_classes=10, drop_path_rate=0.1, generator=_gen(),
+                         device=cuda).to(torch.bfloat16).train()
+    x = torch.randn(2, 64, 64, 3, device=cuda, generator=torch.Generator(cuda).manual_seed(1)).bfloat16()
+    before = wide_product.tensor_core_calls
+    model(x).float().sum().backward()
+    torch.cuda.synchronize()
+    assert wide_product.tensor_core_calls - before == depth - 1
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    before = wide_product.tensor_core_calls
+    with torch.no_grad():
+        model(x)
+    assert wide_product.tensor_core_calls == before
 
 
 # The f32 GEMM of csrc/gemm_bf16.cuh (split TF32 on TMA-fed wgmma) through

@@ -198,3 +198,81 @@ def test_init_seeded_and_bounded(device):
     assert 0.015 < float(t.std()) < 0.02
     bias = init.uniform_fan_in((1000,), 16, generator=_gen())
     assert float(bias.abs().max()) <= 0.25
+
+
+# The arithmetic of the bf16 training product on the tensor cores
+# (nn/linear.py's _WideProduct), called directly on the CPU: mm_f32 computes
+# there on upcast operands, which is the card's arithmetic up to summation
+# order. (m, k, n): ragged rows, and fc1's widths of ViT-B.
+WIDE_SHAPES = [(131, 96, 384), (197, 768, 3072)]
+
+
+def _wide_operands(m, k, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=gen).bfloat16()
+    w = (torch.randn(n, k, generator=gen) * 0.02).bfloat16()
+    g = torch.randn(m, n, generator=gen)  # f32, low bits set
+    return x, w, g
+
+
+def _norm_rel(a, ref):
+    return float((a.detach().double() - ref).norm() / ref.norm())
+
+
+def test_split_bf16_reconstructs_the_cotangent():
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn(64, 300, generator=gen) * torch.logspace(-30, 30, 300)
+    g[0, :3] = torch.tensor([0.0, 1.0, -3.0])  # exact in bf16: lo is 0
+    split = TN.linear.split_bf16(g)
+    assert split.dtype == torch.bfloat16 and split.shape == (64, 600)
+    hi, lo = split[:, :300].double(), split[:, 300:].double()
+    assert torch.equal(split[:, :300], g.bfloat16())
+    assert torch.equal(lo[0, :3], torch.zeros(3, dtype=torch.float64))
+    size = g.double().abs().clamp_min(1e-300)
+    assert float(((hi + lo - g.double()).abs() / size).max()) <= 2.0 ** -17
+    assert float(((hi - g.double()).abs() / size).max()) > 2.0 ** -10  # one term is far coarser
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wide_product_grads_match_f64(shape):
+    """The f32 dX and dW before their cast, against the f64 products of the
+    same operands and cotangent, to a norm-relative 2e-5; the Function's
+    forward is the f32 product of the bf16 operands, and its gradients
+    are these rounded once to bf16."""
+    x, w, g = _wide_operands(*shape, seed=6)
+    dx, dw = TN.linear.wide_product_grads(g, x, w)
+    assert dx.dtype == dw.dtype == torch.float32
+    assert _norm_rel(dx, g.double() @ w.double()) < 2e-5
+    assert _norm_rel(dw, g.double().t() @ x.double()) < 2e-5
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = TN.linear._WideProduct.apply(xr.reshape(1, *x.shape), wr)
+    assert y.dtype == torch.float32 and y.shape == (1, shape[0], shape[2])
+    assert _norm_rel(y[0], x.double() @ w.double().t()) < 1e-6
+    y.backward(g.reshape(1, *g.shape))
+    assert torch.equal(xr.grad, dx.bfloat16()) and torch.equal(wr.grad, dw.bfloat16())
+    only_w = TN.linear.wide_product_grads(g, x, w, need_x=False)
+    assert only_w[0] is None and torch.equal(only_w[1], dw)
+
+
+def test_wide_product_grads_need_the_low_term():
+    """The precision argument: with an f32 cotangent whose low bits matter,
+    the products of its single bf16 rounding miss the 2e-5 mark by far;
+    the hi + lo split meets it."""
+    x, w, g = _wide_operands(197, 768, 3072, seed=7)
+    ref_dx, ref_dw = g.double() @ w.double(), g.double().t() @ x.double()
+    one = g.bfloat16()
+    assert _norm_rel(TN.linear.mm_f32(one, w), ref_dx) > 20 * 2e-5
+    assert _norm_rel(TN.linear.mm_f32(one.t(), x), ref_dw) > 20 * 2e-5
+    dx, dw = TN.linear.wide_product_grads(g, x, w)
+    assert _norm_rel(dx, ref_dx) < 2e-5 and _norm_rel(dw, ref_dw) < 2e-5
+
+
+def test_wide_product_on_the_cpu_upcasts():
+    """On the CPU a bf16 product under grad keeps the upcast branch: the
+    Function is not taken and its counter does not move."""
+    before = TN.linear.wide_product.tensor_core_calls
+    x = torch.randn(5, 24).bfloat16().requires_grad_(True)
+    w = torch.randn(40, 24).bfloat16().requires_grad_(True)
+    y = TN.linear.wide_product(x, w)
+    assert y.dtype == torch.float32 and y.grad_fn.name() == "MmBackward0"
+    assert TN.linear.wide_product.tensor_core_calls == before
